@@ -30,6 +30,17 @@
 // The table is float32 or bfloat16 (converted exactly by a 16-bit shift);
 // sums and the output are float32.  Launches go on the caller's stream,
 // allocate nothing, and return cudaGetLastError().
+//
+// A third entry point, sgt_fanout_aggregate_backward, is the gradient of
+// the fanout term: grad_x[pos[f, s], :] += w[f, s] * g[f, :].  The Pallas
+// kernel has no VJP; the JAX model differentiates XLA's take + einsum
+// (stochastic_gcn_tpu/ops/pallas_spmm.py::fanout_aggregate_xla), whose
+// transpose is a scatter-add.  It is bound by the same row traffic as the
+// forward, written instead of read: one warp per g row (read once into
+// registers as 16 B chunks), the same ballot over live slots, and one
+// float atomicAdd per value, so repeated positions (dedup-compacted fields)
+// sum correctly in any order.  Under the no-dedup layout positions are
+// unique and the atomics never contend.  The caller zeroes grad_x.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -189,6 +200,68 @@ int gather_aggregate(const void* table, int dtype, int64_t rows, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
+// kCpl: float4 chunks of a g row per lane (chunks = d / 4 <= 32 * kCpl).
+template <int kCpl>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+fanout_backward_kernel(const float4* __restrict__ g, int chunks,
+                       const int32_t* __restrict__ pos,
+                       const float* __restrict__ w, int n_out, int k,
+                       int64_t c, float* __restrict__ grad_x) {
+  const int lane = threadIdx.x & 31;
+  const int f = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (f >= n_out) return;  // whole warp leaves together
+
+  float4 gv[kCpl];
+#pragma unroll
+  for (int q = 0; q < kCpl; ++q) {
+    const int ch = lane + q * 32;
+    gv[q] = ch < chunks ? g[static_cast<int64_t>(f) * chunks + ch]
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  const int32_t* pos_f = pos + static_cast<int64_t>(f) * k;
+  const float* w_f = w + static_cast<int64_t>(f) * k;
+  for (int base = 0; base < k; base += 32) {
+    const int j = base + lane;
+    int my_p = 0;
+    float my_w = 0.f;
+    if (j < k) {
+      my_p = pos_f[j];
+      my_w = w_f[j];
+    }
+    const bool live = j < k && my_w != 0.f && my_p >= 0 &&
+                      static_cast<int64_t>(my_p) < c;
+    unsigned mask = __ballot_sync(kFullMask, live);  // warp-uniform
+    while (mask) {
+      const int s = __ffs(mask) - 1;
+      mask &= mask - 1;
+      const int p = __shfl_sync(kFullMask, my_p, s);
+      const float ws = __shfl_sync(kFullMask, my_w, s);
+      float* row = grad_x + static_cast<int64_t>(p) * (chunks * 4);
+#pragma unroll
+      for (int q = 0; q < kCpl; ++q) {
+        const int ch = lane + q * 32;
+        if (ch < chunks) {
+          atomicAdd(row + 4 * ch + 0, ws * gv[q].x);
+          atomicAdd(row + 4 * ch + 1, ws * gv[q].y);
+          atomicAdd(row + 4 * ch + 2, ws * gv[q].z);
+          atomicAdd(row + 4 * ch + 3, ws * gv[q].w);
+        }
+      }
+    }
+  }
+}
+
+template <int kCpl>
+void launch_backward(const float* g, int chunks, const int32_t* pos,
+                     const float* w, int n_out, int k, int64_t c,
+                     float* grad_x, cudaStream_t stream) {
+  const int blocks = (n_out + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  fanout_backward_kernel<kCpl><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      reinterpret_cast<const float4*>(g), chunks, pos, w, n_out, k, c,
+      grad_x);
+}
+
 }  // namespace
 
 extern "C" {
@@ -208,6 +281,25 @@ int sgt_fanout_aggregate(const void* x, int dtype, int64_t c, int d,
                          float* out, void* stream) {
   return gather_aggregate(x, dtype, c, d, pos, w, n_out, k, out,
                           static_cast<cudaStream_t>(stream));
+}
+
+// Gradient of the fanout term: g [n_out, d] float32, pos/w [n_out, k] ->
+// grad_x [c, d] float32, which the caller has zeroed; positions outside
+// [0, c) and zero weights contribute nothing.  The wrapper has checked
+// that d is a multiple of 4, at most 512, and that n_out > 0.
+int sgt_fanout_aggregate_backward(const float* g, const int32_t* pos,
+                                  const float* w, int n_out, int k,
+                                  int64_t c, int d, float* grad_x,
+                                  void* stream) {
+  const int chunks = d / 4;
+  const int cpl = (chunks + 31) / 32;
+  if (d % 4 != 0 || cpl < 1 || cpl > 4 || n_out <= 0 || k < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cpl == 1) launch_backward<1>(g, chunks, pos, w, n_out, k, c, grad_x, s);
+  else if (cpl == 2) launch_backward<2>(g, chunks, pos, w, n_out, k, c, grad_x, s);
+  else launch_backward<4>(g, chunks, pos, w, n_out, k, c, grad_x, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -2,7 +2,9 @@
 
 Port of the synthetic generators of stochastic_gcn_tpu/data/loaders.py
 (same numpy draws, so the same seed gives the same dataset in both
-packages), plus :func:`reddit_like`, the Reddit-shaped serving graph.  The
+packages): :func:`synthetic_dataset` and :func:`community_sbm_dataset`
+(the convergence benchmark's graph), plus :func:`reddit_like`, the
+Reddit-shaped graph of the JAX benchmark's headline recipe.  The
 reference file formats (Planetoid, GraphSAGE JSON, YouTube) are not ported
 yet.
 """
@@ -70,6 +72,74 @@ def synthetic_dataset(num_nodes: int = 512, feature_dim: int = 64,
                    train_feats=np.asarray(train_feats, np.float32),
                    test_feats=np.asarray(test_feats, np.float32),
                    labels=labels, train_d=train_d, val_d=val_d, test_d=test_d)
+
+
+def community_sbm_dataset(num_nodes: int = 65536, num_classes: int = 41,
+                          feature_dim: int = 602, mean_degree: int = 25,
+                          p_in: float = 0.85, snr: float = 0.18,
+                          pareto_a: float = 2.5, max_degree: int = -1,
+                          train_frac: float = 0.66, val_frac: float = 0.10,
+                          seed: int = 0) -> Dataset:
+    """Degree-corrected stochastic block model with power-law degrees: the
+    community-structured Reddit stand-in of the JAX benchmark's convergence
+    check (bench.py::build_community_reddit).
+
+    Labels are the planted communities.  Per-node features are a weak
+    class signal (``snr`` standard deviations of class-mean separation
+    under unit noise), so the graph carries the signal: one neighbourhood
+    aggregation over mostly same-community neighbours (``p_in``) denoises
+    it.  Degrees follow Pareto(``pareto_a``) propensities and are capped
+    at ``max_degree`` by the greedy edge subsample."""
+    rng = np.random.default_rng(seed)
+    comm = rng.integers(0, num_classes, num_nodes).astype(np.int32)
+    theta = rng.pareto(pareto_a, num_nodes) + 1.0
+    p_global = theta / theta.sum()
+
+    m = num_nodes * mean_degree // 2
+    src = rng.choice(num_nodes, size=m, p=p_global).astype(np.int32)
+    inside = rng.random(m) < p_in
+    dst = rng.choice(num_nodes, size=m, p=p_global).astype(np.int32)
+    # in-community targets are redrawn per community, ∝ theta in the block
+    for c in range(num_classes):
+        members = np.nonzero(comm == c)[0]
+        need = np.nonzero(inside & (comm[src] == c))[0]
+        if len(need) and len(members):
+            pc = theta[members] / theta[members].sum()
+            dst[need] = rng.choice(members, size=len(need), p=pc)
+    edges = np.stack([src, dst], axis=1)
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    if max_degree != -1:
+        edges = subsample_edges(edges, num_nodes, max_degree, rng)
+
+    adj01 = (adj_from_edges(edges, num_nodes) > 0).astype(np.float32)
+    full_adj = graphsage_normalize_adj(adj01)
+
+    mu = rng.normal(size=(num_classes, feature_dim)).astype(np.float32)
+    feats = (snr * mu[comm]
+             + rng.normal(size=(num_nodes, feature_dim))).astype(np.float32)
+    labels = np.zeros((num_nodes, num_classes), dtype=np.float32)
+    labels[np.arange(num_nodes), comm] = 1
+
+    perm = rng.permutation(num_nodes).astype(np.int32)
+    n_train = int(num_nodes * train_frac)
+    n_val = int(num_nodes * val_frac)
+    train_d = np.sort(perm[:n_train])
+    val_d = np.sort(perm[n_train:n_train + n_val])
+    test_d = np.sort(perm[n_train + n_val:])
+
+    is_train = np.zeros(num_nodes, dtype=bool)
+    is_train[train_d] = True
+    tr_edges = edges[is_train[edges[:, 0]] & is_train[edges[:, 1]]]
+    train_adj = graphsage_normalize_adj(
+        (adj_from_edges(tr_edges, num_nodes) > 0).astype(np.float32))
+    return Dataset(num_data=num_nodes, train_adj=train_adj,
+                   full_adj=full_adj, feats=feats,
+                   train_feats=np.asarray(
+                       compute_pp_features(train_adj, feats), np.float32),
+                   test_feats=np.asarray(
+                       compute_pp_features(full_adj, feats), np.float32),
+                   labels=labels, train_d=train_d, val_d=val_d,
+                   test_d=test_d)
 
 
 # Reddit's shape (GraphSAGE's Reddit graph): 233k nodes, 602 features, 41

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..data.graph import PaddedGraph, graph_rows
-from ..ops.cuda_spmm import fanout_aggregate, hbm_gather_aggregate
+from ..ops.cuda_spmm import FanoutAggregate, hbm_gather_aggregate
 from ..ops.gather import row_gather
 from ..sampler.scheduler import LayerSample
 
@@ -24,15 +24,20 @@ from ..sampler.scheduler import LayerSample
 def fanout_gather(x: torch.Tensor, slot_pos: torch.Tensor,
                   slot_w: torch.Tensor) -> torch.Tensor:
     """[C_in, d], [F, k], [F, k] -> [F, d]: out[f] = sum_s w[f,s]*x[pos[f,s]];
-    positions >= C_in (parked slots) read as zero rows."""
-    return fanout_aggregate(x.contiguous(), slot_pos.to(torch.int32).contiguous(),
-                            slot_w.contiguous())
+    positions >= C_in (parked slots) read as zero rows.  Differentiable in
+    ``x``; the scheduler's slots are contiguous int32 / float32 already, and
+    anything else raises rather than being copied on every call."""
+    return FanoutAggregate.apply(x, slot_pos, slot_w)
 
 
 def history_gather(hist: torch.Tensor, ids: torch.Tensor,
                    sentinel: int) -> torch.Tensor:
     """``h_bar[ids]``; ``sentinel`` is the node count, so sentinel field ids
-    read zero rows instead of row N's garbage."""
+    read zero rows instead of row N's garbage.  The history carries no
+    gradient, so nothing in an autograd graph refers to it when the train
+    step scatters new rows into it in place."""
+    if hist.requires_grad:
+        raise ValueError("the CV history must not require grad")
     return row_gather(hist, ids, sentinel=sentinel)
 
 

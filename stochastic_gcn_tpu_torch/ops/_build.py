@@ -30,9 +30,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (name, argtypes) of every extern "C" entry point; each returns the
 # cudaError_t of its launch as an int
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_GATHER_ARGS = [_P, _I, _I64, _I, _P, _P, _I, _I, _P, _P]
 _ENTRY_POINTS = {
-    name: [_P, _I, _I64, _I, _P, _P, _I, _I, _P, _P]
-    for name in ("sgt_hbm_gather_aggregate", "sgt_fanout_aggregate")
+    "sgt_hbm_gather_aggregate": _GATHER_ARGS,
+    "sgt_fanout_aggregate": _GATHER_ARGS,
+    # (g, pos, w, n_out, k, c, d, grad_x, stream)
+    "sgt_fanout_aggregate_backward": [_P, _P, _P, _I, _I, _I64, _I, _P, _P],
 }
 
 

@@ -8,13 +8,18 @@ where a slot with ``w == 0`` or an index outside ``[0, rows)`` contributes
 nothing and is never read:
 
 * :func:`hbm_gather_aggregate` — the CV full-neighbourhood term
-  ``A_full . h_bar`` over the ``[N+1, d]`` history (Pallas ``_hbm_kernel``);
+  ``A_full . h_bar`` over the ``[N+1, d]`` history (Pallas ``_hbm_kernel``).
+  The history carries no gradient: a table or weights that require one
+  raise, so no gradient can be dropped silently;
 * :func:`fanout_aggregate` — the sampled SpMM ``A_samp . X`` over the
   ``[C, d]`` in-field activations (Pallas ``_fanout_kernel``).  Positions
   ``>= C`` (parked slots, sampler/scheduler.py) read as zero rows, matching
   ``ops/gather.py::row_gather``; the Pallas kernel required ``pos < C``.
+  It is differentiable in ``X`` through :class:`FanoutAggregate`, whose
+  backward :func:`fanout_aggregate_backward` is the transpose, a
+  scatter-add ``grad_x[pos[f,s]] += w[f,s] * g[f]``.
 
-Both run ``csrc/spmm.cu`` on CUDA tensors (see the design note there) and
+All run ``csrc/spmm.cu`` on CUDA tensors (see the design notes there) and
 the ``*_ref`` plain versions on CPU tensors.  A CUDA tensor never takes the
 plain path: the wrapper launches the kernel or raises.  Each wrapper counts
 its launches in ``LAUNCHES`` so a run can show that its main path went
@@ -29,7 +34,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_CHUNKS = 128        # 16-byte chunks per row the kernel takes (4 per lane)
 
 # launches per wrapper since the last reset_launches()
-LAUNCHES = {"fanout_aggregate": 0, "hbm_gather_aggregate": 0}
+LAUNCHES = {"fanout_aggregate": 0, "fanout_aggregate_backward": 0,
+            "hbm_gather_aggregate": 0}
 
 
 def reset_launches() -> None:
@@ -37,27 +43,60 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """float32 sums, or float64 for a float64 input (gradcheck's dtype)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def _gather_aggregate_ref(table: torch.Tensor, idx: torch.Tensor,
                           w: torch.Tensor) -> torch.Tensor:
     """Masked ``index_select`` then ``einsum('fk,fkd->fd')`` in float32."""
+    acc = _acc_dtype(table)
     live = (w != 0) & (idx >= 0) & (idx < table.shape[0])
     safe = torch.where(live, idx, 0).to(torch.int64)
     rows = table.index_select(0, safe.reshape(-1)).reshape(
-        *idx.shape, table.shape[1]).float()
+        *idx.shape, table.shape[1]).to(acc)
     rows = torch.where(live.unsqueeze(-1), rows, 0.0)
-    return torch.einsum("fk,fkd->fd", torch.where(live, w.float(), 0.0), rows)
+    return torch.einsum("fk,fkd->fd", torch.where(live, w.to(acc), 0.0), rows)
 
 
 def fanout_aggregate_ref(x: torch.Tensor, pos: torch.Tensor,
                          w: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fanout_aggregate`."""
+    """Plain PyTorch version of :func:`fanout_aggregate` (differentiable in
+    ``x`` through ordinary autograd)."""
     return _gather_aggregate_ref(x, pos, w)
+
+
+def fanout_aggregate_backward_ref(g: torch.Tensor, pos: torch.Tensor,
+                                  w: torch.Tensor, rows: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fanout_aggregate_backward`: a masked
+    ``index_add_`` of ``w[f,s] * g[f]`` at ``pos[f,s]``."""
+    live = (w != 0) & (pos >= 0) & (pos < rows)
+    contrib = torch.where(live.unsqueeze(-1),
+                          w.to(g.dtype).unsqueeze(-1) * g.unsqueeze(1), 0.0)
+    safe = torch.where(live, pos, 0).to(torch.int64).reshape(-1)
+    out = torch.zeros((rows, g.shape[1]), dtype=g.dtype, device=g.device)
+    return out.index_add_(0, safe, contrib.reshape(-1, g.shape[1]))
 
 
 def hbm_gather_aggregate_ref(table: torch.Tensor, idx: torch.Tensor,
                              w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`hbm_gather_aggregate`."""
     return _gather_aggregate_ref(table, idx, w)
+
+
+def _check_slots(idx: torch.Tensor, w: torch.Tensor) -> None:
+    """The slot tensors every wrapper takes, on any device: int32 indices
+    and float32 weights of one 2-D shape, contiguous (the scheduler emits
+    them so; nothing is copied here)."""
+    if idx.dtype != torch.int32 or w.dtype != torch.float32:
+        raise TypeError(f"index must be int32 and weights float32, got "
+                        f"{idx.dtype} and {w.dtype}")
+    if idx.dim() != 2 or w.shape != idx.shape:
+        raise ValueError(f"index {tuple(idx.shape)} must be 2-D and equal "
+                         f"to weights {tuple(w.shape)}")
+    if not (idx.is_contiguous() and w.is_contiguous()):
+        raise ValueError("index and weights must be contiguous")
 
 
 def _check(table: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> None:
@@ -69,15 +108,10 @@ def _check(table: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> None:
     if table.dtype not in _DTYPE_CODE:
         raise TypeError(f"table dtype {table.dtype} not in "
                         f"{list(_DTYPE_CODE)}")
-    if idx.dtype != torch.int32 or w.dtype != torch.float32:
-        raise TypeError(f"index must be int32 and weights float32, got "
-                        f"{idx.dtype} and {w.dtype}")
-    if table.dim() != 2 or idx.dim() != 2 or w.shape != idx.shape:
-        raise ValueError(f"shapes: table {tuple(table.shape)} must be 2-D, "
-                         f"index {tuple(idx.shape)} 2-D and equal to "
-                         f"weights {tuple(w.shape)}")
-    if not (table.is_contiguous() and idx.is_contiguous()
-            and w.is_contiguous()):
+    _check_slots(idx, w)
+    if table.dim() != 2:
+        raise ValueError(f"table {tuple(table.shape)} must be 2-D")
+    if not table.is_contiguous():
         raise ValueError("table, index and weights must be contiguous")
     row_bytes = table.shape[1] * table.element_size()
     if row_bytes % 16 or row_bytes // 16 > _MAX_CHUNKS:
@@ -90,6 +124,10 @@ def _check(table: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("more than 2^31 slots")
 
 
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _launch(entry: str, counter: str, table, idx, w) -> torch.Tensor:
     _check(table, idx, w)
     f, k = idx.shape
@@ -99,31 +137,97 @@ def _launch(entry: str, counter: str, table, idx, w) -> torch.Tensor:
         return out
     from ._build import library
     with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
         err = getattr(library(), entry)(
             table.data_ptr(), _DTYPE_CODE[table.dtype], table.shape[0],
             table.shape[1], idx.data_ptr(), w.data_ptr(), f, k,
-            out.data_ptr(), stream)
+            out.data_ptr(), _stream(table.device))
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     LAUNCHES[counter] += 1
     return out
 
 
+def _fanout_forward(x, pos, w) -> torch.Tensor:
+    if x.device.type == "cpu":
+        _check_slots(pos, w)
+        return fanout_aggregate_ref(x, pos, w)
+    return _launch("sgt_fanout_aggregate", "fanout_aggregate", x, pos, w)
+
+
+def fanout_aggregate_backward(g: torch.Tensor, pos: torch.Tensor,
+                              w: torch.Tensor, rows: int) -> torch.Tensor:
+    """``grad_x [rows, d]`` of :func:`fanout_aggregate` for the output
+    gradient ``g [F, d]``: ``grad_x[pos[f,s]] += w[f,s] * g[f]``, float32;
+    positions outside ``[0, rows)`` and zero weights contribute nothing.
+    Repeated positions sum."""
+    if g.dim() != 2 or pos.dim() != 2 or g.shape[0] != pos.shape[0]:
+        raise ValueError(f"output gradient {tuple(g.shape)} must be 2-D with "
+                         f"one row per row of pos {tuple(pos.shape)}")
+    if rows < 0:
+        raise ValueError(f"rows must be >= 0, got {rows}")
+    if g.device.type == "cpu":
+        _check_slots(pos, w)
+        return fanout_aggregate_backward_ref(g, pos, w, rows)
+    _check(g, pos, w)
+    if g.dtype != torch.float32:
+        raise TypeError(f"output gradient must be float32, got {g.dtype}")
+    f, k = pos.shape
+    grad = torch.zeros((rows, g.shape[1]), dtype=torch.float32,
+                       device=g.device)
+    if f == 0 or rows == 0:
+        return grad
+    from ._build import library
+    with torch.cuda.device(g.device):
+        err = library().sgt_fanout_aggregate_backward(
+            g.data_ptr(), pos.data_ptr(), w.data_ptr(), f, k, rows,
+            g.shape[1], grad.data_ptr(), _stream(g.device))
+    if err != 0:
+        raise RuntimeError("sgt_fanout_aggregate_backward launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES["fanout_aggregate_backward"] += 1
+    return grad
+
+
+class FanoutAggregate(torch.autograd.Function):
+    """``fanout_aggregate(x, pos, w)``, differentiable in ``x``: the forward
+    and the backward are the two fanout kernels on CUDA tensors and their
+    plain versions on CPU tensors.  ``pos`` and ``w`` get no gradient; a
+    ``w`` that requires one raises."""
+
+    @staticmethod
+    def forward(ctx, x, pos, w):
+        if w.requires_grad:
+            raise ValueError("fanout weights that require grad are not "
+                             "supported: the slot weights get no gradient")
+        ctx.save_for_backward(pos, w)
+        ctx.rows, ctx.x_dtype = x.shape[0], x.dtype
+        return _fanout_forward(x, pos, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, w = ctx.saved_tensors
+        grad = fanout_aggregate_backward(g.contiguous(), pos, w, ctx.rows)
+        return grad.to(ctx.x_dtype), None, None
+
+
 def fanout_aggregate(x: torch.Tensor, pos: torch.Tensor,
                      w: torch.Tensor) -> torch.Tensor:
     """``out[f] = sum_s w[f,s] * x[pos[f,s]]``: x [C, d] float32 or bfloat16,
-    pos [F, K] int32, w [F, K] float32 -> [F, d] float32."""
-    if x.device.type == "cpu":
-        return fanout_aggregate_ref(x, pos, w)
-    return _launch("sgt_fanout_aggregate", "fanout_aggregate", x, pos, w)
+    pos [F, K] int32, w [F, K] float32 -> [F, d] float32; differentiable in
+    ``x`` (:class:`FanoutAggregate`)."""
+    return FanoutAggregate.apply(x, pos, w)
 
 
 def hbm_gather_aggregate(table: torch.Tensor, idx: torch.Tensor,
                          w: torch.Tensor) -> torch.Tensor:
     """``out[f] = sum_s w[f,s] * table[idx[f,s]]``: table [N, d] float32 or
-    bfloat16, idx [F, K] int32, w [F, K] float32 -> [F, d] float32."""
+    bfloat16, idx [F, K] int32, w [F, K] float32 -> [F, d] float32.  Forward
+    only: a table or weights that require grad raise."""
+    if table.requires_grad or w.requires_grad:
+        raise ValueError("hbm_gather_aggregate has no backward: its table "
+                         "(the CV history) and weights must not require grad")
     if table.device.type == "cpu":
+        _check_slots(idx, w)
         return hbm_gather_aggregate_ref(table, idx, w)
     return _launch("sgt_hbm_gather_aggregate", "hbm_gather_aggregate",
                    table, idx, w)

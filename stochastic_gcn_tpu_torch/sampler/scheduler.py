@@ -20,6 +20,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..data.graph import PaddedGraph, graph_rows
@@ -186,3 +187,17 @@ def schedule(gen: torch.Generator, graph: PaddedGraph,
     fields.reverse()
     layer_samples.reverse()
     return BatchFields(fields=tuple(fields), layers=tuple(layer_samples))
+
+
+class MinibatchIterator:
+    """Host-side epoch order of the training ids: ``shuffle()`` permutes
+    ``data`` in place with the same numpy ``default_rng(seed)`` stream as
+    the JAX package's iterator, so both packages see the same batch order
+    (the Trainer cuts ``data`` into its ``[S, B]`` batch matrix)."""
+
+    def __init__(self, data_ids, seed: int):
+        self.data = np.asarray(data_ids, np.int32).copy()
+        self.rng = np.random.default_rng(seed)
+
+    def shuffle(self) -> None:
+        self.rng.shuffle(self.data)

@@ -1,16 +1,20 @@
-"""Trainer: the inference surface.
+"""Trainer: training, evaluation, serving and checkpoints on one device.
 
-Port of stochastic_gcn_tpu/training/loop.py for serving: the constructor
-puts the eval graph, features, labels and eval histories on an explicit
-device, and ``evaluate`` / ``predict`` / ``test`` / ``run_tests`` / ``load``
-follow the JAX Trainer.  Training (``train_epoch``, ``sgd_train``) comes
-with the training port.
+Port of stochastic_gcn_tpu/training/loop.py for the single-device padded
+graph: the constructor puts the train and eval graphs, features, labels,
+the train state (params, Adam state, bf16 train histories) and the eval
+histories on an explicit device.  ``train_epoch`` / ``sgd_train`` /
+``evaluate`` / ``predict`` / ``test`` / ``run_tests`` / ``save`` /
+``load`` follow the JAX Trainer; checkpoints use the JAX file layout, so
+either package resumes the other's.
 """
 
 from __future__ import annotations
 
 import os
+import signal
 import time
+from typing import Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -19,12 +23,11 @@ import torch
 from ..data.graph import Dataset, dense_rows, pad_csr
 from ..data.preprocess import cap_adj_degree
 from ..models import gcn as M
+from ..sampler.scheduler import MinibatchIterator
 from ..utils.metrics import f1_from_counts
 from . import step as S
-from .checkpoint import histories_from_jax, load_jax_checkpoint, \
-    params_from_jax
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from .checkpoint import (checkpoint_path, load_checkpoint, load_loop_extras,
+                         save_checkpoint)
 
 
 def assemble_input_features(cfg, feats, nbr_feats, preprocess: bool):
@@ -47,19 +50,25 @@ def to_device_features(cfg, feats, num_nodes: int, device) -> torch.Tensor:
         raise NotImplementedError(
             "padded-sparse features are not ported yet (ROADMAP.md, "
             "queue 1); pass --dense_input")
-    return dense_rows(feats, num_nodes, dtype=_DTYPES[cfg.features_dtype],
+    return dense_rows(feats, num_nodes, dtype=S.DTYPES[cfg.features_dtype],
                       device=device)
 
 
 def _refuse_unported(cfg) -> None:
     unported = {
+        "--model mlp": cfg.model == "mlp",
         "--dp/--tp > 1 (multi-device)": cfg.dp > 1 or cfg.tp > 1,
         "--partition_nodes": cfg.partition_nodes != "none",
         "--graph_format edgelist": cfg.graph_format != "padded",
+        "--importance": cfg.importance,
         "--test_importance": cfg.test_importance,
+        "--cvd": cfg.cvd,
         "--test_cvd": cfg.test_cvd,
         "--det_dropout": cfg.det_dropout,
         "--field_dedup": cfg.field_dedup,
+        "--polyak_decay > 0": cfg.polyak_decay > 0,
+        "--lazy_fullterm": cfg.lazy_fullterm,
+        "--ckpt_async": cfg.ckpt_async,
         "--gradvar": cfg.gradvar,
     }
     asked = [k for k, v in unported.items() if v]
@@ -69,7 +78,8 @@ def _refuse_unported(cfg) -> None:
 
 
 class Trainer:
-    """Holds the eval-side state on ``device`` and serves predictions.
+    """Holds the train and eval state on ``device``; trains, evaluates and
+    serves predictions.
 
     ``device="cuda"`` on a machine without CUDA raises; nothing falls back
     to the CPU."""
@@ -83,46 +93,75 @@ class Trainer:
         self.cfg, self.ds, self.device = cfg, ds, device
         n = ds.num_data
 
-        full_adj = ds.full_adj
+        train_adj, full_adj = ds.train_adj, ds.full_adj
         if cfg.pad_degree != -1:
+            train_adj = cap_adj_degree(train_adj, cfg.pad_degree, cfg.seed)
             full_adj = cap_adj_degree(full_adj, cfg.pad_degree, cfg.seed)
-        # padded to its own true (post-cap) max degree
+        # each graph padded to its own true (post-cap) max degree
+        self.graph_train = pad_csr(train_adj, -1, tier=cfg.fadj_tier,
+                                   tier_w=cfg.fadj_tier_w, device=device)
         self.graph_full = pad_csr(full_adj, -1, tier=cfg.fadj_tier,
                                   tier_w=cfg.fadj_tier_w, device=device)
 
+        # params are shaped by the TRAIN model (shared weights)
         in_dim, out_dim = ds.feature_dim, ds.num_classes
+        tr_feats, tr_sparse = assemble_input_features(
+            cfg, ds.feats, ds.train_feats, cfg.preprocess)
         te_feats, te_sparse = assemble_input_features(
             cfg, ds.feats, ds.test_feats, cfg.test_preprocess)
-        # params are shaped by the TRAIN model (shared weights)
         self.train_spec = M.build_model_spec(
-            cfg, in_dim, out_dim, cfg.preprocess, cfg.cv, cfg.cvd,
-            sp.issparse(ds.feats))
+            cfg, in_dim, out_dim, cfg.preprocess, cfg.cv, cfg.cvd, tr_sparse)
         self.test_spec = M.build_model_spec(
             cfg, in_dim, out_dim, cfg.test_preprocess, cfg.test_cv,
             cfg.test_cvd, te_sparse)
+        self.train_features = to_device_features(cfg, tr_feats, n, device)
         self.test_features = to_device_features(cfg, te_feats, n, device)
         self.labels = dense_rows(ds.labels, n, device=device)
+        self.train_degrees = tuple([cfg.degree]
+                                   * self.train_spec.num_agg_layers)
         self.test_degrees = tuple([cfg.test_degree]
                                   * self.test_spec.num_agg_layers)
 
+        # the reference's one runtime data guard (scheduler.cpp:114-115):
+        # corrupt edge weights fail loudly at build, not sample garbage
+        for nm, g in (("train", self.graph_train),
+                      ("test/full", self.graph_full)):
+            if not bool(torch.isfinite(g.w).all()):
+                raise ValueError(
+                    f"non-finite edge weights in the {nm} graph "
+                    "(reference scheduler.cpp:114-115 guard)")
+
         # weights from a CPU generator, so every device starts from the
-        # same values; sampling draws from a generator on the device
-        init_gen = torch.Generator().manual_seed(cfg.seed)
-        self.params = {k: {n_: t.to(device) for n_, t in p.items()}
-                       for k, p in M.init_params(init_gen,
-                                                 self.train_spec).items()}
+        # same values; sampling and dropout draw from a generator on the
+        # device
+        self.state = S.init_train_state(torch.Generator().manual_seed(
+            cfg.seed), cfg, self.train_spec, n, device)
         self.gen = torch.Generator(device=device).manual_seed(cfg.seed)
         # incremental-refresh bookkeeping for predict(): bumped on every
         # weight change; eval histories are converged for exactly one value
         self._params_version = 0
         self._hist_fresh_version = -1
+        # eval-side history is separate from the train side, as in the
+        # reference (train.py:174)
         self.eval_histories = M.init_histories(
-            self.test_spec, n, 8,
-            _DTYPES[cfg.test_history_dtype], device)
+            self.test_spec, n, 8, S.DTYPES[cfg.test_history_dtype], device)
+        self._train_epoch = S.build_train_epoch(cfg, self.train_spec,
+                                                self.train_degrees, n)
         self._eval_epoch = S.build_eval_epoch(cfg, self.test_spec,
                                               self.test_degrees, n)
         self._predict_epoch = S.build_eval_epoch(
             cfg, self.test_spec, self.test_degrees, n, with_preds=True)
+        self.train_iter = MinibatchIterator(ds.train_d, cfg.seed)
+        self.cost_val: list[float] = []
+        self.amt_data = 0
+        self.completed_epochs = 0     # checkpointed for --resume
+        self.stop_requested = False   # preemption: finish epoch, save, exit
+        self.epoch_stats: dict = {}
+        self._prev_sig_handlers: list = []
+
+    @property
+    def params(self) -> dict:
+        return self.state.params
 
     @staticmethod
     def _batch_matrix(ids, batch_size: int, num_nodes: int) -> np.ndarray:
@@ -132,6 +171,47 @@ class Trainer:
         out = np.full((s * batch_size,), num_nodes, np.int32)
         out[:len(ids)] = ids
         return out.reshape(s, batch_size)
+
+    def train_epoch(self):
+        """One epoch over the shuffled train ids (train.py:181-209).  The
+        loss and accuracy are the LAST minibatch's, as in the reference's
+        window-1 Averager; the device is waited for once, at the end."""
+        cfg = self.cfg
+        self.train_iter.shuffle()
+        t0 = time.time()
+        bm = self._batch_matrix(self.train_iter.data, cfg.batch_size,
+                                self.ds.num_data)
+        self.state, metrics = self._train_epoch(
+            self.state, self.graph_train, self.train_features, self.labels,
+            torch.from_numpy(bm).to(self.device), self.gen)
+        self._params_version += 1
+        loss = float(metrics["loss"])
+        acc = float(metrics["accuracy"])
+        # cumulative over the run, summed on the host in int64 (the
+        # reference sums Python ints, vrgcn.py:62): the --data budget and
+        # the `data =` log column never wrap
+        self.amt_data += int(metrics["amt_steps"].cpu().numpy()
+                             .astype(np.int64).sum())
+        self._record_epoch_stats(metrics, time.time() - t0)
+        return loss, acc, time.time() - t0, bm.shape[0]
+
+    def _record_epoch_stats(self, metrics, run_t: float):
+        """FLOP/size accounting per epoch (gcn/vrgcn.py:50-69): sparse ops
+        g_ops = (adj + fadj nnz) * dim * 4, dense ops nn_ops =
+        sum(layer_comp * field size) * 4."""
+        spec = self.train_spec
+        field_sizes, adj_sizes, fadj_sizes = (
+            metrics[k].cpu().numpy()
+            for k in ("field_sizes", "adj_sizes", "fadj_sizes"))
+        g_ops = 0.0
+        for l in range(spec.num_agg_layers):
+            dim = spec.agg0_dim if l == 0 else self.cfg.hidden1
+            g_ops += float(adj_sizes[l] + fadj_sizes[l]) * dim * 4
+        nn_ops = sum(comp * float(field_sizes[idx]) * 4
+                     for comp, idx in spec.layer_comp)
+        self.epoch_stats = dict(run_t=run_t, g_t=0.0, g_ops=g_ops,
+                                nn_ops=nn_ops, field_sizes=field_sizes,
+                                adj_sizes=adj_sizes, fadj_sizes=fadj_sizes)
 
     def _run(self, epoch, data_ids):
         bm = self._batch_matrix(data_ids, self.cfg.test_batch_size,
@@ -208,47 +288,164 @@ class Trainer:
             out = self.test(log)
         return out
 
-    def load(self, load_history: bool = False, path=None):
-        """Load weights from a JAX checkpoint (``<ckpt_dir>/model.ckpt.npz``).
+    # ------------------------------------------------------------------
+    def _profile_this(self, epoch_1based: int) -> bool:
+        """--profile_dir: trace the epochs listed in --profile_epochs
+        (1-based, comma-separated) with torch.profiler."""
+        cfg = self.cfg
+        if not cfg.profile_dir:
+            return False
+        try:
+            wanted = {int(e) for e in str(cfg.profile_epochs).split(",")
+                      if str(e).strip()}
+        except ValueError:
+            return False
+        return epoch_1based in wanted
 
-        As in the JAX Trainer, when the train and eval models keep
-        histories of the same shapes the eval histories take the
-        checkpoint's train-side histories cast to the eval dtype
-        (``load_history``) or restart from zeros (otherwise); with other
-        shapes ``load_history`` takes the stored eval histories.  The JAX
-        RNG key is not carried over: the frameworks draw different
-        streams."""
-        path = path or os.path.join(self.cfg.ckpt_dir, "model.ckpt.npz")
-        ckpt = load_jax_checkpoint(path)
-        state = ckpt["state"]
-        params = params_from_jax(state["params"], self.device)
-        for layer, p in self.params.items():
-            for k, t in p.items():
-                got = params[layer][k]
-                if got.shape != t.shape:
-                    raise ValueError(f"checkpoint {layer}.{k} has shape "
-                                     f"{tuple(got.shape)}, expected "
-                                     f"{tuple(t.shape)}")
-        self.params = params
+    def _profiled_train_epoch(self, epoch_1based: int, log):
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            out = self.train_epoch()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir,
+                            f"epoch{epoch_1based}.trace.json")
+        prof.export_chrome_trace(path)
+        log(f"profiler trace of epoch {epoch_1based} written to {path}")
+        return out
+
+    def sgd_train(self, log=print, max_epochs: Optional[int] = None):
+        """SGDTrain (train.py:170-238): epoch loop, validation, early
+        stopping on the trailing-window validation loss, then the final
+        save.  The preemption handlers are restored only after that save
+        is on disk, so a SIGTERM during it still just sets the stop flag."""
+        cfg = self.cfg
+        try:
+            if cfg.load and not cfg.resume:
+                self.load()
+                return
+            start_epoch = self._try_resume(log) if cfg.resume else 0
+            self._sgd_epoch_loop(cfg, start_epoch, max_epochs, log)
+            log("Optimization Finished!")
+            self.save()
+        finally:
+            self._restore_preemption_handlers()
+
+    def _sgd_epoch_loop(self, cfg, start_epoch, max_epochs, log):
+        for epoch in range(start_epoch,
+                           max_epochs if max_epochs is not None
+                           else 100000000):
+            if self._profile_this(epoch + 1):
+                train_loss, train_acc, ttime, _ = \
+                    self._profiled_train_epoch(epoch + 1, log)
+            else:
+                train_loss, train_acc, ttime, _ = self.train_epoch()
+            cost, acc, micro, macro, duration = self.evaluate(self.ds.val_d)
+            self.cost_val.append(cost)
+            self.completed_epochs = epoch + 1
+            log(f"Epoch: {epoch + 1:04d} "
+                f"train_loss= {train_loss:.5f} train_acc= {train_acc:.5f} "
+                f"val_loss= {cost:.5f} val_acc= {acc:.5f} "
+                f"mi F1={micro:.5f} ma F1={macro:.5f}  "
+                f"time= {ttime:.5f} ttime= {duration:.5f} "
+                f"data = {self.amt_data}")
+            if self.epoch_stats:
+                es = self.epoch_stats
+                g = float(2 ** 30)
+                log(f"TF time = {es['run_t']}, g time = {es['g_t']}, "
+                    f"G GFLOPS = {es['g_ops'] / g}, "
+                    f"NN GFLOPS = {es['nn_ops'] / g}, "
+                    f"field sizes = {es['field_sizes']}, "
+                    f"adj sizes = {es['adj_sizes']}, "
+                    f"fadj sizes = {es['fadj_sizes']}")
+            if cfg.ckpt_every and (epoch + 1) % cfg.ckpt_every == 0:
+                self.save()
+            # preemption notice (install_preemption_handler): leave the
+            # loop at the epoch boundary; sgd_train saves for --resume
+            if self.stop_requested:
+                log(f"Preemption stop after epoch {epoch + 1}; "
+                    "checkpointing for --resume...")
+                break
+            if (epoch > cfg.early_stopping and
+                    self.cost_val[-1] > np.mean(
+                        self.cost_val[-(cfg.early_stopping + 1):-1])):
+                log("Early stopping...")
+                break
+            # reference stop: 0-based epoch > FLAGS.epochs (train.py:234)
+            if self.amt_data >= cfg.data and epoch > cfg.epochs:
+                break
+
+    # ------------------------------------------------------------------
+    def save(self):
+        """Write the full state in the JAX layout to
+        ``<ckpt_dir>/model.ckpt.npz``, with the --resume loop counters."""
+        extra = {"completed_epochs": np.int64(self.completed_epochs),
+                 "amt_data": np.int64(self.amt_data),
+                 "cost_val": np.asarray(self.cost_val, np.float64)}
+        return save_checkpoint(self.cfg.ckpt_dir, self.state,
+                               self.eval_histories, self.cfg.seed,
+                               extra=extra, compress=self.cfg.ckpt_compress)
+
+    def install_preemption_handler(self, signals=None):
+        """Route SIGTERM (the eviction notice cluster managers send before
+        reclaiming a worker) to a graceful stop: the epoch in flight
+        finishes, the loop exits at the boundary, and sgd_train's final
+        save writes the --resume counters.  Chains to any previously
+        installed handler; SIGINT is left alone.  sgd_train restores the
+        previous handlers once its final save is on disk."""
+        for sig in (signals or (signal.SIGTERM,)):
+            prev = signal.getsignal(sig)
+            self._prev_sig_handlers.append((sig, prev))
+
+            def _handler(signum, frame, _prev=prev):
+                self.stop_requested = True
+                if callable(_prev):
+                    _prev(signum, frame)
+
+            signal.signal(sig, _handler)
+
+    def _restore_preemption_handlers(self):
+        for sig, prev in reversed(self._prev_sig_handlers):
+            signal.signal(sig, prev)
+        self._prev_sig_handlers = []
+
+    def _try_resume(self, log=print) -> int:
+        """--resume: restore the full state and loop counters from
+        ckpt_dir if a checkpoint exists (else start fresh, so one command
+        line serves first launch and relaunch).  Returns the 0-based epoch
+        to continue from.  The host-side shuffle order restarts from the
+        iterator's seed, and the torch generators restart from cfg.seed:
+        neither is checkpointed (a JAX checkpoint's key cannot seed them)."""
+        path = checkpoint_path(self.cfg.ckpt_dir)
+        if not os.path.exists(path):
+            log(f"resume: no checkpoint at {path}, starting fresh")
+            return 0
+        self.load(load_history=True)
+        ex = load_loop_extras(self.cfg.ckpt_dir)
+        self.completed_epochs = int(ex.get("completed_epochs", 0))
+        self.amt_data = int(ex.get("amt_data", 0))
+        self.cost_val = [float(c) for c in ex.get("cost_val", [])]
+        log(f"resume: continuing from epoch {self.completed_epochs + 1} "
+            f"(data = {self.amt_data})")
+        return self.completed_epochs
+
+    def load(self, load_history: bool = False):
+        """Restore ``<ckpt_dir>/model.ckpt.npz``, written by either package:
+        params, Adam state and step, plus (``load_history``) the train and
+        eval histories.  Then, as in the JAX Trainer (train.py:174), the
+        eval histories take a copy of the CURRENT train histories cast to
+        the eval dtype when the two models' history shapes match.  The
+        checkpoint's JAX RNG key is not carried over: the frameworks draw
+        different streams."""
+        load_checkpoint(self.cfg.ckpt_dir, self.state, self.eval_histories,
+                        load_history=load_history)
         self._params_version += 1      # new weights: predict must refresh
-
-        train_h = histories_from_jax(state.get("histories", {}))
-        shapes = [[tuple(h.shape) for h in hl] for hl in self.eval_histories]
-        same = bool(shapes) and [[h.shape for h in hl]
-                                 for hl in train_h] == shapes
-        if load_history:
-            src = train_h if same else histories_from_jax(
-                ckpt.get("eval_histories", {}))
-            if [[h.shape for h in hl] for hl in src] != shapes:
-                raise ValueError(f"checkpoint {path} histories do not match "
-                                 f"the eval model's shapes {shapes}")
-            self.eval_histories = tuple(
-                tuple(torch.tensor(np.asarray(h), dtype=e.dtype,
-                                   device=self.device)
-                      for h, e in zip(hl, el))
-                for hl, el in zip(src, self.eval_histories))
-        elif same:
-            for hl in self.eval_histories:
-                for h in hl:
-                    h.zero_()
-        print(f"Model restored from file: {path}")
+        train_h = [h for hl in self.state.histories for h in hl]
+        eval_h = [h for hl in self.eval_histories for h in hl]
+        if train_h and eval_h and \
+                [h.shape for h in train_h] == [h.shape for h in eval_h]:
+            with torch.no_grad():
+                for t, e in zip(train_h, eval_h):
+                    e.copy_(t)

@@ -1,14 +1,23 @@
-"""Evaluation epoch and history scatter.
+"""Train and eval steps, epochs and the history scatter.
 
-Port of the eval half of stochastic_gcn_tpu/training/step.py.  An epoch is
-a Python loop over the rows of a device-resident ``[S, B]`` batch-id
-matrix (the JAX package's ``lax.scan``); every per-batch result stays on
-the device until the loop ends.
+Port of stochastic_gcn_tpu/training/step.py.  An epoch is a Python loop
+over the rows of a device-resident ``[S, B]`` batch-id matrix (the JAX
+package's ``lax.scan``); every per-step result stays on the device until
+the loop ends, so an epoch waits for the device once, at its end.
+
+Ordering contract (as in the JAX step, gcn/models.py:186-191): the history
+is updated with the activations that produced this step's gradient, after
+the Adam update.
+
+The JAX epoch's ``sched_prepass`` and ``scan_unroll`` are TPU dispatch
+knobs with no effect on the trajectory (the JAX test suite checks that it
+is bit-identical); the port's loop has no counterpart and ignores them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -16,6 +25,96 @@ from ..models import gcn as M
 from ..ops.gather import row_gather
 from ..sampler.scheduler import BatchFields, schedule
 from ..utils.metrics import device_f1_counts
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass
+class AdamState:
+    """optax's ``ScaleByAdamState``: the update count (int32 scalar) and
+    the first and second moments, ``{layer: {name: Tensor}}`` like the
+    params, so the state carries across to and from JAX leaf by leaf."""
+    count: torch.Tensor
+    mu: dict
+    nu: dict
+
+
+@dataclass
+class TrainState:
+    params: dict              # {layer: {name: Tensor}}, JAX names and layout
+    opt_state: AdamState
+    histories: tuple          # per agg layer: tuple of [N+1, d] tensors
+    step: torch.Tensor        # int32 scalar
+
+
+def param_keys(params: dict) -> list:
+    """(layer, name) of every param in a fixed order."""
+    return [(layer, name) for layer in sorted(params)
+            for name in sorted(params[layer])]
+
+
+class Adam:
+    """``optax.adam(lr, b1, b2, eps)`` over ``{layer: {name: Tensor}}``
+    dicts, with optax's arithmetic: ``mu = (1-b1) g + b1 mu``,
+    ``nu = (1-b2) g^2 + b2 nu``, ``count += 1``,
+    ``p += -lr * (mu / (1-b1^count)) / (sqrt(nu / (1-b2^count)) + eps)``.
+    :meth:`update` works in place on the params and the state (one
+    ``torch._foreach_*`` launch per operation) and keeps ``count`` on the
+    device, so a step never waits for the host."""
+
+    def __init__(self, lr: float, b1: float, b2: float, eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+
+    def init(self, params: dict) -> AdamState:
+        def zeros():
+            return {l: {n: torch.zeros_like(t) for n, t in p.items()}
+                    for l, p in params.items()}
+        device = next(t for p in params.values() for t in p.values()).device
+        return AdamState(count=torch.zeros((), dtype=torch.int32,
+                                           device=device),
+                         mu=zeros(), nu=zeros())
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: AdamState, params: dict) -> None:
+        keys = param_keys(params)
+        g = [grads[l][n] for l, n in keys]
+        mu = [state.mu[l][n] for l, n in keys]
+        nu = [state.nu[l][n] for l, n in keys]
+        p = [params[l][n] for l, n in keys]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, torch._foreach_mul(g, 1 - self.b1))
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_add_(nu, torch._foreach_mul(
+            torch._foreach_mul(g, g), 1 - self.b2))
+        state.count += 1
+        t = state.count.to(torch.float32)
+        bc1 = 1 - torch.pow(self.b1, t)
+        bc2 = 1 - torch.pow(self.b2, t)
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+        torch._foreach_mul_(upd, -self.lr)
+        torch._foreach_add_(p, upd)
+
+
+def make_optimizer(cfg) -> Adam:
+    """Adam with the reference's hyperparameters (eps 1e-8 outside the
+    sqrt, as tf.train.AdamOptimizer and the JAX package's optax.adam)."""
+    return Adam(cfg.learning_rate, cfg.beta1, cfg.beta2, eps=1e-8)
+
+
+def init_train_state(gen: torch.Generator, cfg, spec: M.ModelSpec,
+                     num_nodes: int, device="cpu") -> TrainState:
+    """Glorot params from ``gen`` (a CPU generator, so every device starts
+    from the same values), zero Adam moments and zero histories of
+    ``cfg.history_dtype``, all on ``device``."""
+    params = {l: {n: t.to(device) for n, t in p.items()}
+              for l, p in M.init_params(gen, spec).items()}
+    return TrainState(
+        params=params, opt_state=make_optimizer(cfg).init(params),
+        histories=M.init_histories(spec, num_nodes, 8,
+                                   DTYPES[cfg.history_dtype], device),
+        step=torch.zeros((), dtype=torch.int32, device=device))
 
 
 def scatter_histories(histories, new_histories, fields, num_nodes: int):
@@ -41,6 +140,103 @@ def _labels_gather(labels: torch.Tensor, batch_field: torch.Tensor,
     """labels[batch_field]; sentinel-padded slots read zero rows (their
     loss/accuracy contributions are masked by ``valid``)."""
     return row_gather(labels, batch_field, sentinel=num_nodes)
+
+
+def _batch_stats(pack: BatchFields, graph, num_nodes: int, cv: bool):
+    """amt_data / field / adjacency-size accounting (gcn/vrgcn.py:50-69):
+    ``adj_sizes[l]`` = sampled edges of layer l, ``fadj_sizes[l]`` =
+    full-neighbourhood edges (CV only), ``field_sizes[l]`` = real nodes in
+    field l.  int64 device scalars and vectors."""
+    dev = pack.fields[-1].device
+    if not pack.layers:
+        z = torch.zeros((0,), dtype=torch.int64, device=dev)
+        return torch.zeros((), dtype=torch.int64, device=dev), z, z, z
+    adj_sizes = torch.stack([(ls.slot_w != 0).sum() for ls in pack.layers])
+    field_sizes = torch.stack([(f < num_nodes).sum() for f in pack.fields])
+    if cv:
+        fadj_sizes = torch.stack(
+            [graph.deg.index_select(0, f.to(torch.int64)).sum()
+             for f in pack.fields[1:]])
+    else:
+        fadj_sizes = torch.zeros((len(pack.layers),), dtype=torch.int64,
+                                 device=dev)
+    return adj_sizes.sum(), field_sizes, adj_sizes, fadj_sizes
+
+
+def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
+                     num_nodes: int):
+    """``step(state, graph, features, labels, batch_ids, gen, pack=None)
+    -> (state, metrics)``: schedule (unless a prebuilt ``pack`` is given),
+    forward, loss, backward, Adam, then the history scatter of the detached
+    new rows.  ``state`` is updated in place and returned; the metrics
+    (loss, accuracy, amt_data, field/adj/fadj sizes) stay on the device.
+
+    The params enter the forward as fresh ``requires_grad`` aliases and the
+    gradients come from ``torch.autograd.grad``, so no ``.grad`` buffers
+    accumulate and the history never enters the autograd graph."""
+    tx = make_optimizer(cfg)
+
+    def _step(state: TrainState, graph, features, labels, batch_ids, gen,
+              pack: Optional[BatchFields] = None):
+        if pack is None:
+            pack = schedule(gen, graph, batch_ids, degrees, spec.cv,
+                            need_aw=spec.det_dropout, dedup=cfg.field_dedup)
+        batch_field = pack.fields[-1]
+        valid = (batch_field < num_nodes).float()
+        y = _labels_gather(labels, batch_field, num_nodes)
+
+        keys = param_keys(state.params)
+        params = {l: {n: t.detach().requires_grad_()
+                      for n, t in p.items()}
+                  for l, p in state.params.items()}
+        logits, new_h = M.forward(params, spec, pack, graph, state.histories,
+                                  features, gen, cfg.keep_prob, train=True)
+        loss, acc = M.loss_and_metrics(params, spec, logits, y, valid,
+                                       cfg.weight_decay)
+        flat = torch.autograd.grad(loss, [params[l][n] for l, n in keys])
+        grads: dict = {}
+        for (l, n), g in zip(keys, flat):
+            grads.setdefault(l, {})[n] = g
+        tx.update(grads, state.opt_state, state.params)
+        with torch.no_grad():
+            new_h = tuple(None if hl is None else
+                          tuple(h.detach() for h in hl) for hl in new_h)
+            scatter_histories(state.histories, new_h, pack.fields,
+                              num_nodes)
+            state.step += 1
+        amt, field_sizes, adj_sizes, fadj_sizes = _batch_stats(
+            pack, graph, num_nodes, spec.cv)
+        return state, {"loss": loss.detach(), "accuracy": acc.detach(),
+                       "amt_data": amt, "field_sizes": field_sizes,
+                       "adj_sizes": adj_sizes, "fadj_sizes": fadj_sizes}
+
+    return _step
+
+
+def build_train_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
+                      num_nodes: int):
+    """Whole-epoch runner: ``epoch(state, graph, features, labels,
+    batch_matrix, gen) -> (state, metrics)`` runs the train step over the
+    rows of an ``[S, B]`` batch-id matrix.  Returns the LAST step's loss
+    and accuracy (the reference's window-1 Averager), the per-step
+    ``amt_steps`` (the Trainer sums them on the host in int64), and the
+    summed ``amt_data`` and field/adj/fadj sizes; all on the device."""
+    _step = build_train_step(cfg, spec, degrees, num_nodes)
+
+    def _epoch(state: TrainState, graph, features, labels, batch_matrix,
+               gen):
+        ms = []
+        for batch_ids in batch_matrix:
+            state, m = _step(state, graph, features, labels, batch_ids, gen)
+            ms.append(m)
+        amts = torch.stack([m["amt_data"] for m in ms])
+        return state, {
+            "loss": ms[-1]["loss"], "accuracy": ms[-1]["accuracy"],
+            "amt_steps": amts, "amt_data": amts.sum(),
+            **{k: torch.stack([m[k] for m in ms]).sum(dim=0)
+               for k in ("field_sizes", "adj_sizes", "fadj_sizes")}}
+
+    return _epoch
 
 
 def _eval_schedule(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],

@@ -79,7 +79,7 @@ def test_port_imports_no_jax_or_sklearn():
     code = (
         "import sys\n"
         "import stochastic_gcn_tpu_torch\n"
-        "from stochastic_gcn_tpu_torch.cli import infer\n"
+        "from stochastic_gcn_tpu_torch.cli import infer, train\n"
         "from stochastic_gcn_tpu_torch.data import graph, loaders, preprocess\n"
         "from stochastic_gcn_tpu_torch.models import aggregators, gcn\n"
         "from stochastic_gcn_tpu_torch.ops import _build, cuda_spmm, gather, "
@@ -464,18 +464,28 @@ def test_device_f1_counts_match_jax(multitask):
 
 
 def test_load_jax_checkpoint_widens_bf16(tmp_path):
+    """A ``bf16leaf:`` history in a JAX-layout file loads into a float32
+    history (a bfloat16 train history read by a float32 trainer)."""
     bits = np.array([[0x3F80, 0xC040], [0x0000, 0x7F80]], np.uint16)
-    path = tmp_path / "m.npz"
-    np.savez(path, **{
-        "bf16leaf:['state'].histories[0][0]": bits,
-        "leaf:['state'].params['dense0']['weights']": np.ones((2, 3)),
-        "extra:completed_epochs": np.int64(2)})
-    ck = C.load_jax_checkpoint(str(path))
-    np.testing.assert_array_equal(ck["state"]["histories"][0][0],
+    params = {"dense0": {"weights": torch.zeros(2, 3)}}
+    state = St.TrainState(
+        params=params, opt_state=St.make_optimizer(Config()).init(params),
+        histories=((torch.zeros(2, 2),),),
+        step=torch.zeros((), dtype=torch.int32))
+    arrays = {"leaf:" + k: np.full(tuple(t.shape), 7, N(t).dtype)
+              for k, t in C._state_leaves(state, ())}
+    del arrays["leaf:['state'].histories[0][0]"]
+    arrays["bf16leaf:['state'].histories[0][0]"] = bits
+    arrays["extra:completed_epochs"] = np.int64(2)
+    np.savez(C.checkpoint_path(str(tmp_path)), **arrays)
+    C.load_checkpoint(str(tmp_path), state, ())
+    assert state.histories[0][0].dtype == torch.float32
+    np.testing.assert_array_equal(N(state.histories[0][0]),
                                   [[1.0, -3.0], [0.0, np.inf]])
-    assert C.histories_from_jax(ck["state"]["histories"])[0][0].shape == \
-        (2, 2)
-    assert ck["state"]["params"]["dense0"]["weights"].shape == (2, 3)
+    np.testing.assert_array_equal(N(state.params["dense0"]["weights"]),
+                                  np.full((2, 3), 7.0))
+    assert int(state.step) == 7
+    assert int(C.load_loop_extras(str(tmp_path))["completed_epochs"]) == 2
 
 
 def test_assemble_input_features_matches(small):
