@@ -14,16 +14,26 @@ Phases, one or more lines each:
    fanout backward's atomics add in another order on every run; a
    bfloat16 table is compared with the plain version computed in float32
    from the same bfloat16 values).  Rows 2-8x wider than the main path's
-   run every instantiation of each kernel; the backward also runs with
-   repeated positions (atomic contention), parked positions and zero
-   weights, and the gradient through ``FanoutAggregate`` is held against
-   autograd through the plain forward.  Times, at the training shapes
-   (fanout C=1024 F=512 K=1, full term on the bf16 [233008,128] history at
-   F=512 K=64, backward C=1024 F=512 K=1) and the serving shapes (F=2048):
-   device time per call of the kernel and of its plain version (CUDA
-   events around 32 back-to-back calls queued behind a spin kernel, median
-   of 5 windows; the full term cycles through 4 index sets), and the
-   wrapper's host time per call apart from it.
+   run every instantiation of the one-warp-per-row kernel; every split
+   of the split kernel runs on K not a multiple of the split,
+   K below the warps per row, K = 1, an all-dead row, F = 1 and F = 1057
+   at 128-, 256- and 512-byte rows; the full term must be bitwise equal
+   from run to run.  The backward also runs with repeated positions
+   (atomic contention), parked positions, zero weights, F = 1 and more
+   rows than one resident grid covers, and the gradient through ``FanoutAggregate`` is held against autograd
+   through the plain forward.  Times, at the training shapes (fanout
+   C=1024 F=512 K=1, full term on the bf16 [233008,128] history at F=512
+   K=64, backward C=1024 F=512 K=1) and the serving shapes (F=2048):
+   device time per call of the kernel, of its plain version and of the
+   one PyTorch call nearest to it (``embedding_bag``; ``index_add_`` for
+   the backward; timed here, used nowhere in the port), by CUDA events
+   around 32 back-to-back calls queued behind a spin kernel, median of 5
+   windows (the full term cycles through 4 index sets); the bound, the
+   least time the card could take (``kernel_bytes`` of these inputs, each
+   distinct live table row counted once, over 3.35 TB/s, or the
+   multiply-adds over 67 TFLOP/s); the time of an empty kernel in the
+   same window (``launch_floor_ms``); every split of the gather; and the
+   wrapper's host time per call apart from all these.
 4. train — CV+PP training at the JAX benchmark's recipe and full width
    (233k-node Reddit-shaped graph, batch 512, degree 1, 1204 -> 128 -> 128
    | CV | 256 -> 128 -> 41, bf16 train history): one warm-up epoch, then
@@ -31,7 +41,8 @@ Phases, one or more lines each:
    it.  Prints ms/step, steps/s, sampled edges/s (``amt_data`` over the
    train seconds), its ratio to BASELINE.md's reference host bound, peak
    device memory and the launch counts; fails unless each of the three
-   kernels launched at least once per step and the loss is finite.  Then
+   kernels launched at least once per step and the loss is finite (the
+   launches per step are printed and go into the kernels line).  Then
    the three kernels on 4 real scheduled batches of the recipe (the
    layer's sampled slots, the train graph's full rows, the trained bf16
    history), held against their plain versions and timed as in phase 3;
@@ -43,12 +54,15 @@ Phases, one or more lines each:
    the CV history refresh), with the launch counters reset just before.
    Checks finite probability rows summing to 1, both forward kernels
    launched, and predictions equal to exact inference computed on the
-   card with the plain versions (atol 1e-4).
+   card with the plain versions (atol 1e-4).  Prints the launches per
+   later request, and those of the refresh apart.
 6. converge — the JAX benchmark's convergence check (bench.py:134-158):
    CV+PP at degree 1 on the 65,536-node community SBM, up to 15 epochs;
    fails unless the best val micro-F1 reaches 0.90.
 
-The line before the last is a JSON object describing the kernels; the last
+The line before the last is a JSON object describing the kernels (times in
+device ms per call on real train batches, ``bound_ms`` and ``bound_by``,
+``library_ms``, launches per train step and per later request); the last
 is ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
 
@@ -63,6 +77,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from stochastic_gcn_tpu_torch.config import Config
 from stochastic_gcn_tpu_torch.data.graph import graph_rows
@@ -109,6 +124,40 @@ CONVERGE_CFG = dict(dataset="sbm_reddit", batch_size=512, degree=1,
                     test_batch_size=2048, pad_degree=64, seed=1)
 CONVERGE_EPOCHS, CONVERGE_F1 = 15, 0.90
 SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's ~2 GHz SM clock
+# the H100's published peaks (SXM data sheet): device memory rate, and
+# float32 rate outside the tensor cores (the kernels' multiply-adds)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+SPLITS = (1, 2, 4, 8)        # warps per output row of the split kernel
+
+
+def kernel_bytes(kind: str, live_rows: float, row_bytes: int, f: int,
+                 k: int, d: int, rows_out: int) -> float:
+    """Bytes a kernel must move for one call, each input read once and each
+    output written once.  ``kind`` "gather" (both forward kernels):
+    ``live_rows`` table rows of ``row_bytes`` (the distinct rows under a
+    live slot, ``w != 0`` and the index in range as the kernels define it:
+    a row that several slots name is read from memory once), the int32
+    index and float32 weight arrays ``[f, k]``, and the float32 output
+    ``[rows_out, d]``.  ``kind`` "backward": the float32 gradient
+    ``[f, d]``, the same slot arrays, and all of the float32
+    ``grad_x [rows_out, d]`` written once."""
+    slot_arrays = f * k * (4 + 4)
+    if kind == "backward":
+        return f * d * 4 + slot_arrays + rows_out * d * 4
+    if kind != "gather":
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    return live_rows * row_bytes + slot_arrays + rows_out * d * 4
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of bytes over its
+    memory rate and float32 operations over its rate for them, and which
+    of the two it is."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops / F32_FLOP_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
 
 
 def fail(msg: str):
@@ -132,11 +181,14 @@ def phase_build() -> None:
     print(f"build: {seconds:.2f} s -> {path.relative_to(ROOT)}")
     kernel = "?"         # the entry function the next ptxas lines describe
     for line in log.splitlines():
-        m = re.search(r"(gather_aggregate_kernel|fanout_backward_kernel)I"
+        m = re.search(r"(row_gather_kernel|split_gather_kernel|"
+                      r"fanout_backward_coop_kernel)I"
                       r"((?:Li\d+E)+)E", line)
-        if "Compiling entry function" in line and m:
-            args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
-            kernel = f"{m.group(1)}<{args}>"
+        if "Compiling entry function" in line:
+            kernel = "empty_kernel" if "empty_kernel" in line else "?"
+            if m:
+                args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
+                kernel = f"{m.group(1)}<{args}>"
         elif "Used" in line or "spill" in line:
             print(f"build: ptxas {kernel}: {line.strip()}")
 
@@ -180,22 +232,86 @@ def _host_ms(fn, calls: int = 200) -> float:
     return 1e3 * seconds / calls
 
 
-def _compare(name, kernel, ref, table, sets, timing: bool):
+def _live(idx, w, rows: int):
+    """The slots a kernel reads: non-zero weight and an index in range."""
+    return (w != 0) & (idx >= 0) & (idx < rows)
+
+
+def _agree(name: str, got, want, atol: float, rtol: float) -> float:
+    err = (got.float() - want).abs()
+    if not (torch.isfinite(got).all()
+            and (err <= atol + rtol * want.abs()).all()):
+        fail(f"{name}: disagrees with the plain version, max abs err "
+             f"{err.max().item():.3e}")
+    return err.max().item()
+
+
+def _library_gather(table, sets, wants):
+    """The one PyTorch call nearest to both forward kernels:
+    ``embedding_bag`` with per-sample weights, dead slots remapped (outside
+    the timed window) to a padding row appended to the table.  On a
+    float32 table it computes the same function; a bfloat16 table needs
+    bfloat16 weights and is summed in bfloat16, so there it is only the
+    nearest call."""
+    pad = table.shape[0]
+    ext = torch.cat([table, table.new_zeros((1, table.shape[1]))])
+    prepared = [(torch.where(_live(idx, w, pad), idx, pad).contiguous(),
+                 w.to(table.dtype)) for idx, w in sets]
+
+    def call(i):
+        idx, w = prepared[i % len(prepared)]
+        return F.embedding_bag(idx, ext, per_sample_weights=w, mode="sum",
+                               padding_idx=pad)
+
+    exact = table.dtype == torch.float32
+    for i, want in enumerate(wants):
+        _agree("library embedding_bag", call(i), want,
+               *(KERNEL_TOL if exact else (5e-2, 5e-2)))
+    return call, ("embedding_bag" if exact
+                  else "embedding_bag, nearest call, bf16 sums")
+
+
+def _library_backward(rows: int):
+    """No single call does the masked weighted scatter-add:
+    ``zeros.index_add_`` alone, with the products ``w * g`` made outside
+    the timed window."""
+    def make(g, sets, wants):
+        prepared = []
+        for pos, w in sets:
+            live = _live(pos, w, rows)
+            contrib = torch.where(live, w, 0.0).unsqueeze(-1) * g.unsqueeze(1)
+            prepared.append((torch.where(live, pos, 0).long().reshape(-1),
+                             contrib.reshape(-1, g.shape[1]).contiguous()))
+
+        def call(i):
+            pos, contrib = prepared[i % len(prepared)]
+            return torch.zeros((rows, g.shape[1]), dtype=g.dtype,
+                               device=g.device).index_add_(0, pos, contrib)
+
+        for i, want in enumerate(wants):
+            _agree("library index_add_", call(i), want, *KERNEL_TOL)
+        return call, "index_add_ alone, product excluded"
+    return make
+
+
+def _compare(name, kernel, ref, table, sets, timing: bool,
+             kind: str = "gather", rows: int | None = None, library=None):
     """Kernel vs plain version on every ``(idx, w)`` of ``sets``; timed
     calls cycle through the sets, so consecutive calls read other rows.
-    GB/s counts one ``table``-wide row per live slot (for the backward,
-    whose ``table`` is the output gradient: one row added per slot)."""
-    worst = 0.0
+    ``rows`` bounds a live index (default: the table's rows; for the
+    backward, whose ``table`` is the output gradient, the rows of
+    ``grad_x``).  Timed cases also get their bound (``kernel_bytes`` of
+    these inputs, each distinct live row once, over the card's memory
+    rate, or the live slots' multiply-adds over its float32 rate) and the
+    time of ``library(table, sets, wants)``'s call."""
+    rows = table.shape[0] if rows is None else rows
+    worst, wants = 0.0, []
     for idx, w in sets:
         out = kernel(table, idx, w)
         want = ref(table.float(), idx, w)
         torch.cuda.synchronize()
-        err = (out - want).abs()
-        tol = KERNEL_TOL[0] + KERNEL_TOL[1] * want.abs()
-        if not (torch.isfinite(out).all() and (err <= tol).all()):
-            fail(f"{name}: kernel disagrees with its plain version, max abs "
-                 f"err {err.max().item():.3e}")
-        worst = max(worst, err.max().item())
+        worst = max(worst, _agree(name, out, want, *KERNEL_TOL))
+        wants.append(want)
     res = {"max_abs_err": worst}
     if timing:
         def call(fn):
@@ -203,10 +319,28 @@ def _compare(name, kernel, ref, table, sets, timing: bool):
         res["ms"] = _device_ms(call(kernel))
         res["plain_ms"] = _device_ms(call(ref))
         res["host_ms"] = _host_ms(call(kernel))
-        live = sum(int((w != 0).sum()) for _, w in sets) / len(sets)
-        res["gb_s"] = live * table.shape[1] * table.element_size() \
-            / (res["ms"] * 1e6)
+        masks = [_live(idx, w, rows) for idx, w in sets]
+        live = sum(int(m.sum()) for m in masks) / len(sets)
+        distinct = sum(torch.unique(idx[m]).numel()
+                       for (idx, _), m in zip(sets, masks)) / len(sets)
+        f, k = sets[0][0].shape
+        d = table.shape[1]
+        row_bytes = d * table.element_size()
+        res["gb_s"] = live * row_bytes / (res["ms"] * 1e6)
+        res["live"], res["distinct"] = live, distinct
+        res["bytes"] = kernel_bytes(kind, distinct, row_bytes, f, k, d,
+                                    rows if kind == "backward" else f)
+        res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"],
+                                                    2 * live * d)
+        res["library_ms"], res["library"] = None, "none"
+        if library is not None:
+            lib_call, res["library"] = library(table, sets, wants)
+            res["library_ms"] = _device_ms(lib_call)
     return res
+
+
+MAIN_KEYS = ("ms", "plain_ms", "host_ms", "bound_ms", "bound_by",
+             "library_ms")
 
 
 def _report(results: dict, kname: str, case: str, res: dict,
@@ -217,13 +351,74 @@ def _report(results: dict, kname: str, case: str, res: dict,
     agg = results[kname]
     agg["max_abs_err"] = max(agg.get("max_abs_err", 0.0), res["max_abs_err"])
     if main:
-        agg.update((key, res[key]) for key in ("ms", "plain_ms", "host_ms"))
-    times = (f"; device {res['ms']:.5f} ms/call ({res['gb_s']:.0f} GB/s "
-             f"of live rows) vs plain {res['plain_ms']:.5f} ms/call; "
-             f"wrapper host {res['host_ms']:.5f} ms/call"
-             if "ms" in res else "")
+        agg.update((key, res[key]) for key in MAIN_KEYS)
+    times = ""
+    if "ms" in res:
+        lib = ("none" if res["library_ms"] is None else
+               f"{res['library_ms']:.5f} ms/call ({res['library']})")
+        times = (f"; device {res['ms']:.5f} ms/call ({res['gb_s']:.0f} GB/s "
+                 f"of live slots) vs plain {res['plain_ms']:.5f} ms/call; "
+                 f"bound {res['bound_ms']:.5f} ms ({res['bytes'] / 1e6:.3f} "
+                 f"MB: {res['distinct']:.0f} distinct rows under "
+                 f"{res['live']:.0f} live slots; by {res['bound_by']}) = "
+                 f"{res['bound_ms'] / res['ms']:.3f} of the time; library "
+                 f"{lib}; wrapper host {res['host_ms']:.5f} ms/call")
     print(f"kernels: {kname} {case}: max abs err "
           f"{res['max_abs_err']:.3e}{times}")
+
+
+def _gather_splits(label: str, table, sets) -> None:
+    """Every split of the gather kernel on ``sets`` (0: one warp per row):
+    held against the plain version, then timed like the public function."""
+    f, k = sets[0][0].shape
+    wants = [K.hbm_gather_aggregate_ref(table.float(), idx, w)
+             for idx, w in sets]
+    cells = []
+    for split in (0, *SPLITS):
+        def call(i, split=split):
+            return K.gather_aggregate_split(table, *sets[i % len(sets)],
+                                            split)
+        for i, want in enumerate(wants):
+            _agree(f"{label} split {split}", call(i), want, *KERNEL_TOL)
+        cells.append(f"{'row' if split == 0 else f'x{split}'} "
+                     f"{_device_ms(call):.5f}")
+    print(f"kernels: splits, {label}, device ms/call: {'; '.join(cells)}; "
+          f"the public function plans split "
+          f"{K.gather_plan(table, f, k)} (0 = row)")
+
+
+def _gather_edge_cases(rng, dev) -> float:
+    """Every split, and the public function, on the shapes the split must
+    get right: K not a multiple of the split, K below the
+    warps per row, K = 1, a row whose slots are all dead, F = 1, and
+    F = 132 * 8 + 1, at 128-, 256- and 512-byte rows.  Returns the worst
+    error."""
+    worst = 0.0
+    for d, dtype in [(64, torch.bfloat16), (64, torch.float32),
+                     (128, torch.bfloat16), (128, torch.float32)]:
+        table = torch.from_numpy(rng.normal(size=(5008, d)).astype(
+            np.float32)).to(dev, dtype)
+        table[5000] = float("nan")        # a dead slot must never be read
+        for f, k in [(37, 50), (9, 3), (512, 1), (1, 64), (132 * 8 + 1, 64)]:
+            w = rng.uniform(0.0, 2.0 / k, (f, k)).astype(np.float32)
+            if k > 1:
+                w[rng.random((f, k)) < 0.3] = 0.0
+            w[f // 2] = 0.0               # a row whose slots are all dead
+            idx = rng.integers(0, 5000, (f, k)).astype(np.int32)
+            idx[w == 0] = 5000
+            idx, w = torch.from_numpy(idx).to(dev), torch.from_numpy(w).to(dev)
+            want = K.hbm_gather_aggregate_ref(table.float(), idx, w)
+            outs = [K.hbm_gather_aggregate(table, idx, w)]
+            outs += [K.gather_aggregate_split(table, idx, w, split)
+                     for split in (0, *SPLITS)]
+            torch.cuda.synchronize()
+            for out in outs:
+                worst = max(worst, _agree(
+                    f"gather edge case d={d} {dtype} F={f} K={k}", out, want,
+                    *KERNEL_TOL))
+            if outs[0][f // 2].abs().max().item() != 0.0:
+                fail("an all-dead row did not come out zero")
+    return worst
 
 
 def phase_kernels(seed: int = 0) -> dict:
@@ -234,6 +429,12 @@ def phase_kernels(seed: int = 0) -> dict:
 
     def report(kname, case, res):
         _report(results, kname, case, res)
+
+    # the floor under any single launch, in the same 32-call window
+    floor_ms = _device_ms(lambda i: K.empty_launch(dev))
+    print(f"kernels: launch_floor_ms {floor_ms:.5f} (an empty kernel, device "
+          f"ms/call in the same window; the K=1 fanout shapes are read "
+          f"against it)")
 
     def full_term_inputs(f, k, n_nodes, n_sets=1):
         # ~30% zero-weight slots, all pointing at the sentinel row N
@@ -255,15 +456,29 @@ def phase_kernels(seed: int = 0) -> dict:
     bf16 = table.to(torch.bfloat16)
     # training: the bf16 train history, F = batch 512, K = the train
     # graph's pad degree (64 at the recipe)
+    train_sets = full_term_inputs(512, 64, n_nodes, n_sets=4)
     report("hbm_gather_aggregate", "bf16 [233008,128] F=512 K=64 (training)",
-           _compare("full bf16 training", hbm, hbm_ref, bf16,
-                    full_term_inputs(512, 64, n_nodes, n_sets=4), True))
+           _compare("full bf16 training", hbm, hbm_ref, bf16, train_sets,
+                    True, library=_library_gather))
+    _gather_splits("bf16 [233008,128] F=512 K=64", bf16, train_sets)
     # serving: the f32 eval history (and bf16), F = test batch 2048
     sets = full_term_inputs(2048, 64, n_nodes, n_sets=4)
     report("hbm_gather_aggregate", "f32 [233008,128] F=2048 K=64",
-           _compare("full f32", hbm, hbm_ref, table, sets, True))
-    res = _compare("full bf16", hbm, hbm_ref, bf16, sets, True)
+           _compare("full f32", hbm, hbm_ref, table, sets, True,
+                    library=_library_gather))
+    _gather_splits("f32 [233008,128] F=2048 K=64", table, sets)
+    res = _compare("full bf16", hbm, hbm_ref, bf16, sets, True,
+                   library=_library_gather)
     report("hbm_gather_aggregate", "bf16 [233008,128] F=2048 K=64", res)
+    _gather_splits("bf16 [233008,128] F=2048 K=64", bf16, sets)
+    # the fixed sum order: two runs on the same inputs are bitwise equal
+    if not torch.equal(hbm(bf16, *train_sets[0]), hbm(bf16, *train_sets[0])):
+        fail("the full term is not bitwise reproducible from run to run")
+    print(f"kernels: gather edge cases (K not a multiple of the split, "
+          f"K < warps per row, K=1, an all-dead row, F=1, F=1057; bf16 and "
+          f"f32 at d=64 and 128; every split): max abs err "
+          f"{_gather_edge_cases(rng, dev):.3e}; the full term is bitwise "
+          f"reproducible")
     report("hbm_gather_aggregate", "f32 ragged F=13 K=64",
            _compare("full ragged", hbm, hbm_ref, table,
                     full_term_inputs(13, 64, n_nodes), False))
@@ -287,7 +502,8 @@ def phase_kernels(seed: int = 0) -> dict:
         rng.uniform(0.5, 1.5, (512, 1)).astype(np.float32)).to(dev)
     report("fanout_aggregate", "f32 C=1024 F=512 K=1 (training, iota pos)",
            _compare("fanout training", fan, fan_ref, x,
-                    [(pos1.contiguous(), w1)], True))
+                    [(pos1.contiguous(), w1)], True,
+                    library=_library_gather))
     # serving: C = 4096, F = test batch 2048
     c = 4096
     x = torch.from_numpy(rng.normal(size=(c, d)).astype(np.float32)).to(dev)
@@ -296,7 +512,8 @@ def phase_kernels(seed: int = 0) -> dict:
         rng.uniform(0.5, 1.5, (2048, 1)).astype(np.float32)).to(dev)
     report("fanout_aggregate", "f32 C=4096 F=2048 K=1",
            _compare("fanout K=1", fan, fan_ref, x,
-                    [(pos1.contiguous(), w1)], True))
+                    [(pos1.contiguous(), w1)], True,
+                    library=_library_gather))
     pos8 = rng.integers(0, c, (2048, 8)).astype(np.int32)
     pos8[rng.random((2048, 8)) < 0.1] = 1 << 30      # parked positions
     w8 = rng.uniform(0.0, 0.25, (2048, 8)).astype(np.float32)
@@ -335,11 +552,19 @@ def phase_kernels(seed: int = 0) -> dict:
             ("C=300 F=64 K=8 d=256", 300, backward_inputs(300, 64, 8, 256),
              False),
             ("C=300 F=64 K=8 d=512", 300, backward_inputs(300, 64, 8, 512),
-             False)]:
+             False),
+            ("C=300 F=1 K=8 d=128", 300, backward_inputs(300, 1, 8, 128),
+             False),
+            # more rows and more of grad_x than one resident grid covers
+            ("C=40000 F=9000 K=2 d=128", 40000,
+             backward_inputs(40000, 9000, 2, 128), False)]:
+        if not timing:
+            args[2][args[0].shape[0] // 2] = 0.0     # a row with no live slot
         report("fanout_aggregate_backward", case,
                _compare(f"backward {case}", lambda g, p, w, c=c: bwd(g, p, w, c),
                         lambda g, p, w, c=c: bwd_ref(g, p, w, c),
-                        args[0], [args[1:]], timing))
+                        args[0], [args[1:]], timing, kind="backward", rows=c,
+                        library=_library_backward(c)))
 
     # the gradient through FanoutAggregate (both kernels) against autograd
     # through the plain forward
@@ -391,7 +616,8 @@ def _peak_gib(device) -> float:
 
 def phase_train(ds, device: str = "cuda", cfg_kw=SLICE_CFG):
     """A warm-up epoch, then one timed epoch with the counters reset just
-    before it.  Returns (trainer, launch counts of the timed epoch)."""
+    before it.  Returns (trainer, launch counts of the timed epoch, its
+    steps)."""
     cfg = Config(**cfg_kw)
     t0 = time.perf_counter()
     tr = Trainer(cfg, ds, device=device)
@@ -426,13 +652,14 @@ def phase_train(ds, device: str = "cuda", cfg_kw=SLICE_CFG):
           f"({REFERENCE_EDGES_PER_S:.1e} edges/s, BASELINE.md); last loss "
           f"{loss:.5f}, accuracy {acc:.5f}; peak device memory "
           f"{_peak_gib(device):.3f} GiB")
-    print(f"train: kernel launches {launches}")
+    print(f"train: kernel launches {launches} = "
+          f"{ {k: v / steps for k, v in launches.items()} } per step")
     if not np.isfinite(loss):
         fail(f"non-finite training loss {loss}")
     low = {k: v for k, v in launches.items() if v < steps}
     if low:
         fail(f"kernels launched less than once per step ({steps}): {low}")
-    return tr, launches
+    return tr, launches, steps
 
 
 def phase_train_kernels(tr: Trainer, results: dict, batches: int = 4,
@@ -461,19 +688,23 @@ def phase_train_kernels(tr: Trainer, results: dict, batches: int = 4,
     _report(results, "fanout_aggregate",
             f"train batch: f32 C={c} F={f} K={k_fan}",
             _compare("fanout train batch", K.fanout_aggregate,
-                     K.fanout_aggregate_ref, x, slots, True), main=True)
+                     K.fanout_aggregate_ref, x, slots, True,
+                     library=_library_gather), main=True)
     _report(results, "fanout_aggregate_backward",
             f"train batch: C={c} F={f} K={k_fan} d={g.shape[1]}",
             _compare("backward train batch",
                      lambda g_, p, w: K.fanout_aggregate_backward(g_, p, w, c),
                      lambda g_, p, w: K.fanout_aggregate_backward_ref(
-                         g_, p, w, c), g, slots, True), main=True)
+                         g_, p, w, c), g, slots, True, kind="backward",
+                     rows=c, library=_library_backward(c)), main=True)
     _report(results, "hbm_gather_aggregate",
             f"train batch: bf16 history {list(hist.shape)} F={f} "
             f"K={k_full}",
             _compare("full term train batch", K.hbm_gather_aggregate,
-                     K.hbm_gather_aggregate_ref, hist, full, True),
-            main=True)
+                     K.hbm_gather_aggregate_ref, hist, full, True,
+                     library=_library_gather), main=True)
+    _gather_splits(f"train batch: bf16 history F={f} K={k_full}", hist,
+                     full)
 
 
 def phase_profile(tr: Trainer, steps: int = PROFILE_STEPS) -> None:
@@ -539,13 +770,17 @@ def phase_slice(tr: Trainer, n_ids: int = REQUEST_IDS) -> dict:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    times, outs = [], []
+    times, outs, first = [], [], None
     for ids in requests:
         t0 = time.perf_counter()
         outs.append(tr.predict(ids))
         _sync(device)
         times.append(time.perf_counter() - t0)
+        first = first or dict(K.LAUNCHES)    # the refresh and one request
     launches = dict(K.LAUNCHES)
+    per_request = {k: (launches[k] - first[k]) / (len(requests) - 1)
+                   for k in launches}
+    refresh = {k: first[k] - per_request[k] for k in launches}
     later_ms = 1e3 * statistics.median(times[1:])
 
     # the first request also paid one-time warm-up: time the refresh
@@ -561,7 +796,8 @@ def phase_slice(tr: Trainer, n_ids: int = REQUEST_IDS) -> dict:
           f"{later_ms:.2f} ms/request, {n_ids / later_ms * 1e3:.0f} nodes/s; "
           f"peak device memory {_peak_gib(device):.3f} GiB (train state "
           f"resident)")
-    print(f"slice: kernel launches {launches}")
+    print(f"slice: kernel launches {launches} = {per_request} per later "
+          f"request, and {refresh} for the refresh")
 
     worst = 0.0
     for ids, probs in zip(requests, outs):
@@ -583,7 +819,7 @@ def phase_slice(tr: Trainer, n_ids: int = REQUEST_IDS) -> dict:
         fail(f"the serving path never launched {missing}")
     if launches["fanout_aggregate_backward"]:
         fail("serving launched the backward kernel")
-    return launches
+    return per_request
 
 
 def phase_converge(device: str = "cuda", sbm_kw=SBM_KW, cfg_kw=CONVERGE_CFG,
@@ -632,17 +868,19 @@ def main() -> None:
     ds = reddit_like()
     print(f"graph: Reddit-shaped, {ds.num_data} nodes, built in "
           f"{time.perf_counter() - t0:.2f} s (host)")
-    tr, launches = phase_train(ds)
+    tr, launches, steps = phase_train(ds)
     phase_train_kernels(tr, kernels)
     phase_profile(tr)
-    phase_slice(tr)
+    per_request = phase_slice(tr)
     del tr
     phase_converge()
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-         "plain_ms": res["plain_ms"], "host_ms": res["host_ms"]}
+         "max_abs_err": res["max_abs_err"],
+         **{key: res[key] for key in MAIN_KEYS},
+         "launches_per_step": launches[name] / steps,
+         "launches_per_request": per_request[name]}
         for name, res in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,7 @@ Port of stochastic_gcn_tpu/cli/train.py::
         --cv --test_cv --degree 1 --test_degree 1 --device cuda [flags]
 
 Flag names and semantics are the reference's (train.py:25-67), parsed by
-the JAX package's ``parse_flags``; ``--device`` (default ``cuda``) names
+``config.parse_flags``; ``--device`` (default ``cuda``) names
 the torch device.  Trains with ``sgd_train`` (epoch lines, checkpoint in
 ``--ckpt_dir``, ``--resume``, SIGTERM -> checkpoint and exit), then runs
 the Test passes.  ``--model mlp`` and ``--gradvar`` are not ported yet and

@@ -27,15 +27,20 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# (name, argtypes) of every extern "C" entry point; each returns the
-# cudaError_t of its launch as an int
+# (name, argtypes) of every extern "C" entry point; each returns an int,
+# the cudaError_t of its launch (sgt_gather_plan: a split)
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# (table, dtype, rows, d, idx, w, n_out, k, out, stream)
 _GATHER_ARGS = [_P, _I, _I64, _I, _P, _P, _I, _I, _P, _P]
+# (g, pos, w, n_out, k, c, d, grad_x, stream)
+_BACKWARD_ARGS = [_P, _P, _P, _I, _I, _I64, _I, _P, _P]
 _ENTRY_POINTS = {
     "sgt_hbm_gather_aggregate": _GATHER_ARGS,
     "sgt_fanout_aggregate": _GATHER_ARGS,
-    # (g, pos, w, n_out, k, c, d, grad_x, stream)
-    "sgt_fanout_aggregate_backward": [_P, _P, _P, _I, _I, _I64, _I, _P, _P],
+    "sgt_gather_aggregate_split": _GATHER_ARGS + [_I],  # split
+    "sgt_gather_plan": [_I, _I, _I, _I],                # dtype, d, n_out, k
+    "sgt_fanout_aggregate_backward": _BACKWARD_ARGS,
+    "sgt_empty": [_P],                                  # stream
 }
 
 
@@ -86,3 +91,9 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def entry(name: str):
+    """The bound C function ``name``, resolved once per process."""
+    return getattr(library(), name)

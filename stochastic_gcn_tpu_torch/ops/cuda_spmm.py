@@ -23,17 +23,28 @@ All run ``csrc/spmm.cu`` on CUDA tensors (see the design notes there) and
 the ``*_ref`` plain versions on CPU tensors.  A CUDA tensor never takes the
 plain path: the wrapper launches the kernel or raises.  Each wrapper counts
 its launches in ``LAUNCHES`` so a run can show that its main path went
-through the kernels.
+through the kernels.  The wrappers neither synchronise nor allocate
+outside PyTorch's allocator, so they can be captured in a CUDA graph.
+
+The C entries pick the kernel for a shape themselves (several warps per
+output row for the full term, one warp per row at K = 1 and for rows
+above 512 bytes; a cooperative zero-fill-and-scatter for the backward).
+``gather_aggregate_split`` runs the gather with a named split instead,
+for measurement.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import _build
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_CHUNKS = 128        # 16-byte chunks per row the kernel takes (4 per lane)
 
-# launches per wrapper since the last reset_launches()
+# launches per wrapper since the last reset_launches().  A launch recorded
+# into a CUDA graph counts once, at capture; replays of the graph do not
+# pass through the wrapper and are not counted.
 LAUNCHES = {"fanout_aggregate": 0, "fanout_aggregate_backward": 0,
             "hbm_gather_aggregate": 0}
 
@@ -124,26 +135,36 @@ def _check(table: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("more than 2^31 slots")
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _call(device: torch.device, name: str, args: tuple,
+          after: tuple = ()) -> None:
+    """Call the C entry ``name`` as ``(*args, stream, *after)`` on the
+    current stream of ``device``; raise on a cudaError."""
+    fn = _build.entry(name)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch.cuda.current_stream(index).cuda_stream
+    if index == current:
+        err = fn(*args, stream, *after)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream, *after)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def _launch(entry: str, counter: str, table, idx, w) -> torch.Tensor:
+def _gather(entry: str, counter, table, idx, w, after=()) -> torch.Tensor:
     _check(table, idx, w)
     f, k = idx.shape
     out = torch.empty((f, table.shape[1]), dtype=torch.float32,
                       device=table.device)
     if f == 0:
         return out
-    from ._build import library
-    with torch.cuda.device(table.device):
-        err = getattr(library(), entry)(
-            table.data_ptr(), _DTYPE_CODE[table.dtype], table.shape[0],
-            table.shape[1], idx.data_ptr(), w.data_ptr(), f, k,
-            out.data_ptr(), _stream(table.device))
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    LAUNCHES[counter] += 1
+    _call(table.device, entry,
+          (table.data_ptr(), _DTYPE_CODE[table.dtype], table.shape[0],
+           table.shape[1], idx.data_ptr(), w.data_ptr(), f, k,
+           out.data_ptr()), after)
+    if counter is not None:
+        LAUNCHES[counter] += 1
     return out
 
 
@@ -151,7 +172,7 @@ def _fanout_forward(x, pos, w) -> torch.Tensor:
     if x.device.type == "cpu":
         _check_slots(pos, w)
         return fanout_aggregate_ref(x, pos, w)
-    return _launch("sgt_fanout_aggregate", "fanout_aggregate", x, pos, w)
+    return _gather("sgt_fanout_aggregate", "fanout_aggregate", x, pos, w)
 
 
 def fanout_aggregate_backward(g: torch.Tensor, pos: torch.Tensor,
@@ -172,18 +193,16 @@ def fanout_aggregate_backward(g: torch.Tensor, pos: torch.Tensor,
     if g.dtype != torch.float32:
         raise TypeError(f"output gradient must be float32, got {g.dtype}")
     f, k = pos.shape
-    grad = torch.zeros((rows, g.shape[1]), dtype=torch.float32,
-                       device=g.device)
     if f == 0 or rows == 0:
-        return grad
-    from ._build import library
-    with torch.cuda.device(g.device):
-        err = library().sgt_fanout_aggregate_backward(
-            g.data_ptr(), pos.data_ptr(), w.data_ptr(), f, k, rows,
-            g.shape[1], grad.data_ptr(), _stream(g.device))
-    if err != 0:
-        raise RuntimeError("sgt_fanout_aggregate_backward launch failed: "
-                           f"cudaError {err}")
+        return torch.zeros((rows, g.shape[1]), dtype=torch.float32,
+                           device=g.device)
+    # the kernel's entry zero-fills grad itself (rows of whole 16-byte
+    # chunks, and the allocator aligns to more than 16 bytes)
+    grad = torch.empty((rows, g.shape[1]), dtype=torch.float32,
+                       device=g.device)
+    _call(g.device, "sgt_fanout_aggregate_backward",
+          (g.data_ptr(), pos.data_ptr(), w.data_ptr(), f, k, rows,
+           g.shape[1], grad.data_ptr()))
     LAUNCHES["fanout_aggregate_backward"] += 1
     return grad
 
@@ -215,7 +234,9 @@ def fanout_aggregate(x: torch.Tensor, pos: torch.Tensor,
     """``out[f] = sum_s w[f,s] * x[pos[f,s]]``: x [C, d] float32 or bfloat16,
     pos [F, K] int32, w [F, K] float32 -> [F, d] float32; differentiable in
     ``x`` (:class:`FanoutAggregate`)."""
-    return FanoutAggregate.apply(x, pos, w)
+    if w.requires_grad or (torch.is_grad_enabled() and x.requires_grad):
+        return FanoutAggregate.apply(x, pos, w)
+    return _fanout_forward(x, pos, w)         # nothing to record
 
 
 def hbm_gather_aggregate(table: torch.Tensor, idx: torch.Tensor,
@@ -229,5 +250,33 @@ def hbm_gather_aggregate(table: torch.Tensor, idx: torch.Tensor,
     if table.device.type == "cpu":
         _check_slots(idx, w)
         return hbm_gather_aggregate_ref(table, idx, w)
-    return _launch("sgt_hbm_gather_aggregate", "hbm_gather_aggregate",
+    return _gather("sgt_hbm_gather_aggregate", "hbm_gather_aggregate",
                    table, idx, w)
+
+
+# ---- measurement, on CUDA tensors only ----
+
+def gather_aggregate_split(table: torch.Tensor, idx: torch.Tensor,
+                           w: torch.Tensor, split: int) -> torch.Tensor:
+    """The gather-aggregate with a named ``split``: 0 for one warp per
+    output row, or 1, 2, 4, 8 warps per row (rows of at most 512 bytes).
+    The public functions choose the split themselves; this one is for
+    holding every split against the plain version and timing it (the
+    kernel's plan is chosen from these times), and does not count in
+    ``LAUNCHES``."""
+    return _gather("sgt_gather_aggregate_split", None, table, idx, w,
+                   (split,))
+
+
+def gather_plan(table: torch.Tensor, f: int, k: int) -> int:
+    """Warps per output row that the public functions give a ``[f, k]``
+    slot array over ``table``; 0 where they run the one-warp-per-row
+    kernel."""
+    return _build.entry("sgt_gather_plan")(
+        _DTYPE_CODE[table.dtype], table.shape[1], f, k)
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch an empty kernel on ``device``'s current stream: the floor
+    under the time of any single launch."""
+    _call(torch.device(device), "sgt_empty", ())

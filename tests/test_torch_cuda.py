@@ -239,3 +239,160 @@ def test_train_steps_on_card_match_cpu(cuda):
     for l, k in St.param_keys(cpu[0].params):
         torch.testing.assert_close(gpu[0].params[l][k].cpu(),
                                    cpu[0].params[l][k], rtol=0, atol=1e-4)
+
+
+# ---- the split kernel: every split on the shapes the split must get
+# right ----
+
+def _edge_inputs(seed, rows, d, f, k):
+    """Dead slots (w == 0) point at a NaN sentinel row, one slot is out of
+    range under a live weight, and row ``f // 2`` has no live slot."""
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(rows, d)).astype(np.float32)
+    table[rows - 1] = np.nan
+    w = rng.uniform(0.1, 1.0, (f, k)).astype(np.float32)
+    if k > 1:
+        w[rng.random((f, k)) < 0.3] = 0.0
+    w[f // 2] = 0.0
+    idx = rng.integers(0, rows - 1, (f, k)).astype(np.int32)
+    idx[w == 0] = rows - 1
+    idx[0, 0] = 1 << 30
+    return table, idx, w
+
+
+EDGE_SHAPES = [  # (F, K)
+    (37, 50),             # K not a multiple of the split
+    (9, 3),               # K below the warps per row
+    (512, 1),             # K = 1 through the full-term entry
+    (1, 64),              # F = 1
+    (132 * 8 + 1, 64),    # one row more than 132 blocks of 8 rows
+]
+EDGE_ROWS = [(64, torch.bfloat16), (64, torch.float32),    # 128, 256 B
+             (128, torch.bfloat16), (128, torch.float32)]  # 256, 512 B
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("row", EDGE_ROWS, ids=lambda r: f"{r[0]}-{r[1]}")
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=str)
+def test_every_gather_split_on_edge_cases(cuda, shape, row):
+    (f, k), (d, dtype) = shape, row
+    table, idx, w = _edge_inputs(13, 5001, d, f, k)
+    table = torch.from_numpy(table).to(cuda, dtype)
+    idx, w = torch.from_numpy(idx).to(cuda), torch.from_numpy(w).to(cuda)
+    want = K.hbm_gather_aggregate_ref(table.float(), idx, w)
+    before = dict(K.LAUNCHES)
+    outs = {"public": K.hbm_gather_aggregate(table, idx, w),
+            "fanout": K.fanout_aggregate(table, idx, w),
+            "row": K.gather_aggregate_split(table, idx, w, 0)}
+    assert K.LAUNCHES["hbm_gather_aggregate"] == \
+        before["hbm_gather_aggregate"] + 1
+    for split in (1, 2, 4, 8):
+        outs[f"split x{split}"] = K.gather_aggregate_split(table, idx, w,
+                                                           split)
+    torch.cuda.synchronize()
+    # the named splits are for measurement and do not count
+    assert K.LAUNCHES["hbm_gather_aggregate"] == \
+        before["hbm_gather_aggregate"] + 1
+    for name, got in outs.items():
+        torch.testing.assert_close(got, want, **TOL, msg=lambda m: f"{name}: {m}")
+        assert not got[f // 2].any(), name           # the all-dead row
+
+
+@pytest.mark.requires_cuda
+def test_split_entry_refuses_what_it_does_not_take(cuda):
+    table, idx, w = (torch.from_numpy(a).to(cuda)
+                     for a in _inputs(14, 50, 256, 6, 4))     # 1024 B rows
+    K.gather_aggregate_split(table, idx, w, 0)
+    with pytest.raises(RuntimeError, match="cudaError"):      # rows > 512 B
+        K.gather_aggregate_split(table, idx, w, 2)
+    narrow = table[:, :64].contiguous()
+    for split in (3, -1, 16):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            K.gather_aggregate_split(narrow, idx, w, split)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_full_term_is_bitwise_reproducible(cuda, dtype):
+    """No atomics and a fixed split: the sum order, and so every bit of
+    the result, is the same from run to run."""
+    table, idx, w = _inputs(15, 20000, 128, 512, 64)
+    table = torch.from_numpy(table).to(cuda, dtype)
+    idx, w = torch.from_numpy(idx).to(cuda), torch.from_numpy(w).to(cuda)
+    assert K.gather_plan(table, 512, 64) > 1      # the split kernel runs
+    first = K.hbm_gather_aggregate(table, idx, w)
+    for _ in range(5):
+        assert torch.equal(K.hbm_gather_aggregate(table, idx, w), first)
+
+
+@pytest.mark.requires_cuda
+def test_plan_is_a_fixed_function_of_the_shape(cuda):
+    bf16 = torch.zeros(8, 128, device=cuda, dtype=torch.bfloat16)
+    f32 = torch.zeros(8, 128, device=cuda)
+    wide = torch.zeros(8, 256, device=cuda)
+    assert K.gather_plan(bf16, 512, 64) == 4      # the training shape
+    assert K.gather_plan(f32, 2048, 64) == 2      # the serving shape
+    assert K.gather_plan(f32, 512, 1) == 0        # K = 1: one warp per row
+    assert K.gather_plan(f32, 2048, 1) == 0
+    assert K.gather_plan(wide, 512, 64) == 0      # rows above 512 bytes
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", BACKWARD_CASES + [
+    (300, 1, 8, 128),           # F = 1
+    (40000, 9000, 2, 128),      # more than one resident grid covers
+])
+def test_backward_zero_fills_on_edge_cases(cuda, case):
+    c, f, k, d = case
+    g, pos, w = _backward_inputs(16, c, f, k, d)
+    w[f // 2] = 0.0                                  # a row with no live slot
+    g, pos, w = (torch.from_numpy(a).to(cuda) for a in (g, pos, w))
+    want = K.fanout_aggregate_backward_ref(g, pos, w, c)
+    # the kernel zero-fills grad_x itself: a dirty allocation must not leak
+    torch.full((c, d), 7.0, device=cuda)         # freed into the allocator
+    before = K.LAUNCHES["fanout_aggregate_backward"]
+    got = K.fanout_aggregate_backward(g, pos, w, c)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fanout_aggregate_backward"] == before + 1
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.requires_cuda
+def test_kernels_replay_in_a_cuda_graph(cuda):
+    """The three wrappers captured once in a CUDA graph and replayed on
+    refilled static inputs give the eager results: no wrapper hides a
+    synchronisation or an allocation outside the graph's pool.  The launch
+    counters count the capture, not the replays."""
+    def inputs(seed):
+        table, idx, w = _inputs(seed, 20000, 128, 512, 64)
+        g, pos, pw = _backward_inputs(seed, 1024, 512, 1, 128)
+        x = np.random.default_rng(seed).normal(size=(1024, 128)).astype(
+            np.float32)
+        return [torch.from_numpy(a).to(cuda)
+                for a in (table, idx, w, x, pos, pw, g)]
+
+    def run(table, idx, w, x, pos, pw, g):
+        return (K.hbm_gather_aggregate(table.bfloat16(), idx, w),
+                K.fanout_aggregate(x, pos, pw),
+                K.fanout_aggregate_backward(g, pos, pw, 1024))
+
+    static = inputs(17)
+    run(*static)                                     # build, warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    K.reset_launches()
+    with torch.cuda.graph(graph):
+        outs = run(*static)
+    assert K.LAUNCHES == {"fanout_aggregate": 1, "hbm_gather_aggregate": 1,
+                          "fanout_aggregate_backward": 1}
+    for seed in (18, 19):
+        fresh = inputs(seed)
+        for s, t in zip(static, fresh):
+            s.copy_(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = run(*fresh)
+        assert torch.equal(outs[0], want[0])         # fixed sum order
+        assert torch.equal(outs[1], want[1])
+        torch.testing.assert_close(outs[2], want[2], **TOL)
+    assert K.LAUNCHES["hbm_gather_aggregate"] == 3   # 1 capture + 2 eager

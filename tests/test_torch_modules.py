@@ -8,6 +8,7 @@ The port's own sampler is held by statistics, since its torch.Generator
 stream differs from JAX's threefry.
 """
 
+import dataclasses
 import subprocess
 import sys
 
@@ -32,6 +33,7 @@ from stochastic_gcn_tpu.training import loop as JLoop
 from stochastic_gcn_tpu.training import step as JStep
 from stochastic_gcn_tpu.utils import metrics as JMet
 
+from stochastic_gcn_tpu_torch.config import from_fields
 from stochastic_gcn_tpu_torch.data import graph as G
 from stochastic_gcn_tpu_torch.data import loaders as Ld
 from stochastic_gcn_tpu_torch.data import preprocess as P
@@ -43,6 +45,11 @@ from stochastic_gcn_tpu_torch.sampler import scheduler as S
 from stochastic_gcn_tpu_torch.training import checkpoint as C
 from stochastic_gcn_tpu_torch.training import step as St
 from stochastic_gcn_tpu_torch.utils import metrics as Met
+
+
+def port_cfg(cfg):
+    """The port's own ``Config`` with the fields of the JAX package's."""
+    return from_fields(dataclasses.asdict(cfg))
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SLICE = dict(batch_size=32, degree=1, test_degree=1, cv=True, test_cv=True,
@@ -193,7 +200,7 @@ def test_dropout_is_generator_driven():
 def test_glorot_and_init_params(small):
     ds = small[0]
     cfg = Config(**SLICE)
-    spec = M.build_model_spec(cfg, ds.feature_dim, ds.num_classes, True,
+    spec = M.build_model_spec(port_cfg(cfg), ds.feature_dim, ds.num_classes, True,
                               True, False)
     params = M.init_params(torch.Generator().manual_seed(0), spec)
     jparams = JM.init_params(jax.random.PRNGKey(0), JM.build_model_spec(
@@ -212,7 +219,7 @@ def test_glorot_and_init_params(small):
 @pytest.mark.parametrize("preprocess", [True, False])
 def test_build_model_spec_matches(over, preprocess):
     cfg = Config(**{**SLICE, **over})
-    got = M.build_model_spec(cfg, 12, 5, preprocess, True, cfg.cvd)
+    got = M.build_model_spec(port_cfg(cfg), 12, 5, preprocess, True, cfg.cvd)
     want = JM.build_model_spec(cfg, 12, 5, preprocess, True, cfg.cvd)
     for f in ("reverse_input_dropout", "num_agg_layers", "agg0_dim",
               "input_dim", "output_dim", "cv", "cvd", "det_dropout",
@@ -393,7 +400,7 @@ def test_forward_and_loss_match_jax(small):
     feats = np.hstack((ds.feats, ds.test_feats)).astype(np.float32)
     jspec = JM.build_model_spec(cfg, ds.feature_dim, ds.num_classes, True,
                                 True, False)
-    spec = M.build_model_spec(cfg, ds.feature_dim, ds.num_classes, True,
+    spec = M.build_model_spec(port_cfg(cfg), ds.feature_dim, ds.num_classes, True,
                               True, False)
     jparams = JM.init_params(jax.random.PRNGKey(4), jspec)
     params = C.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
@@ -469,7 +476,7 @@ def test_load_jax_checkpoint_widens_bf16(tmp_path):
     bits = np.array([[0x3F80, 0xC040], [0x0000, 0x7F80]], np.uint16)
     params = {"dense0": {"weights": torch.zeros(2, 3)}}
     state = St.TrainState(
-        params=params, opt_state=St.make_optimizer(Config()).init(params),
+        params=params, opt_state=St.make_optimizer(port_cfg(Config())).init(params),
         histories=((torch.zeros(2, 2),),),
         step=torch.zeros((), dtype=torch.int32))
     arrays = {"leaf:" + k: np.full(tuple(t.shape), 7, N(t).dtype)
@@ -493,7 +500,7 @@ def test_assemble_input_features_matches(small):
     ds = small[0]
     for norm in ("graphsage", "gcn"):
         cfg = Config(**{**SLICE, "normalization": norm})
-        got, _ = loop.assemble_input_features(cfg, ds.feats, ds.test_feats,
+        got, _ = loop.assemble_input_features(port_cfg(cfg), ds.feats, ds.test_feats,
                                               True)
         want, _ = JLoop.assemble_input_features(cfg, ds.feats, ds.test_feats,
                                                 True)

@@ -9,6 +9,8 @@ equals an exact forward, refreshes incrementally, and round-trips through
 ``cli/infer.py``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,11 +19,17 @@ from stochastic_gcn_tpu.config import Config
 from stochastic_gcn_tpu.data.loaders import load_data as jax_load_data
 from stochastic_gcn_tpu.training.loop import Trainer as JaxTrainer
 
+from stochastic_gcn_tpu_torch.config import from_fields
 from stochastic_gcn_tpu_torch.cli import infer
 from stochastic_gcn_tpu_torch.models import gcn as M
 from stochastic_gcn_tpu_torch.ops import cuda_spmm as K
 from stochastic_gcn_tpu_torch.ops import layers as L
 from stochastic_gcn_tpu_torch.training.loop import Trainer
+
+
+def port_cfg(cfg):
+    """The port's own ``Config`` with the fields of the JAX package's."""
+    return from_fields(dataclasses.asdict(cfg))
 
 DATASET = "synthetic:240:16:5"
 # the eval half of bench.py's recipe at small width and batch
@@ -54,7 +62,7 @@ def trained(tmp_path_factory):
 
 
 def _port(cfg, ds):
-    tr = Trainer(cfg, ds, device="cpu")
+    tr = Trainer(port_cfg(cfg), ds, device="cpu")
     tr.load(load_history=True)
     return tr
 
@@ -138,7 +146,7 @@ def test_cuda_trainer_without_cuda_raises(trained):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
     with pytest.raises(RuntimeError, match="CUDA"):
-        Trainer(cfg, ds, device="cuda")
+        Trainer(port_cfg(cfg), ds, device="cuda")
 
 
 def test_unported_options_raise(trained):
@@ -146,4 +154,4 @@ def test_unported_options_raise(trained):
     for over in ({"test_cvd": True}, {"dp": 2}, {"field_dedup": True},
                  {"graph_format": "edgelist"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(cfg.replace(**over), ds, device="cpu")
+            Trainer(port_cfg(cfg.replace(**over)), ds, device="cpu")

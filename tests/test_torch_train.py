@@ -14,6 +14,7 @@ the two frameworks draw different random streams.  Tolerances:
 * a sampled CV+PP run: val micro-F1 within 0.03 of JAX's, mean of 3 seeds.
 """
 
+import dataclasses
 import os
 import re
 import signal
@@ -35,6 +36,7 @@ from stochastic_gcn_tpu.sampler import scheduler as JS
 from stochastic_gcn_tpu.training import step as JStep
 from stochastic_gcn_tpu.training.loop import Trainer as JaxTrainer
 
+from stochastic_gcn_tpu_torch.config import from_fields
 from stochastic_gcn_tpu_torch.cli import train as train_cli
 from stochastic_gcn_tpu_torch.data import graph as G
 from stochastic_gcn_tpu_torch.data import loaders as Ld
@@ -45,6 +47,11 @@ from stochastic_gcn_tpu_torch.sampler import scheduler as S
 from stochastic_gcn_tpu_torch.training import checkpoint as C
 from stochastic_gcn_tpu_torch.training import step as St
 from stochastic_gcn_tpu_torch.training.loop import Trainer
+
+
+def port_cfg(cfg):
+    """The port's own ``Config`` with the fields of the JAX package's."""
+    return from_fields(dataclasses.asdict(cfg))
 
 DATASET = "synthetic:240:16:5"
 # the training recipe of bench.py at small width and batch
@@ -187,7 +194,7 @@ def test_adam_matches_optax():
     tx = optax.adam(0.01, b1=0.9, b2=0.999, eps=1e-8)
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     jstate = tx.init(jp)
-    adam = St.make_optimizer(cfg)
+    adam = St.make_optimizer(port_cfg(cfg))
     tp = C.params_from_jax(params)
     tstate = adam.init(tp)
     for i in range(3):
@@ -238,7 +245,7 @@ def test_train_step_matches_jax(graphs):
                  pad_degree=64, seed=1)
     jspec = JM.build_model_spec(cfg, ds.feature_dim, ds.num_classes, True,
                                 True, False)
-    spec = M.build_model_spec(cfg, ds.feature_dim, ds.num_classes, True,
+    spec = M.build_model_spec(port_cfg(cfg), ds.feature_dim, ds.num_classes, True,
                               True, False)
     feats = np.hstack((ds.feats, ds.train_feats)).astype(np.float32)
     rng = np.random.default_rng(26)
@@ -261,7 +268,7 @@ def test_train_step_matches_jax(graphs):
 
     params = C.params_from_jax(_np_tree(jparams))
     state = St.TrainState(params=params,
-                          opt_state=St.make_optimizer(cfg).init(params),
+                          opt_state=St.make_optimizer(port_cfg(cfg)).init(params),
                           histories=((hist.clone(),),),
                           step=torch.zeros((), dtype=torch.int32))
     pack = S.BatchFields(
@@ -270,7 +277,7 @@ def test_train_step_matches_jax(graphs):
                                    slot_w=T(ls.slot_w), slot_aw=None,
                                    scales=T(ls.scales))
                      for ls in jpack.layers))
-    step = St.build_train_step(cfg, spec, (1,), n)
+    step = St.build_train_step(port_cfg(cfg), spec, (1,), n)
     state, m = step(state, tg, G.dense_rows(feats, n),
                     G.dense_rows(ds.labels, n), T(batch),
                     torch.Generator(), pack=pack)
@@ -316,7 +323,7 @@ def test_two_epoch_trajectory_matches_jax(tmp_path):
     cfg = _exhaustive_cfg(tmp_path)
     ds = JLd.load_data(cfg)
     jt = JaxTrainer(cfg, ds)
-    tt = Trainer(cfg, ds, device="cpu")
+    tt = Trainer(port_cfg(cfg), ds, device="cpu")
     init = _np_tree(jt.state.params)
     for l, k in St.param_keys(tt.params):
         tt.params[l][k].copy_(T(init[l][k]))
@@ -376,7 +383,7 @@ def test_sampled_cvpp_accuracy_matches_jax(tmp_path):
                      test_batch_size=256, pad_degree=16, seed=seed,
                      ckpt_dir=str(tmp_path))
         for name, tr in (("jax", JaxTrainer(cfg, ds)),
-                         ("port", Trainer(cfg, ds, device="cpu"))):
+                         ("port", Trainer(port_cfg(cfg), ds, device="cpu"))):
             for _ in range(8):
                 tr.train_epoch()
             tr.predict(ds.val_d)                 # converge CV inference
@@ -431,8 +438,8 @@ def test_jax_checkpoint_resumes_in_port(jax_run, tmp_path):
 
 def test_port_checkpoint_loads_in_jax(jax_run, tmp_path):
     cfg = _flags(tmp_path)
-    ds = Ld.load_data(cfg)
-    tt = Trainer(cfg, ds, device="cpu")
+    ds = Ld.load_data(port_cfg(cfg))
+    tt = Trainer(port_cfg(cfg), ds, device="cpu")
     tt.train_epoch()
     tt.save()
     with np.load(C.checkpoint_path(str(tmp_path))) as z, \
@@ -452,10 +459,10 @@ def test_port_checkpoint_loads_in_jax(jax_run, tmp_path):
 
 def test_port_save_resume_round_trip(tmp_path):
     cfg = _flags(tmp_path, "--epochs", "1", "--early_stopping", "100")
-    ds = Ld.load_data(cfg)
-    first = Trainer(cfg, ds, device="cpu")
+    ds = Ld.load_data(port_cfg(cfg))
+    first = Trainer(port_cfg(cfg), ds, device="cpu")
     first.sgd_train(log=lambda s: None, max_epochs=2)
-    again = Trainer(cfg.replace(resume=True), ds, device="cpu")
+    again = Trainer(port_cfg(cfg.replace(resume=True)), ds, device="cpu")
     logs = []
     again.sgd_train(log=logs.append, max_epochs=2)   # nothing left to run
     assert logs[0] == f"resume: continuing from epoch 3 (data = " \
@@ -475,8 +482,8 @@ def test_load_copies_the_train_histories_into_eval(tmp_path):
     CURRENT train histories cast to the eval dtype (it used to zero
     them)."""
     cfg = _flags(tmp_path)
-    ds = Ld.load_data(cfg)
-    tr = Trainer(cfg, ds, device="cpu")
+    ds = Ld.load_data(port_cfg(cfg))
+    tr = Trainer(port_cfg(cfg), ds, device="cpu")
     tr.save()
     h = tr.state.histories[0][0]
     h.copy_(torch.randn(h.shape, generator=torch.Generator().manual_seed(0)))
@@ -524,7 +531,7 @@ def _scripted_costs(tr, costs):
 
 def test_sgd_train_early_stopping(tmp_path):
     cfg = _flags(tmp_path, "--early_stopping", "2", "--epochs", "100")
-    tr = Trainer(cfg, Ld.load_data(cfg), device="cpu")
+    tr = Trainer(port_cfg(cfg), Ld.load_data(port_cfg(cfg)), device="cpu")
     _scripted_costs(tr, [1.0, 0.9, 0.8, 0.86, 0.9, 0.7])
     lines = []
     tr.sgd_train(log=lines.append, max_epochs=10)
@@ -539,14 +546,14 @@ def test_sgd_train_data_budget(tmp_path, data, epochs_run):
     --epochs (train.py:234); a budget not spent keeps training."""
     cfg = _flags(tmp_path, "--epochs", "1", "--data", str(data),
                  "--early_stopping", "100")
-    tr = Trainer(cfg, Ld.load_data(cfg), device="cpu")
+    tr = Trainer(port_cfg(cfg), Ld.load_data(port_cfg(cfg)), device="cpu")
     tr.sgd_train(log=lambda s: None, max_epochs=5)
     assert tr.completed_epochs == epochs_run
 
 
 def test_sigterm_keeps_the_handler_until_the_final_save(tmp_path):
     cfg = _flags(tmp_path, "--epochs", "50", "--early_stopping", "100")
-    tr = Trainer(cfg, Ld.load_data(cfg), device="cpu")
+    tr = Trainer(port_cfg(cfg), Ld.load_data(port_cfg(cfg)), device="cpu")
     seen = []
     original = signal.getsignal(signal.SIGTERM)
     signal.signal(signal.SIGTERM, lambda *a: seen.append("previous"))
@@ -586,7 +593,7 @@ def test_profile_dir_traces_the_listed_epochs(tmp_path):
     prof = tmp_path / "prof"
     cfg = _flags(tmp_path, "--profile_dir", str(prof), "--profile_epochs",
                  "2", "--epochs", "0")
-    tr = Trainer(cfg, Ld.load_data(cfg), device="cpu")
+    tr = Trainer(port_cfg(cfg), Ld.load_data(port_cfg(cfg)), device="cpu")
     lines = []
     tr.sgd_train(log=lines.append, max_epochs=2)
     assert sorted(os.listdir(prof)) == ["epoch2.trace.json"]
@@ -618,9 +625,9 @@ def test_cli_train_end_to_end(tmp_path, capsys):
     {"model": "mlp"}, {"gradvar": True}])
 def test_unported_training_options_raise(tmp_path, over):
     cfg = _flags(tmp_path)
-    ds = Ld.load_data(cfg)
+    ds = Ld.load_data(port_cfg(cfg))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg.replace(**over), ds, device="cpu")
+        Trainer(port_cfg(cfg.replace(**over)), ds, device="cpu")
 
 
 def test_cli_train_refuses_mlp(tmp_path):
