@@ -21,9 +21,23 @@ Phases, one or more lines each:
    from run to run.  The backward also runs with repeated positions
    (atomic contention), parked positions, zero weights, F = 1 and more
    rows than one resident grid covers, and the gradient through ``FanoutAggregate`` is held against autograd
-   through the plain forward.  Times, at the training shapes (fanout
-   C=1024 F=512 K=1, full term on the bf16 [233008,128] history at F=512
-   K=64, backward C=1024 F=512 K=1) and the serving shapes (F=2048):
+   through the plain forward.  The CV estimator's sampled term
+   (``cv_fanout_aggregate``, the whole control-variate delta in one launch)
+   runs at the training shape (C=1024 F=512 K=1, bf16 [233008,128]
+   history), the serving shape (C=4096 F=2048 K=1, float32 history) and
+   the exhaustive evaluation shape (C=133,120 F=2048 K=64, a float32
+   [65544,128] history), and on repeated and parked positions, zero
+   weights, sentinel field ids, an all-dead row, all slots parked, a field
+   of sentinels only, F=1, F=1057 and K=50 at every row width it is built
+   for; beside its time stands the composition it replaces
+   (``history_gather``, subtract, ``fanout_aggregate``, add: 8 launches),
+   timed in the same window; it must be bitwise equal from run to run and
+   its gradient equal autograd's through the plain version.  The
+   standalone fanout term also runs at the Exact evaluation's shape
+   (C=133,120 F=2048 K=64), the only one a counted path gives it.  Times,
+   at the training shapes (fanout C=1024 F=512 K=1, full term on the bf16
+   [233008,128] history at F=512 K=64, backward C=1024 F=512 K=1) and the
+   serving shapes (F=2048):
    device time per call of the kernel, of its plain version and of the
    one PyTorch call nearest to it (``embedding_bag``; ``index_add_`` for
    the backward; timed here, used nowhere in the port), by CUDA events
@@ -40,30 +54,44 @@ Phases, one or more lines each:
    one timed epoch of 301 steps with the launch counters reset just before
    it.  Prints ms/step, steps/s, sampled edges/s (``amt_data`` over the
    train seconds), its ratio to BASELINE.md's reference host bound, peak
-   device memory and the launch counts; fails unless each of the three
-   kernels launched at least once per step and the loss is finite (the
-   launches per step are printed and go into the kernels line).  Then
-   the three kernels on 4 real scheduled batches of the recipe (the
+   device memory and the launch counts; fails unless a step launched
+   ``cv_fanout_aggregate``, ``hbm_gather_aggregate`` and
+   ``fanout_aggregate_backward`` once each and ``fanout_aggregate`` (the
+   estimators without a control variate) not at all, and the loss is
+   finite (the launches per step are printed and go into the kernels
+   line).  Then the kernels on 4 real scheduled batches of the recipe (the
    layer's sampled slots, the train graph's full rows, the trained bf16
    history), held against their plain versions and timed as in phase 3;
-   these times are the kernels JSON line's.  Then a ``torch.profiler``
+   these times are the kernels JSON line's for the three kernels a train
+   step launches.  Then a ``torch.profiler``
    window of 10 more steps: the top device ops, kernels per step and the
    device's busy share.
 5. slice — the serving path from the trained weights (test batch 2048):
    ``Trainer.predict`` answers 3 requests of 2048 test ids (the first pays
    the CV history refresh), with the launch counters reset just before.
-   Checks finite probability rows summing to 1, both forward kernels
-   launched, and predictions equal to exact inference computed on the
-   card with the plain versions (atol 1e-4).  Prints the launches per
-   later request, and those of the refresh apart.
+   Checks finite probability rows summing to 1, the CV path's two forward
+   kernels launched (and no other), and predictions equal to exact
+   inference computed on the card with the plain versions (atol 1e-4).
+   Prints the launches per later request, and those of the refresh apart.
 6. converge — the JAX benchmark's convergence check (bench.py:134-158):
    CV+PP at degree 1 on the 65,536-node community SBM, up to 15 epochs;
-   fails unless the best val micro-F1 reaches 0.90.
+   fails unless the best val micro-F1 reaches 0.90.  Then the paper's
+   Exact test from the same weights (``test_cv=False``, exhaustive test
+   degree: ``plain_aggregate``, the standalone fanout kernel at K=64) over
+   the validation ids, with the counters reset just before: it must launch
+   ``fanout_aggregate`` and nothing else, and its micro-F1 must agree with
+   the CV evaluation's within 0.01.  Then that kernel on the slots of 4
+   real batches of the Exact evaluation (C=133,120 F=2048 K=64), held
+   against its plain version and timed as in phase 3, with every split:
+   these are the kernels JSON line's times for ``fanout_aggregate``.
 
 The line before the last is a JSON object describing the kernels (times in
-device ms per call on real train batches, ``bound_ms`` and ``bound_by``,
-``library_ms``, launches per train step and per later request); the last
-is ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
+device ms per call on real batches of the path that launches the kernel,
+``bound_ms`` and ``bound_by``,
+``library_ms``, ``replaced_ms`` where the kernel took over a composition;
+``launches`` summed over the three counted paths, the train epoch, the
+served requests and the Exact evaluation, and apart per train step and per
+later request); the last is ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
 
 from __future__ import annotations
@@ -83,6 +111,7 @@ from stochastic_gcn_tpu_torch.config import Config
 from stochastic_gcn_tpu_torch.data.graph import graph_rows
 from stochastic_gcn_tpu_torch.data.loaders import (community_sbm_dataset,
                                                    reddit_like)
+from stochastic_gcn_tpu_torch.models import aggregators as A
 from stochastic_gcn_tpu_torch.models import gcn as M
 from stochastic_gcn_tpu_torch.ops import cuda_spmm as K
 from stochastic_gcn_tpu_torch.ops import layers as L
@@ -93,6 +122,10 @@ from stochastic_gcn_tpu_torch.training.loop import Trainer
 ROOT = Path(__file__).resolve().parent
 SOURCE = "stochastic_gcn_tpu_torch/csrc/spmm.cu"
 REPLACES = {"fanout_aggregate": "stochastic_gcn_tpu/ops/pallas_spmm.py:100",
+            # the same TPU kernel, redesigned for the CV path: the whole
+            # control-variate delta, which the JAX model composes around it
+            # (stochastic_gcn_tpu/models/aggregators.py:504-508)
+            "cv_fanout_aggregate": "stochastic_gcn_tpu/ops/pallas_spmm.py:100",
             # no TPU kernel: the transpose of fanout_aggregate_xla, which
             # the JAX model differentiates
             "fanout_aggregate_backward":
@@ -123,6 +156,8 @@ CONVERGE_CFG = dict(dataset="sbm_reddit", batch_size=512, degree=1,
                     num_fc_layers=2, weight_decay=0.0, dropout=0.2,
                     test_batch_size=2048, pad_degree=64, seed=1)
 CONVERGE_EPOCHS, CONVERGE_F1 = 15, 0.90
+EXACT_F1_ATOL = 0.01         # the Exact test against the CV evaluation
+NO_LIBRARY_CV = "none: no single PyTorch call computes this function"
 SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's ~2 GHz SM clock
 # the H100's published peaks (SXM data sheet): device memory rate, and
 # float32 rate outside the tensor cores (the kernels' multiply-adds)
@@ -132,7 +167,8 @@ SPLITS = (1, 2, 4, 8)        # warps per output row of the split kernel
 
 
 def kernel_bytes(kind: str, live_rows: float, row_bytes: int, f: int,
-                 k: int, d: int, rows_out: int) -> float:
+                 k: int, d: int, rows_out: int, hist_rows: float = 0.0,
+                 hist_row_bytes: int = 0) -> float:
     """Bytes a kernel must move for one call, each input read once and each
     output written once.  ``kind`` "gather" (both forward kernels):
     ``live_rows`` table rows of ``row_bytes`` (the distinct rows under a
@@ -141,10 +177,18 @@ def kernel_bytes(kind: str, live_rows: float, row_bytes: int, f: int,
     index and float32 weight arrays ``[f, k]``, and the float32 output
     ``[rows_out, d]``.  ``kind`` "backward": the float32 gradient
     ``[f, d]``, the same slot arrays, and all of the float32
-    ``grad_x [rows_out, d]`` written once."""
+    ``grad_x [rows_out, d]`` written once.  ``kind`` "cv" (the CV
+    estimator's sampled term): ``live_rows`` distinct rows of ``x`` under a
+    live slot and the int32 ``field_in`` entry of each, ``hist_rows``
+    distinct history rows of ``hist_row_bytes`` (the nodes at those
+    positions, below the sentinel), the slot arrays, and the float32
+    ``base`` and output ``[rows_out, d]``."""
     slot_arrays = f * k * (4 + 4)
     if kind == "backward":
         return f * d * 4 + slot_arrays + rows_out * d * 4
+    if kind == "cv":
+        return (live_rows * (row_bytes + 4) + hist_rows * hist_row_bytes
+                + slot_arrays + 2 * rows_out * d * 4)
     if kind != "gather":
         raise ValueError(f"unknown kernel kind {kind!r}")
     return live_rows * row_bytes + slot_arrays + rows_out * d * 4
@@ -162,6 +206,18 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check_launches(path: str, launches: dict, expected: dict) -> None:
+    """Fail unless ``launches`` is what ``path`` should have launched:
+    ``expected[name]`` is an exact count, or ``None`` for at least one; a
+    kernel that is not named must not have launched at all."""
+    wrong = {name: count for name, count in launches.items()
+             if (count < 1 if name in expected and expected[name] is None
+                 else count != expected.get(name, 0))}
+    if wrong:
+        fail(f"{path}: launches {wrong} of {launches}, expected {expected} "
+             f"(None: at least one; not named: none)")
 
 
 def phase_card() -> None:
@@ -182,13 +238,15 @@ def phase_build() -> None:
     kernel = "?"         # the entry function the next ptxas lines describe
     for line in log.splitlines():
         m = re.search(r"(row_gather_kernel|split_gather_kernel|"
-                      r"fanout_backward_coop_kernel)I"
-                      r"((?:Li\d+E)+)E", line)
+                      r"fanout_backward_coop_kernel)I(\S*)", line)
         if "Compiling entry function" in line:
             kernel = "empty_kernel" if "empty_kernel" in line else "?"
-            if m:
-                args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
-                kernel = f"{m.group(1)}<{args}>"
+            if m:    # a mangled name: the slot source, then the integers
+                src = re.search(r"(Table|Cv)Source", m.group(2))
+                args = re.findall(r"Li(\d+)E", m.group(2))
+                if src:
+                    args[0] = f"{src.group(0)}<{args[0]}>"
+                kernel = f"{m.group(1)}<{','.join(args)}>"
         elif "Used" in line or "spill" in line:
             print(f"build: ptxas {kernel}: {line.strip()}")
 
@@ -295,22 +353,31 @@ def _library_backward(rows: int):
 
 
 def _compare(name, kernel, ref, table, sets, timing: bool,
-             kind: str = "gather", rows: int | None = None, library=None):
-    """Kernel vs plain version on every ``(idx, w)`` of ``sets``; timed
-    calls cycle through the sets, so consecutive calls read other rows.
-    ``rows`` bounds a live index (default: the table's rows; for the
-    backward, whose ``table`` is the output gradient, the rows of
-    ``grad_x``).  Timed cases also get their bound (``kernel_bytes`` of
-    these inputs, each distinct live row once, over the card's memory
-    rate, or the live slots' multiply-adds over its float32 rate) and the
-    time of ``library(table, sets, wants)``'s call."""
+             kind: str = "gather", rows: int | None = None, library=None,
+             sentinel: int | None = None, replaced=None):
+    """Kernel vs plain version on every ``(idx, w, *more)`` of ``sets``,
+    called as ``kernel(table, idx, w, *more)``; timed calls cycle through
+    the sets, so consecutive calls read other rows.  ``rows`` bounds a live
+    index (default: the table's rows; for the backward, whose ``table`` is
+    the output gradient, the rows of ``grad_x``).  For kind "cv" ``table``
+    is the history, ``more`` is ``(x, field_in, base)``, ``rows`` the rows
+    of ``x`` and ``sentinel`` the node count.  Timed cases also get their
+    bound (``kernel_bytes`` of these inputs, each distinct live row once,
+    over the card's memory rate, or the live slots' operations over its
+    float32 rate), the time of ``library(table, sets, wants)``'s call (or,
+    for a string, that note and no time), and the time of ``replaced``,
+    the composition the kernel took over, held against the plain version
+    like the kernel."""
     rows = table.shape[0] if rows is None else rows
     worst, wants = 0.0, []
-    for idx, w in sets:
-        out = kernel(table, idx, w)
-        want = ref(table.float(), idx, w)
+    for args in sets:
+        out = kernel(table, *args)
+        want = ref(table.float(), *args)
         torch.cuda.synchronize()
         worst = max(worst, _agree(name, out, want, *KERNEL_TOL))
+        if replaced is not None:
+            _agree(f"{name}, the replaced composition",
+                   replaced(table, *args), want, *KERNEL_TOL)
         wants.append(want)
     res = {"max_abs_err": worst}
     if timing:
@@ -319,21 +386,35 @@ def _compare(name, kernel, ref, table, sets, timing: bool,
         res["ms"] = _device_ms(call(kernel))
         res["plain_ms"] = _device_ms(call(ref))
         res["host_ms"] = _host_ms(call(kernel))
-        masks = [_live(idx, w, rows) for idx, w in sets]
+        if replaced is not None:
+            res["replaced_ms"] = _device_ms(call(replaced))
+        masks = [_live(args[0], args[1], rows) for args in sets]
         live = sum(int(m.sum()) for m in masks) / len(sets)
-        distinct = sum(torch.unique(idx[m]).numel()
-                       for (idx, _), m in zip(sets, masks)) / len(sets)
+        named = [torch.unique(args[0][m]) for args, m in zip(sets, masks)]
+        distinct = sum(p.numel() for p in named) / len(sets)
         f, k = sets[0][0].shape
         d = table.shape[1]
         row_bytes = d * table.element_size()
-        res["gb_s"] = live * row_bytes / (res["ms"] * 1e6)
         res["live"], res["distinct"] = live, distinct
-        res["bytes"] = kernel_bytes(kind, distinct, row_bytes, f, k, d,
-                                    rows if kind == "backward" else f)
-        res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"],
-                                                    2 * live * d)
+        if kind == "cv":       # an x row and, below the sentinel, a history row
+            nodes = [args[3][p.long()] for args, p in zip(sets, named)]
+            res["hist_distinct"] = sum(
+                torch.unique(n[(n >= 0) & (n < sentinel)]).numel()
+                for n in nodes) / len(sets)
+            res["gb_s"] = live * (4 * d + row_bytes) / (res["ms"] * 1e6)
+            res["bytes"] = kernel_bytes(kind, distinct, 4 * d, f, k, d, f,
+                                        res["hist_distinct"], row_bytes)
+            flops = 3 * live * d + f * d
+        else:
+            res["gb_s"] = live * row_bytes / (res["ms"] * 1e6)
+            res["bytes"] = kernel_bytes(kind, distinct, row_bytes, f, k, d,
+                                        rows if kind == "backward" else f)
+            flops = 2 * live * d
+        res["bound_ms"], res["bound_by"] = bound_ms(res["bytes"], flops)
         res["library_ms"], res["library"] = None, "none"
-        if library is not None:
+        if isinstance(library, str):
+            res["library"] = library
+        elif library is not None:
             lib_call, res["library"] = library(table, sets, wants)
             res["library_ms"] = _device_ms(lib_call)
     return res
@@ -351,15 +432,22 @@ def _report(results: dict, kname: str, case: str, res: dict,
     agg = results[kname]
     agg["max_abs_err"] = max(agg.get("max_abs_err", 0.0), res["max_abs_err"])
     if main:
-        agg.update((key, res[key]) for key in MAIN_KEYS)
+        agg.update((key, res.get(key))
+                   for key in (*MAIN_KEYS, "library", "replaced_ms"))
     times = ""
     if "ms" in res:
-        lib = ("none" if res["library_ms"] is None else
+        lib = (res["library"] if res["library_ms"] is None else
                f"{res['library_ms']:.5f} ms/call ({res['library']})")
+        hist = (f" and {res['hist_distinct']:.0f} distinct history rows"
+                if "hist_distinct" in res else "")
+        took_over = (f"; the composition it replaces "
+                     f"{res['replaced_ms']:.5f} ms/call"
+                     if "replaced_ms" in res else "")
         times = (f"; device {res['ms']:.5f} ms/call ({res['gb_s']:.0f} GB/s "
-                 f"of live slots) vs plain {res['plain_ms']:.5f} ms/call; "
+                 f"of live slots) vs plain {res['plain_ms']:.5f} ms/call"
+                 f"{took_over}; "
                  f"bound {res['bound_ms']:.5f} ms ({res['bytes'] / 1e6:.3f} "
-                 f"MB: {res['distinct']:.0f} distinct rows under "
+                 f"MB: {res['distinct']:.0f} distinct rows{hist} under "
                  f"{res['live']:.0f} live slots; by {res['bound_by']}) = "
                  f"{res['bound_ms'] / res['ms']:.3f} of the time; library "
                  f"{lib}; wrapper host {res['host_ms']:.5f} ms/call")
@@ -419,6 +507,157 @@ def _gather_edge_cases(rng, dev) -> float:
             if outs[0][f // 2].abs().max().item() != 0.0:
                 fail("an all-dead row did not come out zero")
     return worst
+
+
+def _cv_calls(sentinel: int):
+    """The CV estimator's sampled term as ``fn(hist, pos, w, x, field_in,
+    base)``: the kernel, its plain version, and the composition the kernel
+    took over (8 launches: the history gather's cast, compare, ``where``,
+    ``index_select`` and ``masked_fill``, the subtraction, the fanout
+    kernel, the addition)."""
+    def kernel(hist, pos, w, x, field_in, base):
+        return K.cv_fanout_aggregate(x, hist, field_in, sentinel, pos, w,
+                                     base)
+
+    def ref(hist, pos, w, x, field_in, base):
+        return K.cv_fanout_aggregate_ref(x, hist, field_in, sentinel, pos, w,
+                                         base)
+
+    def replaced(hist, pos, w, x, field_in, base):
+        delta = x - A.history_gather(hist, field_in, sentinel)
+        return K.fanout_aggregate(delta, pos, w) + base
+
+    return kernel, ref, replaced
+
+
+def _cv_inputs(rng, dev, f: int, k: int, d: int, n_nodes: int,
+               live_frac: float, n_sets: int = 1):
+    """Slots in the scheduler's append-only layout: slot (f, s) owns
+    position F + f*k + s of an input field of C = F + F*k positions; a dead
+    slot has zero weight and the sentinel id at its position.  Returns
+    ``(pos, w, x, field_in, base)`` tuples."""
+    c, sets = f + f * k, []
+    for _ in range(n_sets):
+        w = (rng.uniform(0.5, 1.5, (f, k)) / k).astype(np.float32)
+        w[rng.random((f, k)) >= live_frac] = 0.0
+        pos = (f + np.arange(f * k, dtype=np.int32)).reshape(f, k)
+        field_in = np.empty(c, np.int32)
+        field_in[:f] = rng.integers(0, n_nodes, f)
+        field_in[f:] = np.where(w != 0, rng.integers(0, n_nodes, (f, k)),
+                                n_nodes).reshape(-1)
+        x = rng.standard_normal((c, d), dtype=np.float32)
+        base = rng.standard_normal((f, d), dtype=np.float32)
+        sets.append(tuple(torch.from_numpy(a).to(dev)
+                          for a in (pos, w, x, field_in, base)))
+    return sets
+
+
+def _cv_edge_cases(rng, dev) -> float:
+    """The CV kernel on repeated and parked positions, zero weights,
+    sentinel field ids over a history whose rows from the sentinel on are
+    NaN, an all-dead row, all slots parked, a field of sentinels only,
+    F = 1, F = 1057, K = 1 and K = 50, for float32 and bfloat16 histories
+    at every row width the kernel is built for.  Returns the worst
+    error."""
+    worst, n = 0.0, 3000
+    for d, dtype in [(32, torch.float32), (64, torch.bfloat16),
+                     (64, torch.float32), (128, torch.bfloat16),
+                     (128, torch.float32), (256, torch.float32),
+                     (256, torch.bfloat16), (384, torch.float32),
+                     (512, torch.bfloat16)]:
+        hist = torch.from_numpy(rng.standard_normal(
+            (n + 8, d), dtype=np.float32)).to(dev, dtype)
+        hist[n:] = float("nan")           # never read at or past the sentinel
+        kernel, ref, _ = _cv_calls(n)
+        for f, k in [(37, 50), (9, 3), (512, 1), (1, 64), (132 * 8 + 1, 64)]:
+            c = f * k + 16
+            x = rng.standard_normal((c, d), dtype=np.float32)
+            x[c // 2:] = np.nan           # only dead and parked slots go there
+            field_in = rng.integers(0, n, c).astype(np.int32)
+            field_in[rng.random(c) < 0.2] = n
+            pos = rng.integers(0, c // 4, (f, k)).astype(np.int32)  # repeats
+            w = rng.uniform(0.1, 1.0, (f, k)).astype(np.float32)
+            if k > 1:
+                dead = rng.random((f, k)) < 0.3
+                w[dead], pos[dead] = 0.0, c - 1
+                pos[rng.random((f, k)) < 0.1] = 1 << 30              # parked
+            w[f // 2] = 0.0               # a row whose slots are all dead
+            base = rng.standard_normal((f, d), dtype=np.float32)
+            pos, w, x, field_in, base = (
+                torch.from_numpy(a).to(dev)
+                for a in (pos, w, x, field_in, base))
+            cases = {"mixed": (pos, w, x, field_in, base),
+                     "all parked": (torch.full_like(pos, 1 << 30), w, x,
+                                    field_in, base),
+                     "all sentinel": (pos, w, x, torch.full_like(field_in, n),
+                                      base)}
+            for case, args in cases.items():
+                label = f"cv edge case {case} d={d} {dtype} F={f} K={k}"
+                got = kernel(hist, *args)
+                worst = max(worst, _agree(label, got, ref(hist.float(), *args),
+                                          *KERNEL_TOL))
+                if case == "all parked" and not torch.equal(got, base):
+                    fail(f"{label}: base did not come through unchanged")
+            if not torch.equal(kernel(hist, *cases["mixed"])[f // 2],
+                               base[f // 2]):
+                fail("an all-dead row did not come out as base")
+    return worst
+
+
+def phase_cv_kernel(rng, dev, results: dict, train_hist) -> None:
+    """The CV estimator's sampled term against its plain version and the
+    composition it replaces, at the training, serving and exhaustive
+    evaluation shapes; its edge cases; reproducibility; its gradient."""
+    d = train_hist.shape[1]
+    n_train = HIST_ROWS - 8
+    n_eval = SBM_KW["num_nodes"]
+    eval_hist = torch.from_numpy(rng.standard_normal(
+        (n_eval + 8, d), dtype=np.float32)).to(dev)
+    eval_hist[n_eval:] = float("nan")
+    for case, hist, n, (f, k), live, n_sets in [
+            ("training: bf16 [233008,128] history, C=1024 F=512 K=1",
+             train_hist, n_train, (512, 1), 1.0, 4),
+            ("serving: f32 [233008,128] history, C=4096 F=2048 K=1",
+             train_hist.float(), n_train, (2048, 1), 1.0, 4),
+            # the SBM's mean degree 25 of 64 padded slots
+            ("exhaustive evaluation: f32 [65544,128] history, C=133120 "
+             "F=2048 K=64", eval_hist, n_eval, (2048, 64), 25 / 64, 1)]:
+        sets = _cv_inputs(rng, dev, f, k, d, n, live, n_sets)
+        kernel, ref, replaced = _cv_calls(n)
+        _report(results, "cv_fanout_aggregate", case,
+                _compare(f"cv {case}", kernel, ref, hist, sets, True,
+                         kind="cv", rows=f + f * k, sentinel=n,
+                         library=NO_LIBRARY_CV, replaced=replaced))
+    # the last case's inputs: the exhaustive evaluation shape
+    if not torch.equal(kernel(eval_hist, *sets[0]),
+                       kernel(eval_hist, *sets[0])):
+        fail("the CV kernel is not bitwise reproducible at K=64")
+    print(f"kernels: cv edge cases (repeated and parked positions, zero "
+          f"weights, sentinel field ids, an all-dead row, all slots parked, "
+          f"a field of sentinels only, F=1, F=1057, K=1, K=50; f32 and "
+          f"bf16 histories at d=32..512): max abs err "
+          f"{_cv_edge_cases(rng, dev):.3e}; bitwise reproducible at K=64")
+
+    # the gradient through CVFanoutAggregate (this kernel forward, the
+    # fanout backward kernel) against autograd through the plain version
+    pos, w, x, field_in, base = _cv_inputs(rng, dev, 512, 8, d, n_train,
+                                           0.7)[0]
+    pos = torch.randint(0, 1024, pos.shape, dtype=torch.int32,
+                        device=dev)          # repeats: atomic contention
+    g = torch.from_numpy(rng.standard_normal((512, d), dtype=np.float32)
+                         ).to(dev)
+    xk, xr = x.clone().requires_grad_(), x.clone().requires_grad_()
+    K.cv_fanout_aggregate(xk, train_hist, field_in, n_train, pos, w,
+                          base).backward(g)
+    K.cv_fanout_aggregate_ref(xr, train_hist, field_in, n_train, pos, w,
+                              base).backward(g)
+    torch.cuda.synchronize()
+    err = (xk.grad - xr.grad).abs()
+    if not (err <= KERNEL_TOL[0] + KERNEL_TOL[1] * xr.grad.abs()).all():
+        fail(f"CVFanoutAggregate gradient disagrees with autograd through "
+             f"the plain version, max abs err {err.max().item():.3e}")
+    print(f"kernels: CVFanoutAggregate gradient vs autograd through the "
+          f"plain version: max abs err {err.max().item():.3e}")
 
 
 def phase_kernels(seed: int = 0) -> dict:
@@ -522,6 +761,15 @@ def phase_kernels(seed: int = 0) -> dict:
            _compare("fanout K=8", fan, fan_ref, x,
                     [(torch.from_numpy(pos8).to(dev),
                       torch.from_numpy(w8).to(dev))], False))
+    # the Exact evaluation: exhaustive test degree, the SBM's mean degree
+    # 25 of 64 padded slots, the scheduler's append-only positions
+    pos64, w64, x64 = _cv_inputs(rng, dev, 2048, 64, d,
+                                 SBM_KW["num_nodes"], 25 / 64)[0][:3]
+    report("fanout_aggregate", "f32 C=133120 F=2048 K=64 (Exact evaluation)",
+           _compare("fanout K=64", fan, fan_ref, x64, [(pos64, w64)], True,
+                    library=_library_gather))
+    _gather_splits("fanout f32 C=133120 F=2048 K=64", x64, [(pos64, w64)])
+    del pos64, w64, x64
     report("fanout_aggregate", "f32 ragged F=13 K=8",
            _compare("fanout ragged", fan, fan_ref, x,
                     [(torch.from_numpy(pos8[:13].copy()).to(dev),
@@ -581,6 +829,7 @@ def phase_kernels(seed: int = 0) -> dict:
              f"plain forward, max abs err {err.max().item():.3e}")
     print(f"kernels: FanoutAggregate gradient vs autograd through the plain "
           f"forward: max abs err {err.max().item():.3e}")
+    phase_cv_kernel(rng, dev, results, bf16)
     return results
 
 
@@ -656,21 +905,25 @@ def phase_train(ds, device: str = "cuda", cfg_kw=SLICE_CFG):
           f"{ {k: v / steps for k, v in launches.items()} } per step")
     if not np.isfinite(loss):
         fail(f"non-finite training loss {loss}")
-    low = {k: v for k, v in launches.items() if v < steps}
-    if low:
-        fail(f"kernels launched less than once per step ({steps}): {low}")
+    check_launches("a CV train epoch", launches, {
+        "cv_fanout_aggregate": steps, "hbm_gather_aggregate": steps,
+        "fanout_aggregate_backward": steps})
     return tr, launches, steps
 
 
 def phase_train_kernels(tr: Trainer, results: dict, batches: int = 4,
                         seed: int = 1) -> None:
-    """The three kernels on the slots of ``batches`` real scheduled batches
-    of the training recipe, against their plain versions and timed: the
-    fanout and its backward on the layer's sampled slots, the full term on
-    the trained bf16 history with the train graph's rows of the output
-    field.  The fanout reads the history rows of the first batch's input
-    field and the backward a seeded gradient.  These times are the kernels
-    JSON line's."""
+    """The kernels on the slots of ``batches`` real scheduled batches of
+    the training recipe, against their plain versions and timed: the two
+    fanout kernels and the backward on the layer's sampled slots, the full
+    term on the trained bf16 history with the train graph's rows of the
+    output field.  The standalone fanout reads the history rows of the
+    first batch's input field; the CV kernel reads seeded activations, each
+    batch's own input field, the trained history and that batch's full
+    term; the backward a seeded gradient.  These times are the kernels
+    JSON line's, but for the standalone fanout's: a train step no longer
+    launches it, so its line comes from the Exact evaluation's batches
+    (``phase_converge``)."""
     bs, n = tr.cfg.batch_size, tr.ds.num_data
     bm = torch.from_numpy(tr._batch_matrix(
         tr.train_iter.data[:batches * bs], bs, n)).to(tr.device)
@@ -682,14 +935,27 @@ def phase_train_kernels(tr: Trainer, results: dict, batches: int = 4,
     full = [graph_rows(tr.graph_train, p.fields[1])[:2] for p in packs]
     k_full = full[0][0].shape[1]
     x = row_gather(hist, packs[0].fields[0], sentinel=n).float()
-    g = torch.from_numpy(np.random.default_rng(seed).normal(
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.normal(
         size=(f, hist.shape[1])).astype(np.float32)).to(tr.device)
     k_fan = slots[0][0].shape[1]
+    acts = torch.from_numpy(rng.standard_normal(
+        (c, hist.shape[1]), dtype=np.float32)).to(tr.device)
+    cv_sets = [(pos, w, acts, p.fields[0],
+                K.hbm_gather_aggregate(hist, *rows))
+               for (pos, w), p, rows in zip(slots, packs, full)]
+    kernel, ref, replaced = _cv_calls(n)
+    _report(results, "cv_fanout_aggregate",
+            f"train batch: bf16 history {list(hist.shape)} C={c} F={f} "
+            f"K={k_fan}",
+            _compare("cv fanout train batch", kernel, ref, hist, cv_sets,
+                     True, kind="cv", rows=c, sentinel=n,
+                     library=NO_LIBRARY_CV, replaced=replaced), main=True)
     _report(results, "fanout_aggregate",
             f"train batch: f32 C={c} F={f} K={k_fan}",
             _compare("fanout train batch", K.fanout_aggregate,
                      K.fanout_aggregate_ref, x, slots, True,
-                     library=_library_gather), main=True)
+                     library=_library_gather))
     _report(results, "fanout_aggregate_backward",
             f"train batch: C={c} F={f} K={k_fan} d={g.shape[1]}",
             _compare("backward train batch",
@@ -813,20 +1079,24 @@ def phase_slice(tr: Trainer, n_ids: int = REQUEST_IDS) -> dict:
           f"(atol {SLICE_ATOL}), from the trained weights")
     if worst > SLICE_ATOL:
         fail("CV predictions differ from exact inference")
-    missing = [k for k in ("fanout_aggregate", "hbm_gather_aggregate")
-               if launches[k] == 0]
-    if missing:
-        fail(f"the serving path never launched {missing}")
-    if launches["fanout_aggregate_backward"]:
-        fail("serving launched the backward kernel")
-    return per_request
+    check_launches("CV serving", launches, {
+        "cv_fanout_aggregate": None, "hbm_gather_aggregate": None})
+    return launches, per_request
 
 
-def phase_converge(device: str = "cuda", sbm_kw=SBM_KW, cfg_kw=CONVERGE_CFG,
-                   max_epochs: int = CONVERGE_EPOCHS,
-                   target: float = CONVERGE_F1) -> None:
+def phase_converge(results: dict, device: str = "cuda", sbm_kw=SBM_KW,
+                   cfg_kw=CONVERGE_CFG, max_epochs: int = CONVERGE_EPOCHS,
+                   target: float = CONVERGE_F1, batches: int = 4) -> dict:
     """CV+PP on the community SBM until ``max_epochs``; fails unless the
-    best val micro-F1 reaches ``target``."""
+    best val micro-F1 reaches ``target``.  Then the paper's Exact test of
+    the same weights over the validation ids (``test_cv=False`` at the
+    exhaustive test degree: ``plain_aggregate``, so the standalone fanout
+    kernel), counted apart; fails unless it launched that kernel and no
+    other and lands within ``EXACT_F1_ATOL`` of the CV evaluation.  Then
+    that kernel on the slots of ``batches`` real scheduled batches of the
+    Exact evaluation over seeded activations, against its plain version and
+    timed, with every split: the kernels JSON line's times for it, folded
+    into ``results``.  Returns the Exact evaluation's launch counts."""
     t0 = time.perf_counter()
     ds = community_sbm_dataset(**sbm_kw)
     t_graph = time.perf_counter() - t0
@@ -855,6 +1125,43 @@ def phase_converge(device: str = "cuda", sbm_kw=SBM_KW, cfg_kw=CONVERGE_CFG,
         fail(f"CV+PP val micro-F1 {max(curve):.4f} < {target} in "
              f"{max_epochs} epochs")
 
+    exact = Trainer(Config(**{**cfg_kw, "test_cv": False}), ds, device=device)
+    exact.state = tr.state               # the trained weights, shared
+    exact.evaluate(ds.val_d)             # warm-up
+    _sync(device)
+    K.reset_launches()
+    _, _, f1_exact, _, exact_s = exact.evaluate(ds.val_d)
+    launches = dict(K.LAUNCHES)
+    cv_s = tr.evaluate(ds.val_d)[4]
+    print(f"converge: Exact test (test_cv=False, test degree "
+          f"{cfg_kw['test_degree']}) of the same weights: val micro-F1 "
+          f"{f1_exact:.4f} in {exact_s:.3f} s against the CV evaluation's "
+          f"{curve[-1]:.4f} in {cv_s:.3f} s (atol {EXACT_F1_ATOL}); kernel "
+          f"launches {launches}")
+    check_launches("the Exact evaluation", launches,
+                   {"fanout_aggregate": None})
+    if abs(f1_exact - curve[-1]) > EXACT_F1_ATOL:
+        fail(f"the Exact test's micro-F1 {f1_exact:.4f} is not within "
+             f"{EXACT_F1_ATOL} of the CV evaluation's {curve[-1]:.4f}")
+
+    tbs = exact.cfg.test_batch_size
+    bm = torch.from_numpy(exact._batch_matrix(
+        ds.val_d[:batches * tbs], tbs, ds.num_data)).to(exact.device)
+    packs = [schedule(exact.gen, exact.graph_full, ids, exact.test_degrees,
+                      False, dedup=exact.cfg.field_dedup) for ids in bm]
+    slots = [(p.layers[0].slot_pos, p.layers[0].slot_w) for p in packs]
+    c, (f, k) = packs[0].fields[0].shape[0], slots[0][0].shape
+    x = torch.from_numpy(np.random.default_rng(cfg_kw["seed"]).standard_normal(
+        (c, tr.state.histories[0][0].shape[1]), dtype=np.float32)).to(
+            exact.device)
+    case = f"Exact evaluation batch: f32 C={c} F={f} K={k}"
+    _report(results, "fanout_aggregate", case,
+            _compare("fanout Exact evaluation batch", K.fanout_aggregate,
+                     K.fanout_aggregate_ref, x, slots, True,
+                     library=_library_gather), main=True)
+    _gather_splits(case, x, slots)
+    return launches
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -871,14 +1178,24 @@ def main() -> None:
     tr, launches, steps = phase_train(ds)
     phase_train_kernels(tr, kernels)
     phase_profile(tr)
-    per_request = phase_slice(tr)
+    served, per_request = phase_slice(tr)
     del tr
-    phase_converge()
+    exact = phase_converge(kernels)
+    # the three counted paths: each had the counters at 0 just before it
+    # and was read just after
+    paths = {"train epoch": launches, "served requests": served,
+             "Exact evaluation": exact}
+    total = {name: sum(p[name] for p in paths.values()) for name in kernels}
+    idle = [name for name, count in total.items() if count == 0]
+    if idle:
+        fail(f"no counted path launched {idle}: {paths}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
+         "replaces": REPLACES[name], "launches": total[name],
          "max_abs_err": res["max_abs_err"],
          **{key: res[key] for key in MAIN_KEYS},
+         "library": res["library"], "replaced_ms": res["replaced_ms"],
+         "launches_by_path": {path: p[name] for path, p in paths.items()},
          "launches_per_step": launches[name] / steps,
          "launches_per_request": per_request[name]}
         for name, res in kernels.items()]}))

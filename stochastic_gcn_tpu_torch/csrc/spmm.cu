@@ -2,6 +2,8 @@
 //
 //   out[f, :] = sum_s w[f, s] * table[idx[f, s], :]        (f32 accumulation)
 //
+// and, for the control-variate estimator, the same sum over the difference
+// of two rows (sgt_cv_fanout_aggregate below).
 // A slot with w == 0 or an index outside [0, rows) is never read: the
 // history's sentinel row N holds garbage writes by design.  The table is
 // float32 or bfloat16 (widened exactly by a 16-bit shift); sums and the
@@ -54,7 +56,52 @@
 //   Bound: the launch itself.  At the main path's shapes (k = 1, 512 or
 //   2048 rows of 512 B) the bytes take 0.2-0.6 us, less than an empty
 //   launch; there is nothing to split, so it takes the same dispatch as the
-//   full term and lands on row_gather_kernel.
+//   full term and lands on row_gather_kernel.  It serves the estimators
+//   without a control variate (NS training, Exact evaluation); the CV
+//   estimator's sampled term is sgt_cv_fanout_aggregate.
+//
+// sgt_cv_fanout_aggregate is that kernel redesigned for the CV estimator
+//   (stochastic_gcn_tpu/models/aggregators.py::vr_aggregate, plain CV
+//   branch), whose sampled term is not A_samp . X but the whole delta
+//     out[f, :] = base[f, :]
+//               + sum_s w[f, s] * (x[pos[f, s], :] - hbar(field_in[pos[f, s]]))
+//   with hbar(n) = hist[n, :] for 0 <= n < sentinel and zero otherwise, and
+//   base the full term's output.  The JAX model leaves the history gather,
+//   the subtraction and the last addition to XLA, which fuses them into one
+//   program per epoch; in eager PyTorch they are 8 launches and three
+//   [C, d] temporaries around a kernel that already sits on the launch
+//   floor, in a step whose time is its number of launches.
+//   Bound: launches at K = 1 (1-3 MB of traffic, under 1 us); bytes at the
+//   exhaustive evaluation shape (F = 2048, K = 64, C = 133,120, d = 128:
+//   the live x rows and the distinct history rows, tens of MB, where the
+//   composition moved every [C, d] temporary several times).  The design:
+//   * one launch for the whole delta, and no temporary: only the rows that
+//     live slots name are read, the subtraction happens in registers
+//     (float32, after widening a bfloat16 history exactly), and the sum
+//     meets base on its way out;
+//   * a slot now names two rows, the second through a lookup
+//     (pos -> field_in[pos] -> history row).  The lane that owns a slot
+//     makes the lookup when it loads the slot, 32 slots of a warp at once,
+//     so the x row and the history row of a slot start together and the
+//     chain is three dependent loads deep however many slots a row has;
+//   * the schedule of the gather is reused, not copied: row_gather_kernel
+//     is a template over a slot source (TableSource, CvSource), one warp
+//     per output row with kUnroll slots, so 2 kUnroll row loads, in flight,
+//     fixed-order sums and no atomics (bitwise reproducible).  Columns go
+//     by x's 16-byte chunks (4 floats a lane);
+//   * the sentinel is applied in the kernel: row N of the history holds
+//     garbage by design and is never read.
+//   On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md): 3.0 us
+//   at the training shape and 3.3 us at the serving shape, 1.3-1.6 us above
+//   an empty launch, against 26-29 us for the composition; 19.4-20.5 us at
+//   the exhaustive evaluation shape, 0.70-0.73 of its bound, against
+//   294-298 us.  Every shape a path gives it runs one warp per row: with
+//   two row loads a slot in flight, several warps per row
+//   (split_gather_kernel over this source) measured slower at K = 1 and at
+//   F = 2048, K = 64 and ahead only at F = 512, K = 64, a shape no path
+//   produces, so that kernel is not built for this source (PERF.md).
+//   Its gradient with respect to x is sgt_fanout_aggregate_backward
+//   unchanged: the history and base are constants.
 //
 // sgt_fanout_aggregate_backward is the gradient of the fanout term:
 //   grad_x[pos[f, s], :] += w[f, s] * g[f, :].  The Pallas kernel has no
@@ -137,15 +184,115 @@ __device__ __forceinline__ bool slot_live(bool in_row, int i, float w,
   return in_row && w != 0.f && i >= 0 && static_cast<int64_t>(i) < rows;
 }
 
-// One warp per output row.  kCpl: 16-byte chunks per lane
-// (row chunks = d * sizeof(T) / 16 <= 32 * kCpl).
-template <int kBf16, int kCpl>
+// What a live slot reads.  Both gather kernels are written once over a
+// source, which names
+//   kVals      float sums a lane keeps per 16-byte column chunk;
+//   kResolves  whether a slot's index names a second row through a lookup
+//              (a slot then keeps two row loads in flight, not one);
+//   limit()    the rows a live index stays below;
+//   resolve(i) that lookup, made once per slot by the lane that owns it;
+//   load()     the slot's chunk(s) for one lane, held in registers (Vals);
+//   fma()      acc += w * the slot's value;
+//   add_base() what is added to a finished sum before it is written.
+
+// One table row per slot: the full term and the sampled term A_samp . X.
+template <int kBf16>
+struct TableSource {
+  static constexpr int kVals = Chunk<kBf16>::kVals;
+  static constexpr bool kResolves = false;
+  using Vals = uint4;
+  const uint4* table;
+  int64_t rows;
+
+  __device__ __forceinline__ int64_t limit() const { return rows; }
+  __device__ __forceinline__ int resolve(int) const { return 0; }
+  __device__ __forceinline__ Vals load(int row, int, int chunks,
+                                       int ch) const {
+    return __ldg(table + static_cast<int64_t>(row) * chunks + ch);
+  }
+  __device__ __forceinline__ static Vals zero() {
+    return make_uint4(0u, 0u, 0u, 0u);
+  }
+  __device__ __forceinline__ static void fma(float* acc, const Vals& v,
+                                             float w) {
+    Chunk<kBf16>::fma(acc, v, w);
+  }
+  __device__ __forceinline__ void add_base(float4&, int64_t) const {}
+};
+
+// Two rows per slot, the control-variate delta: a float32 row of x at the
+// slot's position, less the history row of the node at that position
+// (float32, or bfloat16 when kBf16), zero for a node id outside
+// [0, hist_live).  Columns go by x's chunks, 4 floats a lane, so a lane
+// reads 16 bytes of x and 16 or 8 bytes of the history.
+template <int kBf16>
+struct CvSource {
+  static constexpr int kVals = 4;
+  static constexpr bool kResolves = true;
+  struct Vals {
+    float4 x, h;
+  };
+  const float4* x;
+  int64_t c;
+  const int32_t* field_in;
+  const void* hist;
+  int64_t hist_live;  // min(sentinel, rows of hist): never read at or above
+  const float4* base;  // read where out is written
+
+  __device__ __forceinline__ int64_t limit() const { return c; }
+  __device__ __forceinline__ int resolve(int pos) const {
+    const int n = __ldg(field_in + pos);
+    return n >= 0 && static_cast<int64_t>(n) < hist_live ? n : -1;
+  }
+  __device__ __forceinline__ Vals load(int pos, int n, int chunks,
+                                       int ch) const {
+    Vals v;
+    v.x = __ldg(x + static_cast<int64_t>(pos) * chunks + ch);
+    v.h = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (n >= 0) {
+      const int64_t at = static_cast<int64_t>(n) * chunks + ch;
+      if (kBf16) {  // 4 x bfloat16, element 0 in the low half of u.x
+        const uint2 u = __ldg(static_cast<const uint2*>(hist) + at);
+        v.h = make_float4(__uint_as_float(u.x << 16),
+                          __uint_as_float(u.x & 0xffff0000u),
+                          __uint_as_float(u.y << 16),
+                          __uint_as_float(u.y & 0xffff0000u));
+      } else {
+        v.h = __ldg(static_cast<const float4*>(hist) + at);
+      }
+    }
+    return v;
+  }
+  __device__ __forceinline__ static Vals zero() {
+    Vals v;
+    v.x = v.h = make_float4(0.f, 0.f, 0.f, 0.f);
+    return v;
+  }
+  __device__ __forceinline__ static void fma(float* acc, const Vals& v,
+                                             float w) {
+    acc[0] = fmaf(w, v.x.x - v.h.x, acc[0]);
+    acc[1] = fmaf(w, v.x.y - v.h.y, acc[1]);
+    acc[2] = fmaf(w, v.x.z - v.h.z, acc[2]);
+    acc[3] = fmaf(w, v.x.w - v.h.w, acc[3]);
+  }
+  __device__ __forceinline__ void add_base(float4& sum, int64_t at) const {
+    const float4 b = base[at];
+    sum.x += b.x;
+    sum.y += b.y;
+    sum.z += b.z;
+    sum.w += b.w;
+  }
+};
+
+// One warp per output row.  kCpl: 16-byte column chunks per lane
+// (chunks <= 32 * kCpl; a table row is d * sizeof(T) / 16 chunks, a
+// control-variate row d / 4).
+template <class Src, int kCpl>
 __global__ void __launch_bounds__(kThreads)
-row_gather_kernel(const uint4* __restrict__ table, int64_t rows, int chunks,
-                  const int32_t* __restrict__ idx,
+row_gather_kernel(const Src src, int chunks, const int32_t* __restrict__ idx,
                   const float* __restrict__ w, int n_out, int k,
-                  float4* __restrict__ out) {
-  constexpr int V = Chunk<kBf16>::kVals;
+                  float4* out) {
+  constexpr int V = Src::kVals;
   const int lane = threadIdx.x & 31;
   const int f = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (f >= n_out) return;  // whole warp leaves together
@@ -167,11 +314,13 @@ row_gather_kernel(const uint4* __restrict__ table, int64_t rows, int chunks,
       my_i = idx_f[j];
       my_w = w_f[j];
     }
-    unsigned mask = __ballot_sync(kFullMask,
-                                  slot_live(j < k, my_i, my_w, rows));
+    const bool live = slot_live(j < k, my_i, my_w, src.limit());
+    int my_a = 0;
+    if (Src::kResolves && live) my_a = src.resolve(my_i);
+    unsigned mask = __ballot_sync(kFullMask, live);
 
     while (mask) {  // warp-uniform
-      int r[kUnroll];
+      int r[kUnroll], a[kUnroll];
       float ws[kUnroll];
       bool have[kUnroll];
 #pragma unroll
@@ -181,39 +330,42 @@ row_gather_kernel(const uint4* __restrict__ table, int64_t rows, int chunks,
         mask &= mask - 1;
         r[u] = __shfl_sync(kFullMask, my_i, s);
         ws[u] = __shfl_sync(kFullMask, my_w, s);
+        a[u] = Src::kResolves ? __shfl_sync(kFullMask, my_a, s) : 0;
       }
-      uint4 vals[kUnroll][kCpl];
+      typename Src::Vals vals[kUnroll][kCpl];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
         for (int c = 0; c < kCpl; ++c) {
           const int ch = lane + c * 32;
           if (have[u] && ch < chunks)
-            vals[u][c] =
-                __ldg(table + static_cast<int64_t>(r[u]) * chunks + ch);
+            vals[u][c] = src.load(r[u], a[u], chunks, ch);
           else
-            vals[u][c] = make_uint4(0u, 0u, 0u, 0u);
+            vals[u][c] = Src::zero();
         }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const float wu = have[u] ? ws[u] : 0.f;
 #pragma unroll
-        for (int c = 0; c < kCpl; ++c) Chunk<kBf16>::fma(acc[c], vals[u][c], wu);
+        for (int c = 0; c < kCpl; ++c) Src::fma(acc[c], vals[u][c], wu);
       }
     }
   }
 
   // the output row holds chunks * V floats = chunks * V / 4 float4s
-  float4* out_f = out + static_cast<int64_t>(f) * (chunks * (V / 4));
+  const int64_t row_at = static_cast<int64_t>(f) * (chunks * (V / 4));
 #pragma unroll
   for (int c = 0; c < kCpl; ++c) {
     const int ch = lane + c * 32;
     if (ch < chunks) {
 #pragma unroll
-      for (int q = 0; q < V / 4; ++q)
-        out_f[ch * (V / 4) + q] =
-            make_float4(acc[c][4 * q], acc[c][4 * q + 1], acc[c][4 * q + 2],
-                        acc[c][4 * q + 3]);
+      for (int q = 0; q < V / 4; ++q) {
+        const int64_t at = row_at + ch * (V / 4) + q;
+        float4 sum = make_float4(acc[c][4 * q], acc[c][4 * q + 1],
+                                 acc[c][4 * q + 2], acc[c][4 * q + 3]);
+        src.add_base(sum, at);
+        out[at] = sum;
+      }
     }
   }
 }
@@ -221,13 +373,13 @@ row_gather_kernel(const uint4* __restrict__ table, int64_t rows, int chunks,
 // `split` warps per output row (1, 2, 4 or 8; a block of 8 warps owns
 // 8 / split rows), groups of kLanes lanes per slot (chunks <= kLanes).
 // Warp `part` of a row takes slots part, part + split, part + 2 split, ...
-template <int kBf16, int kLanes>
+template <class Src, int kLanes>
 __global__ void __launch_bounds__(kThreads)
-split_gather_kernel(const uint4* __restrict__ table, int64_t rows, int chunks,
+split_gather_kernel(const Src src, int chunks,
                     const int32_t* __restrict__ idx,
                     const float* __restrict__ w, int n_out, int k, int split,
-                    float4* __restrict__ out) {
-  constexpr int V = Chunk<kBf16>::kVals;
+                    float4* out) {
+  constexpr int V = Src::kVals;
   constexpr int V4 = V / 4;
   constexpr int G = 32 / kLanes;  // slots fetched per load instruction
   __shared__ int2 slots[kWarpsPerBlock][32];     // a warp's live (index, w)
@@ -257,16 +409,17 @@ split_gather_kernel(const uint4* __restrict__ table, int64_t rows, int chunks,
         my_i = idx_f[j];
         my_w = w_f[j];
       }
-      const bool live = slot_live(j < k, my_i, my_w, rows);
+      const bool live = slot_live(j < k, my_i, my_w, src.limit());
       const unsigned mask = __ballot_sync(kFullMask, live);
       const int n_live = __popc(mask);
-      if (live)
-        slots[warp][__popc(mask & ((1u << lane) - 1u))] =
-            make_int2(my_i, __float_as_int(my_w));
+      if (live) {
+        const int e = __popc(mask & ((1u << lane) - 1u));
+        slots[warp][e] = make_int2(my_i, __float_as_int(my_w));
+      }
       __syncwarp();
 
       for (int e0 = 0; e0 < n_live; e0 += G * kDepth) {
-        uint4 vals[kDepth];
+        typename Src::Vals vals[kDepth];
         float ws[kDepth];
 #pragma unroll
         for (int u = 0; u < kDepth; ++u) {
@@ -274,15 +427,14 @@ split_gather_kernel(const uint4* __restrict__ table, int64_t rows, int chunks,
           if (e < n_live && col_live) {
             const int2 s = slots[warp][e];
             ws[u] = __int_as_float(s.y);
-            vals[u] = __ldg(table + static_cast<int64_t>(s.x) * chunks + ch);
+            vals[u] = src.load(s.x, 0, chunks, ch);
           } else {
             ws[u] = 0.f;
-            vals[u] = make_uint4(0u, 0u, 0u, 0u);
+            vals[u] = Src::zero();
           }
         }
 #pragma unroll
-        for (int u = 0; u < kDepth; ++u)
-          Chunk<kBf16>::fma(acc, vals[u], ws[u]);
+        for (int u = 0; u < kDepth; ++u) Src::fma(acc, vals[u], ws[u]);
       }
       __syncwarp();  // all reads of slots[] done before the next round
     }
@@ -318,37 +470,23 @@ split_gather_kernel(const uint4* __restrict__ table, int64_t rows, int chunks,
   }
 }
 
-template <int kBf16, int kCpl>
-void launch_row(const void* table, int64_t rows, int chunks,
-                const int32_t* idx, const float* w, int n_out, int k,
-                float* out, cudaStream_t stream) {
+template <class Src, int kCpl>
+void launch_row(const Src& src, int chunks, const int32_t* idx,
+                const float* w, int n_out, int k, float* out,
+                cudaStream_t stream) {
   const int blocks = (n_out + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  row_gather_kernel<kBf16, kCpl><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const uint4*>(table), rows, chunks, idx, w, n_out, k,
-      reinterpret_cast<float4*>(out));
+  row_gather_kernel<Src, kCpl><<<blocks, kThreads, 0, stream>>>(
+      src, chunks, idx, w, n_out, k, reinterpret_cast<float4*>(out));
 }
 
-template <int kBf16, int kLanes>
-void launch_split(const void* table, int64_t rows, int chunks,
-                  const int32_t* idx, const float* w, int n_out, int k,
-                  int split, float* out, cudaStream_t stream) {
+template <class Src, int kLanes>
+void launch_split(const Src& src, int chunks, const int32_t* idx,
+                  const float* w, int n_out, int k, int split, float* out,
+                  cudaStream_t stream) {
   const int rows_per_block = kWarpsPerBlock / split;
   const int blocks = (n_out + rows_per_block - 1) / rows_per_block;
-  split_gather_kernel<kBf16, kLanes><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const uint4*>(table), rows, chunks, idx, w, n_out, k, split,
-      reinterpret_cast<float4*>(out));
-}
-
-template <int kBf16>
-void launch_split_lanes(const void* table, int64_t rows, int chunks,
-                        const int32_t* idx, const float* w, int n_out, int k,
-                        int split, float* out, cudaStream_t stream) {
-  if (chunks <= 8)
-    launch_split<kBf16, 8>(table, rows, chunks, idx, w, n_out, k, split, out, stream);
-  else if (chunks <= 16)
-    launch_split<kBf16, 16>(table, rows, chunks, idx, w, n_out, k, split, out, stream);
-  else
-    launch_split<kBf16, 32>(table, rows, chunks, idx, w, n_out, k, split, out, stream);
+  split_gather_kernel<Src, kLanes><<<blocks, kThreads, 0, stream>>>(
+      src, chunks, idx, w, n_out, k, split, reinterpret_cast<float4*>(out));
 }
 
 // Slots a load instruction of one warp fetches: 32 lanes over the lanes a
@@ -375,39 +513,79 @@ int plan_split(int n_out, int k, int chunks) {
   return split == 1 && groups == 1 ? kRowKernel : split;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  split: kPlanSplit, kRowKernel, or 1,
-// 2, 4, 8 warps per row of at most 512 bytes.  The wrapper has checked
-// that d fills whole 16-byte chunks, that there are at most 128 of them,
-// that every pointer is 16-byte aligned and that n_out > 0.
+// Runs row_gather_kernel over `src`, whose rows are `chunks` 16-byte
+// column chunks (at most 128).
+template <class Src>
+int run_row(const Src& src, int chunks, const int32_t* idx, const float* w,
+            int n_out, int k, float* out, cudaStream_t stream) {
+  const int cpl = (chunks + 31) / 32;
+  if (cpl < 1 || cpl > 4 || n_out <= 0 || k < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (cpl == 1) launch_row<Src, 1>(src, chunks, idx, w, n_out, k, out, stream);
+  else if (cpl == 2) launch_row<Src, 2>(src, chunks, idx, w, n_out, k, out, stream);
+  else launch_row<Src, 4>(src, chunks, idx, w, n_out, k, out, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Runs one gather over a table.  split: kPlanSplit, kRowKernel, or 1, 2,
+// 4, 8 warps per row of at most 32 chunks.
+template <class Src>
+int run_gather(const Src& src, int chunks, const int32_t* idx, const float* w,
+               int n_out, int k, float* out, cudaStream_t stream, int split) {
+  if (chunks < 1 || chunks > 128 || n_out <= 0 || k < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (split == kPlanSplit) split = plan_split(n_out, k, chunks);
+  if (split == kRowKernel)
+    return run_row(src, chunks, idx, w, n_out, k, out, stream);
+  if (chunks > 32 || (split != 1 && split != 2 && split != 4 && split != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (chunks <= 8)
+    launch_split<Src, 8>(src, chunks, idx, w, n_out, k, split, out, stream);
+  else if (chunks <= 16)
+    launch_split<Src, 16>(src, chunks, idx, w, n_out, k, split, out, stream);
+  else
+    launch_split<Src, 32>(src, chunks, idx, w, n_out, k, split, out, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtype: 0 = float32, 1 = bfloat16.  The wrapper has checked that d fills
+// whole 16-byte chunks, that there are at most 128 of them, that every
+// pointer is 16-byte aligned and that n_out > 0.
 int gather_aggregate(const void* table, int dtype, int64_t rows, int d,
                      const int32_t* idx, const float* w, int n_out, int k,
                      float* out, cudaStream_t stream, int split) {
   const int elem = dtype == 1 ? 2 : 4;
+  if ((dtype != 0 && dtype != 1) || d <= 0 || d * elem % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = d * elem / 16;
-  const int cpl = (chunks + 31) / 32;
-  if ((dtype != 0 && dtype != 1) || d * elem % 16 != 0 || cpl < 1 ||
-      cpl > 4 || n_out <= 0 || k < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (split == kPlanSplit) split = plan_split(n_out, k, chunks);
-  if (split == kRowKernel) {
-    if (dtype == 0) {
-      if (cpl == 1) launch_row<0, 1>(table, rows, chunks, idx, w, n_out, k, out, stream);
-      else if (cpl == 2) launch_row<0, 2>(table, rows, chunks, idx, w, n_out, k, out, stream);
-      else launch_row<0, 4>(table, rows, chunks, idx, w, n_out, k, out, stream);
-    } else {
-      if (cpl == 1) launch_row<1, 1>(table, rows, chunks, idx, w, n_out, k, out, stream);
-      else if (cpl == 2) launch_row<1, 2>(table, rows, chunks, idx, w, n_out, k, out, stream);
-      else launch_row<1, 4>(table, rows, chunks, idx, w, n_out, k, out, stream);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (cpl != 1 || (split != 1 && split != 2 && split != 4 && split != 8))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const uint4* t = static_cast<const uint4*>(table);
   if (dtype == 0)
-    launch_split_lanes<0>(table, rows, chunks, idx, w, n_out, k, split, out, stream);
-  else
-    launch_split_lanes<1>(table, rows, chunks, idx, w, n_out, k, split, out, stream);
-  return static_cast<int>(cudaGetLastError());
+    return run_gather(TableSource<0>{t, rows}, chunks, idx, w, n_out, k, out,
+                      stream, split);
+  return run_gather(TableSource<1>{t, rows}, chunks, idx, w, n_out, k, out,
+                    stream, split);
+}
+
+// The control-variate delta, one warp per output row.  The wrapper has
+// checked that d is a multiple of 4 and at most 512, that x, hist, base and
+// out are 16-byte aligned and that n_out > 0.
+int cv_fanout_aggregate(const float* x, int64_t c, int d, const void* hist,
+                        int hist_dtype, int64_t hist_rows,
+                        const int32_t* field_in, int64_t sentinel,
+                        const int32_t* pos, const float* w, int n_out, int k,
+                        const float* base, float* out, cudaStream_t stream) {
+  if ((hist_dtype != 0 && hist_dtype != 1) || d <= 0 || d % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = d / 4;
+  int64_t hist_live = sentinel < hist_rows ? sentinel : hist_rows;
+  if (hist_live < 0) hist_live = 0;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const float4* base4 = reinterpret_cast<const float4*>(base);
+  if (hist_dtype == 0)
+    return run_row(CvSource<0>{x4, c, field_in, hist, hist_live, base4},
+                   chunks, pos, w, n_out, k, out, stream);
+  return run_row(CvSource<1>{x4, c, field_in, hist, hist_live, base4},
+                 chunks, pos, w, n_out, k, out, stream);
 }
 
 // Adds w[f, s] * g[f, :] to grad_x[pos[f, s], :] for every live slot of
@@ -573,6 +751,23 @@ int sgt_gather_aggregate_split(const void* table, int dtype, int64_t rows,
 // where they run one warp per row without the split kernel.
 int sgt_gather_plan(int dtype, int d, int n_out, int k) {
   return plan_split(n_out, k, d * (dtype == 1 ? 2 : 4) / 16);
+}
+
+// Sampled term of the CV estimator on top of the full term: x [c, d]
+// float32, hist [hist_rows, d] float32 (hist_dtype 0) or bfloat16 (1),
+// field_in [c], pos/w [n_out, k], base [n_out, d] float32 -> out [n_out, d]
+// float32:
+//   out[f] = base[f] + sum_s w[f, s] * (x[pos[f, s]] - hbar(field_in[pos[f, s]]))
+// with hbar(n) = hist[n] for 0 <= n < min(sentinel, hist_rows), else zero.
+int sgt_cv_fanout_aggregate(const float* x, int64_t c, int d,
+                            const void* hist, int hist_dtype,
+                            int64_t hist_rows, const int32_t* field_in,
+                            int64_t sentinel, const int32_t* pos,
+                            const float* w, int n_out, int k,
+                            const float* base, float* out, void* stream) {
+  return cv_fanout_aggregate(x, c, d, hist, hist_dtype, hist_rows, field_in,
+                             sentinel, pos, w, n_out, k, base, out,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // Gradient of the fanout term: g [n_out, d] float32, pos/w [n_out, k] ->

@@ -3,7 +3,11 @@
 Port of stochastic_gcn_tpu/models/aggregators.py for the padded graph and
 the prefix field layout:
 
-* sampled SpMM ``A_samp . X`` -> :func:`fanout_gather`, the fanout kernel;
+* sampled SpMM ``A_samp . X`` -> :func:`fanout_gather`, the fanout kernel
+  (the estimators without a control variate);
+* the CV estimator's sampled term on top of the full term,
+  ``A_samp . (H - h_bar[field_in]) + base`` -> ``cv_fanout_aggregate``, one
+  kernel for the whole delta;
 * full-neighbourhood SpMM ``A_full . h_bar`` -> :func:`full_neighborhood_mean`,
   the full-term kernel over the device-resident ``[N+1, d]`` history.
 
@@ -16,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from ..data.graph import PaddedGraph, graph_rows
-from ..ops.cuda_spmm import FanoutAggregate, hbm_gather_aggregate
+from ..ops.cuda_spmm import (FanoutAggregate, cv_fanout_aggregate,
+                             hbm_gather_aggregate)
 from ..ops.gather import row_gather
 from ..sampler.scheduler import LayerSample
 
@@ -91,8 +96,9 @@ def vr_aggregate(inputs, ls: LayerSample, field_in: torch.Tensor,
         raise NotImplementedError(
             "CVD, det-dropout and the lazy full term are not ported yet "
             "(ROADMAP.md, queue 1)")
-    delta = inputs - history_gather(history[0], field_in, graph.num_nodes)
-    a_neighbour = fanout_gather(delta, ls.slot_pos, ls.slot_w) \
-        + full_neighborhood_mean(history[0], graph, field_out)
+    base = full_neighborhood_mean(history[0], graph, field_out)
+    a_neighbour = cv_fanout_aggregate(inputs, history[0], field_in,
+                                      graph.num_nodes, ls.slot_pos, ls.slot_w,
+                                      base)
     return (_self_concat(normalization, _self_rows(inputs, ls), a_neighbour),
             (inputs,))

@@ -34,11 +34,15 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _GATHER_ARGS = [_P, _I, _I64, _I, _P, _P, _I, _I, _P, _P]
 # (g, pos, w, n_out, k, c, d, grad_x, stream)
 _BACKWARD_ARGS = [_P, _P, _P, _I, _I, _I64, _I, _P, _P]
+# (x, c, d, hist, hist_dtype, hist_rows, field_in, sentinel, pos, w, n_out,
+#  k, base, out, stream)
+_CV_ARGS = [_P, _I64, _I, _P, _I, _I64, _P, _I64, _P, _P, _I, _I, _P, _P, _P]
 _ENTRY_POINTS = {
     "sgt_hbm_gather_aggregate": _GATHER_ARGS,
     "sgt_fanout_aggregate": _GATHER_ARGS,
     "sgt_gather_aggregate_split": _GATHER_ARGS + [_I],  # split
     "sgt_gather_plan": [_I, _I, _I, _I],                # dtype, d, n_out, k
+    "sgt_cv_fanout_aggregate": _CV_ARGS,
     "sgt_fanout_aggregate_backward": _BACKWARD_ARGS,
     "sgt_empty": [_P],                                  # stream
 }

@@ -17,7 +17,16 @@ nothing and is never read:
   ``ops/gather.py::row_gather``; the Pallas kernel required ``pos < C``.
   It is differentiable in ``X`` through :class:`FanoutAggregate`, whose
   backward :func:`fanout_aggregate_backward` is the transpose, a
-  scatter-add ``grad_x[pos[f,s]] += w[f,s] * g[f]``.
+  scatter-add ``grad_x[pos[f,s]] += w[f,s] * g[f]``.  It serves the
+  estimators without a control variate (NS training, Exact evaluation);
+* :func:`cv_fanout_aggregate` — the sampled term of the CV estimator on top
+  of the full term, the whole control-variate delta in one launch:
+  ``out[f] = base[f] + sum_s w[f,s] * (x[pos[f,s]] - h_bar(field_in[pos[f,s]]))``
+  with ``h_bar(n) = hist[n]`` for ``0 <= n < sentinel`` and zero otherwise
+  (the JAX model's ``fanout_gather(inputs - history_gather(...)) +
+  _full_term(...)``, models/aggregators.py).  Differentiable in ``x``
+  through :class:`CVFanoutAggregate`, whose backward is the same
+  :func:`fanout_aggregate_backward`: the history and ``base`` are constants.
 
 All run ``csrc/spmm.cu`` on CUDA tensors (see the design notes there) and
 the ``*_ref`` plain versions on CPU tensors.  A CUDA tensor never takes the
@@ -27,10 +36,10 @@ through the kernels.  The wrappers neither synchronise nor allocate
 outside PyTorch's allocator, so they can be captured in a CUDA graph.
 
 The C entries pick the kernel for a shape themselves (several warps per
-output row for the full term, one warp per row at K = 1 and for rows
-above 512 bytes; a cooperative zero-fill-and-scatter for the backward).
-``gather_aggregate_split`` runs the gather with a named split instead,
-for measurement.
+output row for the full term, one warp per row at K = 1, for rows above
+512 bytes and for the CV delta; a cooperative zero-fill-and-scatter for the
+backward).  ``gather_aggregate_split`` runs the gather with a named split
+instead, for measurement.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .gather import row_gather
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_CHUNKS = 128        # 16-byte chunks per row the kernel takes (4 per lane)
@@ -45,8 +55,8 @@ _MAX_CHUNKS = 128        # 16-byte chunks per row the kernel takes (4 per lane)
 # launches per wrapper since the last reset_launches().  A launch recorded
 # into a CUDA graph counts once, at capture; replays of the graph do not
 # pass through the wrapper and are not counted.
-LAUNCHES = {"fanout_aggregate": 0, "fanout_aggregate_backward": 0,
-            "hbm_gather_aggregate": 0}
+LAUNCHES = {"cv_fanout_aggregate": 0, "fanout_aggregate": 0,
+            "fanout_aggregate_backward": 0, "hbm_gather_aggregate": 0}
 
 
 def reset_launches() -> None:
@@ -96,6 +106,20 @@ def hbm_gather_aggregate_ref(table: torch.Tensor, idx: torch.Tensor,
     return _gather_aggregate_ref(table, idx, w)
 
 
+def cv_fanout_aggregate_ref(x: torch.Tensor, hist: torch.Tensor,
+                            field_in: torch.Tensor, sentinel: int,
+                            pos: torch.Tensor, w: torch.Tensor,
+                            base: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`cv_fanout_aggregate`, step by step
+    as the JAX model composes it: the history rows of the input field
+    (sentinel ids read as zero), the subtraction in float32, the sampled
+    sum, then ``base`` (differentiable in ``x`` through ordinary
+    autograd)."""
+    acc = _acc_dtype(x)
+    delta = x.to(acc) - row_gather(hist, field_in, sentinel).to(acc)
+    return _gather_aggregate_ref(delta, pos, w) + base.to(acc)
+
+
 def _check_slots(idx: torch.Tensor, w: torch.Tensor) -> None:
     """The slot tensors every wrapper takes, on any device: int32 indices
     and float32 weights of one 2-D shape, contiguous (the scheduler emits
@@ -133,6 +157,26 @@ def _check(table: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("table must be 16-byte aligned")
     if idx.numel() >= 2 ** 31:
         raise ValueError("more than 2^31 slots")
+
+
+def _check_cv(x, hist, field_in, pos, w, base) -> None:
+    """What :func:`cv_fanout_aggregate` takes, on any device."""
+    if hist.requires_grad or base.requires_grad or w.requires_grad:
+        raise ValueError("cv_fanout_aggregate is differentiable in x only: "
+                         "the CV history, base and the slot weights must "
+                         "not require grad")
+    _check_slots(pos, w)
+    if x.dim() != 2 or hist.dim() != 2 or hist.shape[1] != x.shape[1]:
+        raise ValueError(f"x {tuple(x.shape)} and the history "
+                         f"{tuple(hist.shape)} must be 2-D of one width")
+    if field_in.dtype != torch.int32 or field_in.shape != (x.shape[0],) \
+            or not field_in.is_contiguous():
+        raise ValueError(f"field_in must be contiguous int32 with one id per "
+                         f"row of x {tuple(x.shape)}, got {field_in.dtype} "
+                         f"{tuple(field_in.shape)}")
+    if base.shape != (pos.shape[0], x.shape[1]):
+        raise ValueError(f"base {tuple(base.shape)} must be "
+                         f"{(pos.shape[0], x.shape[1])}")
 
 
 def _call(device: torch.device, name: str, args: tuple,
@@ -239,6 +283,79 @@ def fanout_aggregate(x: torch.Tensor, pos: torch.Tensor,
     return _fanout_forward(x, pos, w)         # nothing to record
 
 
+def _cv_fanout_forward(x, hist, field_in, sentinel, pos, w, base):
+    _check_cv(x, hist, field_in, pos, w, base)
+    if x.device.type == "cpu":
+        return cv_fanout_aggregate_ref(x, hist, field_in, sentinel, pos, w,
+                                       base)
+    _check(x, pos, w)
+    if x.dtype != torch.float32 or base.dtype != torch.float32:
+        raise TypeError(f"x and base must be float32, got {x.dtype} and "
+                        f"{base.dtype}")
+    if hist.dtype not in _DTYPE_CODE:
+        raise TypeError(f"history dtype {hist.dtype} not in "
+                        f"{list(_DTYPE_CODE)}")
+    others = {"history": hist, "field_in": field_in, "base": base}
+    for name, t in others.items():
+        if t.device != x.device:
+            raise ValueError(f"x and {name} must share a device: "
+                             f"{x.device}, {t.device}")
+    if not (hist.is_contiguous() and base.is_contiguous()):
+        raise ValueError("the history and base must be contiguous")
+    if hist.data_ptr() % 16 or base.data_ptr() % 16:
+        raise ValueError("the history and base must be 16-byte aligned")
+    f, k = pos.shape
+    out = torch.empty_like(base)
+    if f == 0:
+        return out
+    _call(x.device, "sgt_cv_fanout_aggregate",
+          (x.data_ptr(), x.shape[0], x.shape[1], hist.data_ptr(),
+           _DTYPE_CODE[hist.dtype], hist.shape[0], field_in.data_ptr(),
+           int(sentinel), pos.data_ptr(), w.data_ptr(), f, k,
+           base.data_ptr(), out.data_ptr()))
+    LAUNCHES["cv_fanout_aggregate"] += 1
+    return out
+
+
+class CVFanoutAggregate(torch.autograd.Function):
+    """``cv_fanout_aggregate``, differentiable in ``x`` only.  The history
+    and ``base`` are constants of the estimator, so the gradient is the
+    fanout term's, :func:`fanout_aggregate_backward`.  Only ``pos`` and
+    ``w`` are saved: the train step scatters new rows into the history in
+    place after the backward, and a saved history would trip autograd's
+    version check."""
+
+    @staticmethod
+    def forward(ctx, x, hist, field_in, sentinel, pos, w, base):
+        ctx.save_for_backward(pos, w)
+        ctx.rows, ctx.x_dtype = x.shape[0], x.dtype
+        return _cv_fanout_forward(x, hist, field_in, sentinel, pos, w, base)
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, w = ctx.saved_tensors
+        grad = fanout_aggregate_backward(g.contiguous(), pos, w, ctx.rows)
+        return grad.to(ctx.x_dtype), None, None, None, None, None, None
+
+
+def cv_fanout_aggregate(x: torch.Tensor, hist: torch.Tensor,
+                        field_in: torch.Tensor, sentinel: int,
+                        pos: torch.Tensor, w: torch.Tensor,
+                        base: torch.Tensor) -> torch.Tensor:
+    """``out[f] = base[f] + sum_s w[f,s] * (x[pos[f,s]] -
+    h_bar(field_in[pos[f,s]]))``: x [C, d] float32, hist [R, d] float32 or
+    bfloat16, field_in [C] int32, pos [F, K] int32, w [F, K] float32, base
+    [F, d] float32 -> a new [F, d] float32.  ``sentinel`` is the node count:
+    a field id at or above it reads a zero history row, and a slot with
+    ``w == 0`` or ``pos`` outside ``[0, C)`` contributes nothing and reads
+    nothing.  Differentiable in ``x`` (:class:`CVFanoutAggregate`); a
+    history, ``base`` or ``w`` that requires grad raises."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return CVFanoutAggregate.apply(x, hist, field_in, sentinel, pos, w,
+                                       base)
+    return _cv_fanout_forward(x, hist, field_in, sentinel, pos, w, base)
+
+
 def hbm_gather_aggregate(table: torch.Tensor, idx: torch.Tensor,
                          w: torch.Tensor) -> torch.Tensor:
     """``out[f] = sum_s w[f,s] * table[idx[f,s]]``: table [N, d] float32 or
@@ -269,9 +386,9 @@ def gather_aggregate_split(table: torch.Tensor, idx: torch.Tensor,
 
 
 def gather_plan(table: torch.Tensor, f: int, k: int) -> int:
-    """Warps per output row that the public functions give a ``[f, k]``
-    slot array over ``table``; 0 where they run the one-warp-per-row
-    kernel."""
+    """Warps per output row that :func:`hbm_gather_aggregate` and
+    :func:`fanout_aggregate` give a ``[f, k]`` slot array over ``table``;
+    0 where they run the one-warp-per-row kernel."""
     return _build.entry("sgt_gather_plan")(
         _DTYPE_CODE[table.dtype], table.shape[1], f, k)
 

@@ -114,10 +114,36 @@ def test_serving_slice_on_card_matches_cpu(cuda):
     want = Trainer(cfg, ds, device="cpu").predict(ids)
     K.reset_launches()
     got = Trainer(cfg, ds, device=cuda).predict(ids)
-    assert K.LAUNCHES["fanout_aggregate"] > 0, K.LAUNCHES
+    assert K.LAUNCHES["cv_fanout_aggregate"] > 0, K.LAUNCHES
     assert K.LAUNCHES["hbm_gather_aggregate"] > 0, K.LAUNCHES
+    assert K.LAUNCHES["fanout_aggregate"] == 0, K.LAUNCHES
     assert K.LAUNCHES["fanout_aggregate_backward"] == 0, K.LAUNCHES
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+def test_exact_evaluation_on_card_runs_the_standalone_fanout(cuda):
+    """Without a control variate (the paper's Exact test: ``test_cv``
+    off, exhaustive degree) evaluation goes through ``plain_aggregate``,
+    so the standalone fanout kernel and no other; at the exhaustive degree
+    it agrees with the CV evaluation of the same weights."""
+    ds = synthetic_dataset(num_nodes=600, feature_dim=24, num_classes=6,
+                           avg_degree=8, normalization="graphsage", seed=0)
+    kw = dict(dataset="synthetic", batch_size=64, degree=1,
+              test_degree=10000, cv=True, test_cv=True, hidden1=32,
+              normalization="graphsage", layer_norm=True, num_fc_layers=2,
+              weight_decay=0.0, dropout=0.2, pad_degree=64, seed=1,
+              test_batch_size=16)
+    cv = Trainer(Config(**kw), ds, device=cuda)
+    cv.train_epoch()
+    exact = Trainer(Config(**{**kw, "test_cv": False}), ds, device=cuda)
+    exact.state = cv.state
+    want = cv.evaluate(ds.val_d)
+    K.reset_launches()
+    got = exact.evaluate(ds.val_d)
+    assert K.LAUNCHES["fanout_aggregate"] > 0, K.LAUNCHES
+    assert sum(K.LAUNCHES.values()) == K.LAUNCHES["fanout_aggregate"]
+    assert abs(got[0] - want[0]) <= 1e-4 and abs(got[2] - want[2]) <= 0.02
 
 
 def _backward_inputs(seed, c, f, k, d):
@@ -208,7 +234,8 @@ def test_full_term_on_card_refuses_a_table_that_requires_grad(cuda):
 def test_train_steps_on_card_match_cpu(cuda):
     """20 train steps at exhaustive degree with dropout off (deterministic
     sampling) on the card and on the CPU from the same initial weights;
-    every step launches each of the three kernels once."""
+    every step launches the CV path's three kernels once each and the
+    standalone fanout not at all."""
     ds = synthetic_dataset(num_nodes=240, feature_dim=16, num_classes=5,
                            normalization="graphsage", seed=0)
     cfg = Config(dataset="synthetic", batch_size=16, degree=10000,
@@ -232,7 +259,7 @@ def test_train_steps_on_card_match_cpu(cuda):
             torch.from_numpy(bm).to(dev), tr.gen)
         out[str(dev)] = (tr, float(m["loss"]), dict(K.LAUNCHES))
     cpu, gpu = out["cpu"], out[str(cuda)]
-    assert gpu[2] == {"fanout_aggregate": 20,
+    assert gpu[2] == {"cv_fanout_aggregate": 20, "fanout_aggregate": 0,
                       "fanout_aggregate_backward": 20,
                       "hbm_gather_aggregate": 20}
     assert abs(gpu[1] - cpu[1]) <= 1e-4
@@ -359,7 +386,7 @@ def test_backward_zero_fills_on_edge_cases(cuda, case):
 
 @pytest.mark.requires_cuda
 def test_kernels_replay_in_a_cuda_graph(cuda):
-    """The three wrappers captured once in a CUDA graph and replayed on
+    """The four wrappers captured once in a CUDA graph and replayed on
     refilled static inputs give the eager results: no wrapper hides a
     synchronisation or an allocation outside the graph's pool.  The launch
     counters count the capture, not the replays."""
@@ -368,13 +395,18 @@ def test_kernels_replay_in_a_cuda_graph(cuda):
         g, pos, pw = _backward_inputs(seed, 1024, 512, 1, 128)
         x = np.random.default_rng(seed).normal(size=(1024, 128)).astype(
             np.float32)
+        field_in = np.random.default_rng(seed + 50).integers(
+            0, 20001, 1024).astype(np.int32)          # 20000: the sentinel
         return [torch.from_numpy(a).to(cuda)
-                for a in (table, idx, w, x, pos, pw, g)]
+                for a in (table, idx, w, x, pos, pw, g, field_in)]
 
-    def run(table, idx, w, x, pos, pw, g):
-        return (K.hbm_gather_aggregate(table.bfloat16(), idx, w),
-                K.fanout_aggregate(x, pos, pw),
-                K.fanout_aggregate_backward(g, pos, pw, 1024))
+    def run(table, idx, w, x, pos, pw, g, field_in):
+        hist = table.bfloat16()
+        base = K.hbm_gather_aggregate(hist, idx, w)
+        return (base, K.fanout_aggregate(x, pos, pw),
+                K.fanout_aggregate_backward(g, pos, pw, 1024),
+                K.cv_fanout_aggregate(x, hist, field_in, 20000, pos, pw,
+                                      base))
 
     static = inputs(17)
     run(*static)                                     # build, warm up
@@ -384,7 +416,8 @@ def test_kernels_replay_in_a_cuda_graph(cuda):
     with torch.cuda.graph(graph):
         outs = run(*static)
     assert K.LAUNCHES == {"fanout_aggregate": 1, "hbm_gather_aggregate": 1,
-                          "fanout_aggregate_backward": 1}
+                          "fanout_aggregate_backward": 1,
+                          "cv_fanout_aggregate": 1}
     for seed in (18, 19):
         fresh = inputs(seed)
         for s, t in zip(static, fresh):
@@ -395,4 +428,149 @@ def test_kernels_replay_in_a_cuda_graph(cuda):
         assert torch.equal(outs[0], want[0])         # fixed sum order
         assert torch.equal(outs[1], want[1])
         torch.testing.assert_close(outs[2], want[2], **TOL)
+        assert torch.equal(outs[3], want[3])
     assert K.LAUNCHES["hbm_gather_aggregate"] == 3   # 1 capture + 2 eager
+
+
+# ---- the CV estimator's sampled term ----
+
+def _cv_inputs(seed, n, c, d, f, k, dtype):
+    """x [c, d]; hist [n + 8, d] of ``dtype``, NaN from the sentinel row n
+    on; field_in [c] with sentinel ids; pos/w [f, k] with repeated
+    positions, parked positions, zero weights pointing at a NaN row of x,
+    and an all-dead row ``f // 2``; base [f, d]."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(c, d)).astype(np.float32)
+    x[c - 1] = np.nan
+    hist = rng.normal(size=(n + 8, d)).astype(np.float32)
+    hist[n:] = np.nan
+    field_in = rng.integers(0, n, c).astype(np.int32)
+    field_in[rng.random(c) < 0.2] = n
+    pos = rng.integers(0, max(1, c // 4), (f, k)).astype(np.int32)
+    w = rng.uniform(0.1, 1.0, (f, k)).astype(np.float32)
+    if k > 1:
+        dead = rng.random((f, k)) < 0.3
+        w[dead], pos[dead] = 0.0, c - 1
+        pos[rng.random((f, k)) < 0.1] = 1 << 30
+    w[f // 2] = 0.0
+    base = rng.normal(size=(f, d)).astype(np.float32)
+    x, hist, field_in, pos, w, base = (
+        torch.from_numpy(a) for a in (x, hist, field_in, pos, w, base))
+    return x, hist.to(dtype), field_in, pos, w, base
+
+
+# (d, history dtype): x rows that fill a quarter, a half and all of a warp's
+# lanes, and 2, 3 and 4 chunks per lane, each with both history types
+# somewhere: every instantiation of the kernel
+CV_ROWS = [(32, torch.float32), (32, torch.bfloat16), (64, torch.bfloat16),
+           (64, torch.float32), (128, torch.bfloat16), (128, torch.float32),
+           (256, torch.float32), (256, torch.bfloat16), (384, torch.float32),
+           (512, torch.bfloat16), (512, torch.float32)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("row", CV_ROWS, ids=lambda r: f"{r[0]}-{r[1]}")
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=str)
+def test_cv_fanout_kernel_on_edge_cases(cuda, shape, row):
+    (f, k), (d, dtype) = shape, row
+    n, c = 3000, f * k + 16
+    x, hist, field_in, pos, w, base = (
+        t.to(cuda) for t in _cv_inputs(20, n, c, d, f, k, dtype))
+    want = K.cv_fanout_aggregate_ref(x, hist.float(), field_in, n, pos, w,
+                                     base)
+    before = K.LAUNCHES["cv_fanout_aggregate"]
+    got = K.cv_fanout_aggregate(x, hist, field_in, n, pos, w, base)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["cv_fanout_aggregate"] == before + 1
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got[f // 2], base[f // 2])            # all-dead row
+    # all slots parked: base comes through; a field of sentinels only: the
+    # fanout of x alone
+    parked = K.cv_fanout_aggregate(x, hist, field_in, n,
+                                   torch.full_like(pos, 1 << 30), w, base)
+    assert torch.equal(parked, base)
+    alone = K.cv_fanout_aggregate(x, hist, torch.full_like(field_in, n), n,
+                                  pos, w, base)
+    torch.testing.assert_close(
+        alone, K.fanout_aggregate_ref(x, pos, w) + base, **TOL)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cv_fanout_is_bitwise_reproducible_at_k64(cuda, dtype):
+    x, hist, field_in, pos, w, base = (
+        t.to(cuda) for t in _cv_inputs(21, 20000, 512 * 65, 128, 512, 64,
+                                       dtype))
+    first = K.cv_fanout_aggregate(x, hist, field_in, 20000, pos, w, base)
+    for _ in range(5):
+        assert torch.equal(K.cv_fanout_aggregate(x, hist, field_in, 20000,
+                                                 pos, w, base), first)
+
+
+@pytest.mark.requires_cuda
+def test_cv_fanout_equals_the_composition_it_replaces(cuda):
+    """``history_gather``, subtract, the fanout kernel, add: the same
+    value, and a sentinel id past the history's rows reads zero."""
+    from stochastic_gcn_tpu_torch.models.aggregators import history_gather
+    x, hist, field_in, pos, w, base = (
+        t.to(cuda) for t in _cv_inputs(22, 3000, 1024, 128, 512, 1,
+                                       torch.bfloat16))
+    got = K.cv_fanout_aggregate(x, hist, field_in, 3000, pos, w, base)
+    want = K.fanout_aggregate(x - history_gather(hist, field_in, 3000),
+                              pos, w) + base
+    torch.testing.assert_close(got, want, **TOL)
+    short = hist[:2000].contiguous()              # ids 2000..2999: no row
+    got = K.cv_fanout_aggregate(x, short, field_in, 3000, pos, w, base)
+    want = K.cv_fanout_aggregate_ref(
+        x, short.float(), torch.where(field_in >= 2000, 3000, field_in),
+        3000, pos, w, base)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.requires_cuda
+def test_cv_fanout_gradient_and_history_scatter_on_card(cuda):
+    """Forward, an in-place scatter into the history, then backward: the
+    gradient is the fanout backward kernel's, and nothing raises."""
+    x, hist, field_in, pos, w, base = (
+        t.to(cuda) for t in _cv_inputs(23, 3000, 1024, 128, 512, 8,
+                                       torch.bfloat16))
+    x = torch.nan_to_num(x)
+    g = torch.from_numpy(np.random.default_rng(24).normal(
+        size=(512, 128)).astype(np.float32)).to(cuda)
+    xk = x.clone().requires_grad_()
+    before = dict(K.LAUNCHES)
+    out = K.cv_fanout_aggregate(xk, hist, field_in, 3000, pos, w, base)
+    hist.index_copy_(0, torch.arange(5, device=cuda),
+                     torch.ones(5, 128, device=cuda, dtype=hist.dtype))
+    out.backward(g)
+    assert K.LAUNCHES["cv_fanout_aggregate"] == \
+        before["cv_fanout_aggregate"] + 1
+    assert K.LAUNCHES["fanout_aggregate_backward"] == \
+        before["fanout_aggregate_backward"] + 1
+    assert K.LAUNCHES["fanout_aggregate"] == before["fanout_aggregate"]
+    torch.testing.assert_close(
+        xk.grad, K.fanout_aggregate_backward_ref(g, pos, w, 1024), **TOL)
+
+
+@pytest.mark.requires_cuda
+def test_cv_fanout_on_card_refuses_what_the_kernel_does_not_take(cuda):
+    x, hist, field_in, pos, w, base = (
+        t.to(cuda) for t in _cv_inputs(25, 300, 80, 8, 6, 4, torch.float32))
+    fn = K.cv_fanout_aggregate
+    before = K.LAUNCHES["cv_fanout_aggregate"]
+    with pytest.raises(TypeError, match="float32"):
+        fn(x.bfloat16(), hist, field_in, 300, pos, w, base)
+    with pytest.raises(TypeError, match="history dtype"):
+        fn(x, hist.double(), field_in, 300, pos, w, base)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(x, hist.t().contiguous().t(), field_in, 300, pos, w, base)
+    with pytest.raises(ValueError, match="16 bytes"):
+        fn(x[:, :3].contiguous(), hist[:, :3].contiguous(), field_in, 300,
+           pos, w, base[:, :3].contiguous())
+    with pytest.raises(ValueError, match="device"):
+        fn(x, hist.cpu(), field_in, 300, pos, w, base)
+    with pytest.raises(ValueError, match="device"):
+        fn(x, hist, field_in, 300, pos, w, base.cpu())
+    with pytest.raises(ValueError, match="require grad"):
+        fn(x, hist.clone().requires_grad_(), field_in, 300, pos, w, base)
+    assert K.LAUNCHES["cv_fanout_aggregate"] == before

@@ -177,6 +177,134 @@ def test_backward_plain_on_edge_cases_matches_jax_vjp(shape):
     np.testing.assert_allclose(got, np.asarray(vjp(jnp.asarray(g))[0]), **TOL)
 
 
+# ---- the CV estimator's sampled term in one call ----
+
+def _cv_inputs(seed, n, c, d, f, k):
+    """x [c, d], hist [n + 8, d] with garbage in row n (the sentinel),
+    field_in [c] with sentinel ids, pos/w [f, k] with repeated and parked
+    positions and zero weights, base [f, d]."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(c, d)).astype(np.float32)
+    hist = rng.normal(size=(n + 8, d)).astype(np.float32)
+    hist[n] = 1e3
+    field_in = rng.integers(0, n, c).astype(np.int32)
+    field_in[rng.random(c) < 0.2] = n
+    pos = rng.integers(0, max(1, c // 2), (f, k)).astype(np.int32)  # repeats
+    pos[rng.random((f, k)) < 0.15] = c + 3                          # parked
+    w = rng.uniform(0.1, 1.0, (f, k)).astype(np.float32)
+    w[rng.random((f, k)) < 0.2] = 0.0
+    base = rng.normal(size=(f, d)).astype(np.float32)
+    return x, hist, field_in, pos, w, base
+
+
+def _jax_cv_expression(x, hist, field_in, n, pos, w, base):
+    """The JAX model's plain CV branch (models/aggregators.py): the fanout
+    of the history delta, plus the full term's output."""
+    delta = x - JA.history_gather(jnp.asarray(hist), jnp.asarray(field_in),
+                                  None, n)
+    return JA.fanout_gather(delta, jnp.asarray(pos), jnp.asarray(w)) + base
+
+
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cv_fanout_plain_matches_jax_expression(dtype, k):
+    n = 40
+    x, hist, field_in, pos, w, base = _cv_inputs(31, n, 60, 16, 21, k)
+    if dtype == "bfloat16":
+        t_hist, hist = _bf16_pair(hist)
+        j_hist = jnp.asarray(hist).astype(jnp.bfloat16)
+    else:
+        t_hist, j_hist = torch.from_numpy(hist), jnp.asarray(hist)
+    args = [torch.from_numpy(a) for a in (field_in, pos, w, base)]
+    got = K.cv_fanout_aggregate(torch.from_numpy(x), t_hist, args[0], n,
+                                *args[1:])
+    assert got.dtype == torch.float32 and got.grad_fn is None
+    want = _jax_cv_expression(jnp.asarray(x), j_hist, field_in, n, pos, w,
+                              jnp.asarray(base))
+    assert want.dtype == jnp.float32     # JAX widens before it subtracts
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # and the sum written out slot by slot
+    live = (w != 0) & (pos < 60)
+    p = np.where(live, pos, 0)
+    hbar = np.where((field_in < n)[:, None], hist[np.minimum(field_in, n)],
+                    0.0)
+    dense = base + np.einsum("fk,fkd->fd", np.where(live, w, 0.0),
+                             (x - hbar)[p])
+    np.testing.assert_allclose(got.numpy(), dense, **TOL)
+
+
+def test_cv_fanout_never_reads_the_sentinel_row_or_a_dead_slot():
+    n = 30
+    x, hist, field_in, pos, w, base = _cv_inputs(32, n, 50, 8, 12, 4)
+    hist[n:] = np.nan                    # at and past the sentinel
+    x[7] = np.nan
+    w[pos == 7] = 0.0                    # every slot at the NaN row is dead
+    got = K.cv_fanout_aggregate(
+        torch.from_numpy(x), torch.from_numpy(hist),
+        torch.from_numpy(field_in), n, torch.from_numpy(pos),
+        torch.from_numpy(w), torch.from_numpy(base)).numpy()
+    assert np.isfinite(got).all()
+    # all slots parked, and a field of sentinels only
+    parked = np.full_like(pos, 1 << 30)
+    got = K.cv_fanout_aggregate(
+        torch.from_numpy(x), torch.from_numpy(hist),
+        torch.from_numpy(field_in), n, torch.from_numpy(parked),
+        torch.from_numpy(w), torch.from_numpy(base)).numpy()
+    np.testing.assert_array_equal(got, base)
+    x[7] = 0.0
+    all_sentinel = np.full_like(field_in, n)
+    got = K.cv_fanout_aggregate(
+        torch.from_numpy(x), torch.from_numpy(hist),
+        torch.from_numpy(all_sentinel), n, torch.from_numpy(pos),
+        torch.from_numpy(w), torch.from_numpy(base))
+    want = K.fanout_aggregate(torch.from_numpy(x), torch.from_numpy(pos),
+                              torch.from_numpy(w)) + torch.from_numpy(base)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def test_cv_fanout_refuses_what_it_does_not_take():
+    n = 30
+    x, hist, field_in, pos, w, base = (
+        torch.from_numpy(a) for a in _cv_inputs(33, n, 50, 8, 12, 4))
+    for bad in (dict(hist=hist.clone().requires_grad_()),
+                dict(base=base.clone().requires_grad_()),
+                dict(w=w.clone().requires_grad_())):
+        kw = dict(x=x, hist=hist, field_in=field_in, sentinel=n, pos=pos,
+                  w=w, base=base)
+        kw.update(bad)
+        with pytest.raises(ValueError, match="require grad"):
+            K.cv_fanout_aggregate(**kw)
+        with pytest.raises(ValueError, match="require grad"):
+            K.CVFanoutAggregate.apply(*kw.values())
+    with pytest.raises(ValueError, match="one width"):
+        K.cv_fanout_aggregate(x, hist[:, :4], field_in, n, pos, w, base)
+    with pytest.raises(ValueError, match="field_in"):
+        K.cv_fanout_aggregate(x, hist, field_in[:-1], n, pos, w, base)
+    with pytest.raises(ValueError, match="field_in"):
+        K.cv_fanout_aggregate(x, hist, field_in.long(), n, pos, w, base)
+    with pytest.raises(ValueError, match="base"):
+        K.cv_fanout_aggregate(x, hist, field_in, n, pos, w, base[:-1])
+    with pytest.raises(TypeError, match="int32"):
+        K.cv_fanout_aggregate(x, hist, field_in, n, pos.long(), w, base)
+    meta = [t.to("meta") for t in (x, hist, field_in, pos, w, base)]
+    with pytest.raises(ValueError, match="CUDA"):        # no plain fallback
+        K.cv_fanout_aggregate(meta[0], meta[1], meta[2], n, *meta[3:])
+
+
+def test_cv_fanout_without_grad_skips_the_autograd_function():
+    n = 30
+    x, hist, field_in, pos, w, base = (
+        torch.from_numpy(a) for a in _cv_inputs(34, n, 50, 8, 12, 4))
+    xg = x.clone().requires_grad_()
+    assert K.cv_fanout_aggregate(x, hist, field_in, n, pos, w,
+                                 base).grad_fn is None
+    with torch.no_grad():
+        out = K.cv_fanout_aggregate(xg, hist, field_in, n, pos, w, base)
+    assert out.grad_fn is None
+    out = K.cv_fanout_aggregate(xg, hist, field_in, n, pos, w, base)
+    assert type(out.grad_fn).__name__.startswith("CVFanoutAggregate")
+
+
 # ---- chip_smoke.py's yardsticks: the bound and the library call ----
 
 @pytest.fixture(scope="module")
@@ -204,6 +332,25 @@ def test_kernel_bytes_on_hand_counted_inputs(smoke, case):
     ms, by = smoke.bound_ms(got, 2 * args[1] * args[5])
     assert by == "bytes"
     assert ms == pytest.approx(1e3 * got / 3.35e12)
+
+
+@pytest.mark.parametrize("case", [
+    # (x rows, F, K, d, history rows, history row bytes, MB counted by hand)
+    # training: 512 x rows of 512 B + 4 B of field_in, 480 bf16 history
+    # rows of 256 B, 512 slots of 8 B, base and out of 512 x 512 B each
+    (512, 512, 1, 128, 480, 256, 0.9155),
+    # exhaustive evaluation: 51,200 live of 131,072 slots, 35,000 distinct
+    # float32 history rows, base and out of 2048 x 512 B each
+    (51200, 2048, 64, 128, 35000, 512, 47.485),
+])
+def test_kernel_bytes_of_the_cv_kind_on_hand_counted_inputs(smoke, case):
+    x_rows, f, k, d, hist_rows, hist_row_bytes, want_mb = case
+    got = smoke.kernel_bytes("cv", x_rows, 4 * d, f, k, d, f, hist_rows,
+                             hist_row_bytes)
+    assert got == (x_rows * (4 * d + 4) + hist_rows * hist_row_bytes
+                   + f * k * 8 + 2 * f * d * 4)
+    assert abs(got / 1e6 - want_mb) <= 1e-3 * want_mb
+    assert smoke.bound_ms(got, 3 * x_rows * d)[1] == "bytes"
 
 
 def test_kernel_bytes_exact_counts_and_the_operations_bound(smoke):

@@ -146,6 +146,91 @@ def test_fanout_aggregate_carries_the_gradient():
         K.fanout_aggregate(T(x), T(pos), T(w).requires_grad_())
 
 
+def _cv_slots(seed, n, c, f, k, d):
+    """``_slots`` plus a history with garbage in the sentinel row ``n``, a
+    field with sentinel ids, and the full term's output ``base``."""
+    x, g, pos, w = _slots(seed, c, f, k, d)
+    rng = np.random.default_rng(seed + 1000)
+    hist = rng.normal(size=(n + 8, d)).astype(np.float32)
+    hist[n] = 1e3
+    field_in = rng.integers(0, n, c).astype(np.int32)
+    field_in[rng.random(c) < 0.2] = n
+    base = rng.normal(size=(f, d)).astype(np.float32)
+    return x, g, pos, w, hist, field_in, base
+
+
+@pytest.mark.parametrize("shape", [(24, 10, 1, 8), (40, 13, 5, 16)])
+def test_cv_fanout_gradient_matches_jax_vjp(shape):
+    """The gradient of the whole CV delta with respect to x is the fanout
+    term's: the history and the full term are constants."""
+    from stochastic_gcn_tpu.models import aggregators as JA
+    c, f, k, d = shape
+    n = 20
+    x, g, pos, w, hist, field_in, base = _cv_slots(40, n, c, f, k, d)
+
+    def expr(x_):
+        delta = x_ - JA.history_gather(jnp.asarray(hist),
+                                       jnp.asarray(field_in), None, n)
+        return JA.fanout_gather(delta, jnp.asarray(pos), jnp.asarray(w)) \
+            + jnp.asarray(base)
+
+    want_out, vjp = jax.vjp(expr, jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    xt = T(x).requires_grad_()
+    out = K.cv_fanout_aggregate(xt, T(hist), T(field_in), n, T(pos), T(w),
+                                T(base))
+    np.testing.assert_allclose(N(out), np.asarray(want_out), **TOL)
+    out.backward(T(g))
+    np.testing.assert_allclose(N(xt.grad), np.asarray(want), rtol=0,
+                               atol=1e-6)
+    # autograd through the plain version gives the same gradient
+    xr = T(x).requires_grad_()
+    K.cv_fanout_aggregate_ref(xr, T(hist), T(field_in), n, T(pos), T(w),
+                              T(base)).backward(T(g))
+    np.testing.assert_allclose(N(xr.grad), np.asarray(want), rtol=0,
+                               atol=1e-6)
+
+
+def test_cv_fanout_aggregate_gradcheck():
+    n = 9
+    x, _, pos, w, hist, field_in, base = _cv_slots(41, n, 12, 7, 5, 4)
+    xt = torch.from_numpy(x).double().requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda x_: K.CVFanoutAggregate.apply(
+            x_, T(hist).double(), T(field_in), n, T(pos), T(w),
+            T(base).double()), (xt,))
+
+
+def test_cv_fanout_survives_the_in_place_history_scatter():
+    """The train step scatters new rows into the history in place between
+    the forward and the backward of the next use; the function saves only
+    the slots, so autograd's version check has nothing to trip on."""
+    n = 20
+    x, g, pos, w, hist, field_in, base = _cv_slots(42, n, 30, 9, 4, 8)
+    xt, ht = T(x).requires_grad_(), T(hist)
+    out = A.vr_aggregate(
+        xt, S.LayerSample(slot_pos=T(pos), slot_w=T(w), slot_aw=None,
+                          scales=torch.ones(9)),
+        T(field_in), T(field_in[:9]), _tiny_graph(n), (ht,), False, "gcn")[0]
+    assert type(out.grad_fn).__name__.startswith("CVFanoutAggregate")
+    ht.index_copy_(0, torch.arange(5), torch.ones(5, 8))     # in place
+    out.backward(T(g))
+    np.testing.assert_allclose(
+        N(xt.grad), N(K.fanout_aggregate_backward_ref(T(g), T(pos), T(w),
+                                                      30)),
+        rtol=0, atol=1e-6)
+
+
+def _tiny_graph(n):
+    rng = np.random.default_rng(43)
+    rows = np.repeat(np.arange(n), 3)
+    adj = G.sp.csr_matrix((np.ones(rows.size, np.float32),
+                           (rows, rng.integers(0, n, rows.size))),
+                          shape=(n, n))
+    adj.sum_duplicates()
+    return G.pad_csr(adj)
+
+
 def test_full_term_refuses_a_table_that_requires_grad():
     """Repair: the full term has no backward, so a table or weights that
     require grad raise instead of losing the gradient silently."""
