@@ -85,13 +85,42 @@ Phases, one or more lines each:
    against its plain version and timed as in phase 3, with every split:
    these are the kernels JSON line's times for ``fanout_aggregate``.
 
+   The kernels phase also runs every entry on rows that are not whole
+   16-byte chunks or wider than 2048 bytes (d = 602 with float32 and
+   bfloat16 tables, d = 1, 513 and 1433: the same functions by element),
+   timed like the rest, on append-only and on dedup-compacted slots
+   (repeated positions, ``PARKED_POS``); the standalone fanout at the Exact
+   training shape (x [98816, 602], F = 33,280, K = 64), where the plain
+   version would materialise 5 GB, is held against it on 1024 of its rows
+   (and again in phase 7 on the first layer of a real Exact train batch).
+7. estimators — on the same SBM, at full width (hidden 128, 602 features):
+   CVD+PP (``cvd``, ``test_cvd``) up to 15 epochs and Exact (exhaustive
+   degree, no preprocessing, no control variate: dedup-compacted fields are
+   forced and the first layer aggregates 602-wide rows) up to 6, each
+   failing unless its best val micro-F1 reaches 0.90; det-dropout+PP for
+   one epoch (finite loss).  One epoch of each runs with the counters reset
+   just before it, and its launches per step are checked exactly (CVD: 1
+   full term, 1 CV kernel, 1 fanout, 1 backward; Exact: 2 fanouts, 1
+   backward; det-dropout: 2, 1, 2, 3).  Exact's predictions on 2048
+   validation ids must equal a dense computation over the whole graph with
+   the plain versions (atol 1e-4).  Then the gradient-variance harness
+   (``Trainer.gradient_variance``, 100 resamples of one batch) from the
+   trained CV+PP and CVD+PP weights with converged float32 histories, by
+   the protocol of scripts/validate_gradvar.py: NS+PP and CV+PP without
+   dropout, NS+PP, CV+PP and CVD+PP with it; fails unless CV+PP's forward
+   is exact without dropout (bias and stdev < 1e-5), its gradient bias is
+   within 3 standard errors while NS+PP's is not, its gradient stdev is
+   below NS+PP's, CVD+PP's is below NS+PP's under dropout, and every value
+   is finite.
+
 The line before the last is a JSON object describing the kernels (times in
 device ms per call on real batches of the path that launches the kernel,
 ``bound_ms`` and ``bound_by``,
 ``library_ms``, ``replaced_ms`` where the kernel took over a composition;
-``launches`` summed over the three counted paths, the train epoch, the
-served requests and the Exact evaluation, and apart per train step and per
-later request); the last is ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
+``launches`` summed over the counted paths, the train epoch, the
+served requests, the Exact evaluation and one train epoch of each of CVD+PP,
+Exact and det-dropout+PP, and apart per train step of each estimator and
+per later request); the last is ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
 
 from __future__ import annotations
@@ -116,7 +145,10 @@ from stochastic_gcn_tpu_torch.models import gcn as M
 from stochastic_gcn_tpu_torch.ops import cuda_spmm as K
 from stochastic_gcn_tpu_torch.ops import layers as L
 from stochastic_gcn_tpu_torch.ops.gather import row_gather
-from stochastic_gcn_tpu_torch.sampler.scheduler import schedule
+from stochastic_gcn_tpu_torch.sampler.scheduler import (PARKED_POS,
+                                                        effective_dedup,
+                                                        field_capacities,
+                                                        schedule)
 from stochastic_gcn_tpu_torch.training.loop import Trainer
 
 ROOT = Path(__file__).resolve().parent
@@ -164,6 +196,25 @@ SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's ~2 GHz SM clock
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 SPLITS = (1, 2, 4, 8)        # warps per output row of the split kernel
+# widths the kernels take by element: raw Reddit-shaped features, one
+# column, one column past 128 chunks, Cora's features
+WIDE_WIDTHS = (602, 1, 513, 1433)
+CVD_EPOCHS, EXACT_EPOCHS = 15, 6
+GRADVAR_TIMES = 100
+EXACT_DENSE_IDS, EXACT_DENSE_ATOL = 2048, 1e-4
+# kernel launches per train step of each estimator
+STEP_LAUNCHES = {
+    "CV+PP": {"cv_fanout_aggregate": 1, "hbm_gather_aggregate": 1,
+              "fanout_aggregate_backward": 1},
+    "CVD+PP": {"cv_fanout_aggregate": 1, "hbm_gather_aggregate": 1,
+               "fanout_aggregate": 1, "fanout_aggregate_backward": 1},
+    # two aggregation layers; the first one's input, the features, takes
+    # no gradient
+    "Exact": {"fanout_aggregate": 2, "fanout_aggregate_backward": 1},
+    "det-dropout+PP": {"cv_fanout_aggregate": 1, "hbm_gather_aggregate": 2,
+                       "fanout_aggregate": 2,
+                       "fanout_aggregate_backward": 3},
+}
 
 
 def kernel_bytes(kind: str, live_rows: float, row_bytes: int, f: int,
@@ -237,12 +288,15 @@ def phase_build() -> None:
     print(f"build: {seconds:.2f} s -> {path.relative_to(ROOT)}")
     kernel = "?"         # the entry function the next ptxas lines describe
     for line in log.splitlines():
-        m = re.search(r"(row_gather_kernel|split_gather_kernel|"
-                      r"fanout_backward_coop_kernel)I(\S*)", line)
+        m = re.search(r"(wide_row_gather_kernel|row_gather_kernel|"
+                      r"split_gather_kernel|fanout_backward_coop_kernel|"
+                      r"fanout_backward_wide_kernel)(?:I(\S*))?", line)
         if "Compiling entry function" in line:
             kernel = "empty_kernel" if "empty_kernel" in line else "?"
-            if m:    # a mangled name: the slot source, then the integers
-                src = re.search(r"(Table|Cv)Source", m.group(2))
+            if m and m.group(2) is None:
+                kernel = m.group(1)
+            elif m:  # a mangled name: the slot source, then the integers
+                src = re.search(r"(Table|Cv)(Source|Elems)", m.group(2))
                 args = re.findall(r"Li(\d+)E", m.group(2))
                 if src:
                     args[0] = f"{src.group(0)}<{args[0]}>"
@@ -660,6 +714,170 @@ def phase_cv_kernel(rng, dev, results: dict, train_hist) -> None:
           f"plain version: max abs err {err.max().item():.3e}")
 
 
+def _compacted_slots(rng, dev, f: int, k: int, c: int, live_frac: float):
+    """Slots as a dedup-compacted field gives them: several slots name one
+    position, and a dead slot has zero weight and the parked position."""
+    w = (rng.uniform(0.5, 1.5, (f, k)) / k).astype(np.float32)
+    dead = rng.random((f, k)) >= live_frac
+    w[dead] = 0.0
+    pos = rng.integers(0, c, (f, k)).astype(np.int32)
+    pos[dead] = PARKED_POS
+    return torch.from_numpy(pos).to(dev), torch.from_numpy(w).to(dev)
+
+
+def _fanout_on_row_subset(results: dict, case: str, x, pos, w,
+                          sub: int = 1024) -> None:
+    """The standalone fanout at a shape where the plain version would
+    materialise ``[F*K, d]`` float32 of several GB: the kernel runs on
+    every row, is held against the plain version on the first ``sub`` of
+    them, must be bitwise reproducible, and is timed with its bound."""
+    fan, fan_ref = K.fanout_aggregate, K.fanout_aggregate_ref
+    (c, d), (f, k) = x.shape, pos.shape
+    out = fan(x, pos, w)
+    pos_s, w_s = pos[:sub].contiguous(), w[:sub].contiguous()
+    want = fan_ref(x, pos_s, w_s)
+    torch.cuda.synchronize()
+    err = _agree(f"fanout {case}", out[:sub], want, *KERNEL_TOL)
+    if not torch.equal(out, fan(x, pos, w)):
+        fail(f"fanout {case}: not bitwise reproducible")
+    ms = _device_ms(lambda i: fan(x, pos, w), calls=8, reps=3)
+    sub_ms = _device_ms(lambda i: fan(x, pos_s, w_s))
+    plain_ms = _device_ms(lambda i: fan_ref(x, pos_s, w_s), calls=8, reps=3)
+    live = _live(pos, w, c)
+    n_live = int(live.sum())
+    distinct = torch.unique(pos[live]).numel()
+    nbytes = kernel_bytes("gather", distinct, 4 * d, f, k, d, f)
+    bound, by = bound_ms(nbytes, 2 * n_live * d)
+    results["fanout_aggregate"]["max_abs_err"] = max(
+        results["fanout_aggregate"].get("max_abs_err", 0.0), err)
+    print(f"kernels: fanout_aggregate {case}: max abs err {err:.3e} on "
+          f"{sub} of the rows; device {ms:.5f} ms/call "
+          f"({n_live * 4 * d / (ms * 1e6):.0f} GB/s of live slots); bound "
+          f"{bound:.5f} ms ({nbytes / 1e6:.3f} MB: {distinct} distinct rows "
+          f"under {n_live} live slots; by {by}) = {bound / ms:.3f} of the "
+          f"time; on the {sub} rows alone {sub_ms:.5f} ms/call vs plain "
+          f"{plain_ms:.5f} ms/call; bitwise reproducible")
+
+
+def phase_wide_kernels(rng, dev, results: dict) -> None:
+    """Every entry at widths that go by element (``WIDE_WIDTHS``; at 602
+    also a bfloat16 table), against its plain version and timed with its
+    bound and library call; the fanout forward and backward on compacted
+    slots; and the standalone fanout at the Exact training shape, held
+    against the plain version on a subset of its rows."""
+    floor_ms = _device_ms(lambda i: K.empty_launch(dev))
+    print(f"kernels: rows of any width (by element): launch_floor_ms "
+          f"{floor_ms:.5f} in this part's windows")
+    n = SBM_KW["num_nodes"]
+    hbm, hbm_ref = K.hbm_gather_aggregate, K.hbm_gather_aggregate_ref
+    fan, fan_ref = K.fanout_aggregate, K.fanout_aggregate_ref
+    bwd, bwd_ref = K.fanout_aggregate_backward, K.fanout_aggregate_backward_ref
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(dev)
+
+    for d in WIDE_WIDTHS:
+        dtypes = (torch.float32, torch.bfloat16) if d == 602 \
+            else (torch.float32,)
+        hist32 = normal(n + 8, d)
+        hist32[n:] = float("nan")        # never read at or past the sentinel
+        for dtype in dtypes:
+            name = str(dtype)[6:]
+            hist = hist32.to(dtype)
+            # the full term of CV without preprocessing: F = batch 512,
+            # K = pad degree 64, ~30% dead slots naming the sentinel row
+            sets = []
+            for _ in range(4):
+                w = rng.uniform(0.0, 2.0 / 64, (512, 64)).astype(np.float32)
+                w[rng.random((512, 64)) < 0.3] = 0.0
+                idx = rng.integers(0, n, (512, 64)).astype(np.int32)
+                idx[w == 0] = n
+                sets.append((torch.from_numpy(idx).to(dev),
+                             torch.from_numpy(w).to(dev)))
+            _report(results, "hbm_gather_aggregate",
+                    f"{name} [{n + 8},{d}] F=512 K=64 (by element)",
+                    _compare(f"full term d={d} {name}", hbm, hbm_ref, hist,
+                             sets, True, library=_library_gather))
+            # the CV kernel on top of it: C = 1024, F = 512, K = 1
+            kernel, ref, replaced = _cv_calls(n)
+            _report(results, "cv_fanout_aggregate",
+                    f"{name} [{n + 8},{d}] history C=1024 F=512 K=1 "
+                    f"(by element)",
+                    _compare(f"cv d={d} {name}", kernel, ref, hist,
+                             _cv_inputs(rng, dev, 512, 1, d, n, 1.0, 4), True,
+                             kind="cv", rows=1024, sentinel=n,
+                             library=NO_LIBRARY_CV, replaced=replaced))
+            # and on compacted slots at K = 8 (repeats, parked, sentinels)
+            c = 4096
+            pos, w = _compacted_slots(rng, dev, 512, 8, c, 0.7)
+            field_in = torch.from_numpy(np.where(
+                rng.random(c) < 0.2, n, rng.integers(0, n, c)).astype(
+                    np.int32)).to(dev)
+            _report(results, "cv_fanout_aggregate",
+                    f"{name} history d={d} C={c} F=512 K=8, compacted slots",
+                    _compare(f"cv compacted d={d} {name}", kernel, ref, hist,
+                             [(pos, w, normal(c, d), field_in,
+                               normal(512, d))], False, kind="cv", rows=c,
+                             sentinel=n))
+            # the standalone fanout on compacted slots: at 602 the Exact
+            # evaluation's width, F = 2048, K = 64, 25/64 live
+            f, k, c = (2048, 64, 67_584) if d == 602 else (512, 64, 33_280)
+            x = normal(c, d).to(dtype)
+            _report(results, "fanout_aggregate",
+                    f"{name} C={c} F={f} K={k} d={d}, compacted slots "
+                    f"(by element)",
+                    _compare(f"fanout d={d} {name}", fan, fan_ref, x,
+                             [_compacted_slots(rng, dev, f, k, c, 25 / 64)],
+                             True, library=_library_gather))
+            del x, hist
+        del hist32
+        # the backward: the training shape's iota, then compacted slots
+        g = normal(512, d)
+        iota = (512 + torch.arange(512, dtype=torch.int32, device=dev)
+                )[:, None].contiguous()
+        w1 = torch.from_numpy(rng.uniform(0.5, 1.5, (512, 1)).astype(
+            np.float32)).to(dev)
+        for case, c, slots, timing in [
+                (f"C=1024 F=512 K=1 d={d} (by element)", 1024, (iota, w1),
+                 True),
+                (f"C=1024 F=512 K=8 d={d}, compacted slots", 1024,
+                 _compacted_slots(rng, dev, 512, 8, 1024, 0.7), False)]:
+            _report(results, "fanout_aggregate_backward", case,
+                    _compare(f"backward {case}",
+                             lambda g_, p, w, c=c: bwd(g_, p, w, c),
+                             lambda g_, p, w, c=c: bwd_ref(g_, p, w, c), g,
+                             [slots], timing, kind="backward", rows=c,
+                             library=_library_backward(c)))
+
+    # compacted slots at the chunked width: Exact training's second layer
+    # (x [33280, 128], F = 512, K = 64), forward and backward
+    c, f, k, d = 33_280, 512, 64, 128
+    slots = [_compacted_slots(rng, dev, f, k, c, 17 / 64) for _ in range(4)]
+    _report(results, "fanout_aggregate",
+            f"f32 C={c} F={f} K={k} d={d}, compacted slots (Exact training, "
+            f"layer 1)",
+            _compare("fanout compacted d=128", fan, fan_ref, normal(c, d),
+                     slots, True, library=_library_gather))
+    _report(results, "fanout_aggregate_backward",
+            f"C={c} F={f} K={k} d={d}, compacted slots (Exact training, "
+            f"layer 1)",
+            _compare("backward compacted d=128",
+                     lambda g_, p, w: bwd(g_, p, w, c),
+                     lambda g_, p, w: bwd_ref(g_, p, w, c), normal(f, d),
+                     slots, True, kind="backward", rows=c,
+                     library=_library_backward(c)))
+
+    # Exact training's first layer at the capacities a pad degree of 64
+    # gives: x [98816, 602], F = 33,280, K = 64, ~17 of 64 slots live (the
+    # estimators phase repeats this on a real batch of the run)
+    c, f, k, d = 98_816, 33_280, 64, 602
+    pos, w = _compacted_slots(rng, dev, f, k, c, 17 / 64)
+    _fanout_on_row_subset(
+        results, f"f32 C={c} F={f} K={k} d={d}, compacted slots (Exact "
+        f"training, layer 0; by element)", normal(c, d), pos, w)
+
+
 def phase_kernels(seed: int = 0) -> dict:
     """Kernel vs plain version on the card; returns per-kernel results."""
     rng = np.random.default_rng(seed)
@@ -830,6 +1048,8 @@ def phase_kernels(seed: int = 0) -> dict:
     print(f"kernels: FanoutAggregate gradient vs autograd through the plain "
           f"forward: max abs err {err.max().item():.3e}")
     phase_cv_kernel(rng, dev, results, bf16)
+    del table, bf16
+    phase_wide_kernels(rng, dev, results)
     return results
 
 
@@ -906,8 +1126,7 @@ def phase_train(ds, device: str = "cuda", cfg_kw=SLICE_CFG):
     if not np.isfinite(loss):
         fail(f"non-finite training loss {loss}")
     check_launches("a CV train epoch", launches, {
-        "cv_fanout_aggregate": steps, "hbm_gather_aggregate": steps,
-        "fanout_aggregate_backward": steps})
+        name: per * steps for name, per in STEP_LAUNCHES["CV+PP"].items()})
     return tr, launches, steps
 
 
@@ -1096,7 +1315,8 @@ def phase_converge(results: dict, device: str = "cuda", sbm_kw=SBM_KW,
     that kernel on the slots of ``batches`` real scheduled batches of the
     Exact evaluation over seeded activations, against its plain version and
     timed, with every split: the kernels JSON line's times for it, folded
-    into ``results``.  Returns the Exact evaluation's launch counts."""
+    into ``results``.  Returns the Exact evaluation's launch counts, the
+    dataset, the trained CV+PP trainer and its val micro-F1 curve."""
     t0 = time.perf_counter()
     ds = community_sbm_dataset(**sbm_kw)
     t_graph = time.perf_counter() - t0
@@ -1160,7 +1380,200 @@ def phase_converge(results: dict, device: str = "cuda", sbm_kw=SBM_KW,
                      K.fanout_aggregate_ref, x, slots, True,
                      library=_library_gather), main=True)
     _gather_splits(case, x, slots)
-    return launches
+    return launches, ds, tr, curve
+
+
+def _copy_params(dst: Trainer, src: Trainer) -> None:
+    with torch.no_grad():
+        for layer, p in src.params.items():
+            for name, t in p.items():
+                dst.params[layer][name].copy_(t)
+
+
+def _train_to_target(label: str, tr: Trainer, max_epochs: int, target,
+                     per_step: dict):
+    """Train ``tr`` until its val micro-F1 reaches ``target`` (None: for
+    ``max_epochs``), at most ``max_epochs`` epochs.  The second epoch (the
+    only one, where there is one) runs with the launch counters reset just
+    before it and read just after, is timed, and must have launched exactly
+    ``per_step`` kernels a step.  Returns (its launch counts, its steps,
+    the curve)."""
+    device, ds = tr.device, tr.ds
+    curve, counted = [], None
+    for epoch in range(max_epochs):
+        count = epoch == min(1, max_epochs - 1)
+        if count:
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            _sync(device)
+            K.reset_launches()
+            t0 = time.perf_counter()
+        loss, _, _, steps = tr.train_epoch()
+        if count:
+            _sync(device)
+            secs = time.perf_counter() - t0
+            counted = (dict(K.LAUNCHES), steps)
+            print(f"estimators: {label}: epoch {epoch + 1}, {steps} steps in "
+                  f"{secs:.3f} s -> {1e3 * secs / steps:.3f} ms/step; last "
+                  f"loss {loss:.5f}; peak device memory "
+                  f"{_peak_gib(device):.3f} GiB; kernel launches "
+                  f"{counted[0]} = "
+                  f"{ {k: v / steps for k, v in counted[0].items()} } per "
+                  f"step")
+            check_launches(f"a {label} train epoch", counted[0],
+                           {name: per * steps
+                            for name, per in per_step.items()})
+        if not np.isfinite(loss):
+            fail(f"{label}: non-finite training loss {loss}")
+        curve.append(tr.evaluate(ds.val_d)[2])
+        if target is not None and counted and curve[-1] >= target:
+            break
+    print(f"estimators: {label}: val micro-F1 by epoch "
+          f"{', '.join(f'{f:.4f}' for f in curve)}")
+    if target is not None and max(curve) < target:
+        fail(f"{label} val micro-F1 {max(curve):.4f} < {target} in "
+             f"{max_epochs} epochs")
+    return (*counted, curve)
+
+
+def _gradvar_arm(ds, cfg_kw: dict, over: dict, source: Trainer, device,
+                 times: int) -> dict:
+    """One arm of the gradient-variance table, by the protocol of
+    scripts/validate_gradvar.py: a ``gradvar`` trainer (the eval graph is
+    the train graph) with float32 histories and an exhaustive test degree
+    takes ``source``'s weights; ``num_layers + 1`` evaluation passes over
+    all nodes converge the eval histories, which the train state then
+    takes; then ``times`` resamples of the first train batch."""
+    cfg = Config(**{**cfg_kw, "gradvar": True, "history_dtype": "float32",
+                    "test_degree": 10000, **over})
+    tr = Trainer(cfg, ds, device=device)
+    _copy_params(tr, source)
+    if tr.state.histories:
+        all_ids = np.arange(ds.num_data, dtype=np.int32)
+        for _ in range(cfg.num_layers + 1):
+            tr.evaluate(all_ids)
+        with torch.no_grad():
+            for hl, el in zip(tr.state.histories, tr.eval_histories):
+                for h, e in zip(hl, el):
+                    h.copy_(e)
+    return {k: float(v) for k, v in tr.gradient_variance(
+        times=times, log=lambda s: None).items()}
+
+
+def phase_estimators(ds, cv_tr: Trainer, cv_curve, device: str = "cuda",
+                     cfg_kw=CONVERGE_CFG, target: float = CONVERGE_F1,
+                     cvd_epochs: int = CVD_EPOCHS,
+                     exact_epochs: int = EXACT_EPOCHS,
+                     times: int = GRADVAR_TIMES,
+                     dense_ids: int = EXACT_DENSE_IDS, results=None):
+    """The other estimators of the repository's A/B on the convergence
+    phase's SBM: CVD+PP and Exact to ``target``, det-dropout+PP for an
+    epoch, then the gradient-variance table from the trained CV+PP
+    (``cv_tr``) and CVD+PP weights.  With ``results`` (the per-kernel
+    results, on the card) the standalone fanout is also held against its
+    plain version on the first layer of a real Exact train batch.  Returns
+    ({path: launch counts of its counted epoch}, {estimator: launches per
+    step})."""
+    paths, per_step = {}, {}
+
+    def counted(label, name, tr, max_epochs, goal):
+        launches, steps, curve = _train_to_target(
+            label, tr, max_epochs, goal, STEP_LAUNCHES[name])
+        paths[f"{name} train epoch"] = launches
+        per_step[name] = {k: v / steps for k, v in launches.items()}
+        return curve
+
+    cvd = Trainer(Config(**{**cfg_kw, "cvd": True, "test_cvd": True}), ds,
+                  device=device)
+    counted("CVD+PP (cvd, test_cvd)", "CVD+PP", cvd, cvd_epochs, target)
+    print(f"estimators: CV+PP's curve, for comparison: "
+          f"{', '.join(f'{f:.4f}' for f in cv_curve)}")
+
+    exact_kw = {**cfg_kw, "cv": False, "test_cv": False, "degree": 10000,
+                "preprocess": False, "test_preprocess": False}
+    exact = Trainer(Config(**exact_kw), ds, device=device)
+    n, dcap = ds.num_data, exact.graph_train.pad_degree
+    bs = exact.cfg.batch_size
+    if exact.cfg.field_dedup or not effective_dedup(
+            False, bs, exact.train_degrees, n, dcap):
+        fail("Exact at this batch size should force dedup-compacted fields")
+    print(f"estimators: Exact (degree 10000, no preprocessing, no control "
+          f"variate): dedup forced; train field capacities "
+          f"{field_capacities(bs, exact.train_degrees, n, dcap)}, "
+          f"evaluation "
+          f"{field_capacities(exact.cfg.test_batch_size, exact.test_degrees, n, exact.graph_full.pad_degree)}"
+          f"; first layer {ds.feature_dim} wide")
+    counted("Exact", "Exact", exact, exact_epochs, target)
+    ids = np.asarray(ds.val_d[:dense_ids])
+    worst = float(np.abs(exact.predict(ids)
+                         - exact_probs(exact, ids).cpu().numpy()).max())
+    print(f"estimators: Exact: max |predict - dense full-batch computation| "
+          f"= {worst:.3e} on {len(ids)} validation ids (atol "
+          f"{EXACT_DENSE_ATOL})")
+    if not worst <= EXACT_DENSE_ATOL:
+        fail("Exact predictions differ from the dense computation")
+    if results is not None:
+        batch = torch.from_numpy(exact._batch_matrix(
+            ds.train_d[:bs], bs, n)[0]).to(exact.device)
+        pack = schedule(exact.gen, exact.graph_train, batch,
+                        exact.train_degrees, False,
+                        dedup=exact.cfg.field_dedup)
+        x = row_gather(exact.train_features, pack.fields[0], sentinel=n)
+        pos, w = pack.layers[0].slot_pos, pack.layers[0].slot_w
+        _fanout_on_row_subset(
+            results, f"Exact train batch, layer 0: f32 C={x.shape[0]} "
+            f"F={pos.shape[0]} K={pos.shape[1]} d={x.shape[1]} (by element)",
+            x, pos, w)
+        del x, pack
+    del exact
+
+    det = Trainer(Config(**{**cfg_kw, "det_dropout": True}), ds,
+                  device=device)
+    counted("det-dropout+PP (cv, det_dropout)", "det-dropout+PP", det, 1,
+            None)
+    del det
+
+    ns = {"cv": False, "test_cv": False}
+    arms = [("no dropout", "NS+PP", {**ns, "dropout": 0.0}, cv_tr),
+            ("no dropout", "CV+PP", {"dropout": 0.0}, cv_tr),
+            ("dropout", "NS+PP", ns, cv_tr),
+            ("dropout", "CV+PP", {}, cv_tr),
+            ("dropout", "CVD+PP", {"cvd": True, "test_cvd": True}, cvd)]
+    table = {}
+    t0 = time.perf_counter()
+    for suite, name, over, source in arms:
+        r = table[suite, name] = _gradvar_arm(ds, cfg_kw, over, source,
+                                              device, times)
+        print(f"estimators: gradient variance, {suite}, {name}: "
+              + ", ".join(f"{k} {v:.6g}" for k, v in r.items()))
+        if not all(np.isfinite(v) for v in r.values()):
+            fail(f"gradient variance {suite} {name}: non-finite values {r}")
+    print(f"estimators: gradient variance: {len(arms)} arms x {times} "
+          f"resamples of a batch of {bs} in {time.perf_counter() - t0:.1f} s")
+
+    def se(r):
+        return r["grad_stdev"] / np.sqrt(times)
+
+    cv0, ns0 = table["no dropout", "CV+PP"], table["no dropout", "NS+PP"]
+    ns1, cvd1 = table["dropout", "NS+PP"], table["dropout", "CVD+PP"]
+    orderings = {
+        "without dropout CV+PP's forward is exact (bias, stdev < 1e-5)":
+            cv0["pred_bias"] < 1e-5 and cv0["pred_stdev"] < 1e-5,
+        "without dropout CV+PP's gradient bias is within 3 standard errors":
+            cv0["grad_bias"] < 3 * se(cv0),
+        "without dropout NS+PP's gradient bias is above 3 standard errors":
+            ns0["grad_bias"] > 3 * se(ns0),
+        "without dropout CV+PP's gradient stdev is below NS+PP's":
+            cv0["grad_stdev"] < ns0["grad_stdev"],
+        "with dropout CVD+PP's gradient stdev is below NS+PP's":
+            cvd1["grad_stdev"] < ns1["grad_stdev"],
+    }
+    broken = [what for what, holds in orderings.items() if not holds]
+    if broken:
+        fail(f"gradient variance orderings do not hold: {broken}")
+    print(f"estimators: gradient variance orderings hold: "
+          f"{'; '.join(orderings)}")
+    return paths, per_step
 
 
 def main() -> None:
@@ -1180,11 +1593,15 @@ def main() -> None:
     phase_profile(tr)
     served, per_request = phase_slice(tr)
     del tr
-    exact = phase_converge(kernels)
-    # the three counted paths: each had the counters at 0 just before it
-    # and was read just after
+    exact, sbm, cv_tr, cv_curve = phase_converge(kernels)
+    estimator_paths, per_step = phase_estimators(sbm, cv_tr, cv_curve,
+                                                 results=kernels)
+    per_step["CV+PP"] = {name: count / steps
+                         for name, count in launches.items()}
+    # the counted paths: each had the counters at 0 just before it and was
+    # read just after
     paths = {"train epoch": launches, "served requests": served,
-             "Exact evaluation": exact}
+             "Exact evaluation": exact, **estimator_paths}
     total = {name: sum(p[name] for p in paths.values()) for name in kernels}
     idle = [name for name, count in total.items() if count == 0]
     if idle:
@@ -1197,6 +1614,8 @@ def main() -> None:
          "library": res["library"], "replaced_ms": res["replaced_ms"],
          "launches_by_path": {path: p[name] for path, p in paths.items()},
          "launches_per_step": launches[name] / steps,
+         "launches_per_step_by_estimator": {
+             est: counts[name] for est, counts in per_step.items()},
          "launches_per_request": per_request[name]}
         for name, res in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,8 @@ Flag names and semantics are the reference's (train.py:25-67), parsed by
 ``config.parse_flags``; ``--device`` (default ``cuda``) names
 the torch device.  Trains with ``sgd_train`` (epoch lines, checkpoint in
 ``--ckpt_dir``, ``--resume``, SIGTERM -> checkpoint and exit), then runs
-the Test passes.  ``--model mlp`` and ``--gradvar`` are not ported yet and
-raise.
+the Test passes; ``--gradvar`` runs the gradient-variance analysis between
+the two.  ``--model mlp`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -39,13 +39,15 @@ def main(argv=None):
     print("{} training data, {} validation data, {} testing data.".format(
         len(ds.train_d), len(ds.val_d), len(ds.test_d)))
 
-    trainer = Trainer(cfg, ds, device=own.device)   # raises on mlp/gradvar
+    trainer = Trainer(cfg, ds, device=own.device)   # raises on mlp
     # preemption (SIGTERM) -> finish the epoch, checkpoint, exit cleanly;
     # relaunching the same command with --resume continues from there
     trainer.install_preemption_handler()
     trainer.sgd_train()
     if trainer.stop_requested:
         return trainer
+    if cfg.gradvar:
+        trainer.gradient_variance()
     trainer.run_tests()
     return trainer
 

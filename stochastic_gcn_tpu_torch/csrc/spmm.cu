@@ -121,6 +121,29 @@
 //   stream (two device operations) measured slower at the training shape
 //   (PERF.md) and is not built.
 //
+// Rows of any width.  The kernels above read rows as whole 16-byte chunks,
+//   at most 128 of them: 4 to 512 floats in steps of 4.  A model without
+//   feature preprocessing aggregates the raw features first (602 columns on
+//   the Reddit-shaped graphs, 1433 on Cora, 3703 on Citeseer: 2408-byte
+//   float32 rows are 8-byte aligned only, 1204-byte bfloat16 history rows
+//   4-byte), and the JAX model computes these sums at any width.  Every
+//   entry therefore chooses from the shape and the pointers: rows of whole
+//   16-byte chunks, at most 128, behind 16-byte aligned pointers take the
+//   chunked kernels above, unchanged; every other width takes
+//   wide_row_gather_kernel / fanout_backward_wide_kernel, the same functions
+//   by element: one warp per output row, lanes striding the columns in
+//   tiles of 32 * kWideCols, float or bfloat16 element loads (a warp's load
+//   is 128 or 64 contiguous bytes), scalar atomicAdd in the backward.  The
+//   control-variate source pairs the x row and the history row by column.
+//   Same liveness rules, same float32 fixed-order sums (bitwise reproducible
+//   forward), same cooperative zero-fill in the backward.
+//   Bound: bytes, as above (Exact training on the 65,536-node SBM reads
+//   ~25 live 2408-byte rows for each of 33,280 output rows, 2 GB a step).
+//   What this path gives up is the 16-byte load: a lane has kWideCols
+//   4-byte (or 2-byte) loads in flight per slot, kUnroll slots at a time,
+//   instead of one to four 16-byte ones, and re-reads the row's slots once
+//   per column tile.  Times in PERF.md.
+//
 // sgt_empty launches an empty kernel: the floor under any single launch.
 //
 // sgt_gather_aggregate_split runs the gather with a named split, for
@@ -131,13 +154,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
-constexpr int kUnroll = 4;   // row_gather_kernel: live slots in flight a warp
+constexpr int kUnroll = 4;   // one warp per row: live slots in flight a warp
 constexpr int kDepth = 8;    // split_gather_kernel: row loads in flight a group
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -470,6 +495,159 @@ split_gather_kernel(const Src src, int chunks,
   }
 }
 
+// ---- rows of any width: the same sums by element ----
+
+constexpr int kWideCols = 8;                 // columns a lane holds per tile
+constexpr int kWideTile = 32 * kWideCols;    // columns a warp covers per pass
+
+template <int kBf16>
+__device__ __forceinline__ float load_elem(const void* p, int64_t at) {
+  if (kBf16) {
+    const unsigned u = __ldg(static_cast<const unsigned short*>(p) + at);
+    return __uint_as_float(u << 16);
+  }
+  return __ldg(static_cast<const float*>(p) + at);
+}
+
+// The slot sources by element: at() is one column of what a live slot
+// reads, add_base() what meets a finished sum.  limit() and resolve() as
+// above.
+template <int kBf16>
+struct TableElems {
+  static constexpr bool kResolves = false;
+  const void* table;
+  int64_t rows;
+
+  __device__ __forceinline__ int64_t limit() const { return rows; }
+  __device__ __forceinline__ int resolve(int) const { return 0; }
+  __device__ __forceinline__ float at(int row, int, int d, int col) const {
+    return load_elem<kBf16>(table, static_cast<int64_t>(row) * d + col);
+  }
+  __device__ __forceinline__ void add_base(float&, int64_t) const {}
+};
+
+template <int kBf16>
+struct CvElems {
+  static constexpr bool kResolves = true;
+  const float* x;
+  int64_t c;
+  const int32_t* field_in;
+  const void* hist;
+  int64_t hist_live;
+  const float* base;
+
+  __device__ __forceinline__ int64_t limit() const { return c; }
+  __device__ __forceinline__ int resolve(int pos) const {
+    const int n = __ldg(field_in + pos);
+    return n >= 0 && static_cast<int64_t>(n) < hist_live ? n : -1;
+  }
+  __device__ __forceinline__ float at(int pos, int n, int d, int col) const {
+    const float v = __ldg(x + static_cast<int64_t>(pos) * d + col);
+    if (n < 0) return v;
+    return v - load_elem<kBf16>(hist, static_cast<int64_t>(n) * d + col);
+  }
+  __device__ __forceinline__ void add_base(float& sum, int64_t at) const {
+    sum += base[at];
+  }
+};
+
+// One warp per output row, any d >= 1: for each tile of kWideTile columns
+// the warp walks the row's live slots (the same ballot as
+// row_gather_kernel), kUnroll at a time, with kUnroll * kWideCols element
+// loads in flight per lane.
+template <class Src>
+__global__ void __launch_bounds__(kThreads)
+wide_row_gather_kernel(const Src src, int d, const int32_t* __restrict__ idx,
+                       const float* __restrict__ w, int n_out, int k,
+                       float* out) {
+  const int lane = threadIdx.x & 31;
+  const int f = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (f >= n_out) return;  // whole warp leaves together
+  const int32_t* idx_f = idx + static_cast<int64_t>(f) * k;
+  const float* w_f = w + static_cast<int64_t>(f) * k;
+
+  for (int c0 = 0; c0 < d; c0 += kWideTile) {
+    float acc[kWideCols];
+#pragma unroll
+    for (int q = 0; q < kWideCols; ++q) acc[q] = 0.f;
+
+    for (int base = 0; base < k; base += 32) {
+      const int j = base + lane;
+      int my_i = 0;
+      float my_w = 0.f;
+      if (j < k) {
+        my_i = idx_f[j];
+        my_w = w_f[j];
+      }
+      const bool live = slot_live(j < k, my_i, my_w, src.limit());
+      int my_a = 0;
+      if (Src::kResolves && live) my_a = src.resolve(my_i);
+      unsigned mask = __ballot_sync(kFullMask, live);
+
+      while (mask) {  // warp-uniform
+        int r[kUnroll], a[kUnroll];
+        float ws[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const bool have = mask != 0;
+          const int s = have ? __ffs(mask) - 1 : 0;
+          mask &= mask - 1;
+          r[u] = __shfl_sync(kFullMask, my_i, s);
+          ws[u] = __shfl_sync(kFullMask, my_w, s);
+          a[u] = Src::kResolves ? __shfl_sync(kFullMask, my_a, s) : 0;
+          if (!have) ws[u] = 0.f;  // past the last live slot: adds nothing
+        }
+        float v[kUnroll][kWideCols];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+          for (int q = 0; q < kWideCols; ++q) {
+            const int col = c0 + lane + 32 * q;
+            v[u][q] = ws[u] != 0.f && col < d ? src.at(r[u], a[u], d, col)
+                                              : 0.f;
+          }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+          for (int q = 0; q < kWideCols; ++q)
+            acc[q] = fmaf(ws[u], v[u][q], acc[q]);
+      }
+    }
+
+#pragma unroll
+    for (int q = 0; q < kWideCols; ++q) {
+      const int col = c0 + lane + 32 * q;
+      if (col < d) {
+        const int64_t at = static_cast<int64_t>(f) * d + col;
+        float sum = acc[q];
+        src.add_base(sum, at);
+        out[at] = sum;
+      }
+    }
+  }
+}
+
+template <class Src>
+int run_wide(const Src& src, int d, const int32_t* idx, const float* w,
+             int n_out, int k, float* out, cudaStream_t stream) {
+  if (d < 1 || n_out <= 0 || k < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n_out + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  wide_row_gather_kernel<Src><<<blocks, kThreads, 0, stream>>>(
+      src, d, idx, w, n_out, k, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether rows of row_bytes behind these pointers can go by 16-byte
+// chunks, 1 to 4 a lane.
+bool chunked_rows(int64_t row_bytes, std::initializer_list<const void*> ptrs) {
+  if (row_bytes <= 0 || row_bytes % 16 != 0 || row_bytes / 16 > 128)
+    return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
 template <class Src, int kCpl>
 void launch_row(const Src& src, int chunks, const int32_t* idx,
                 const float* w, int n_out, int k, float* out,
@@ -548,15 +726,25 @@ int run_gather(const Src& src, int chunks, const int32_t* idx, const float* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  The wrapper has checked that d fills
-// whole 16-byte chunks, that there are at most 128 of them, that every
-// pointer is 16-byte aligned and that n_out > 0.
+// dtype: 0 = float32, 1 = bfloat16.  Rows of whole 16-byte chunks (at most
+// 128) behind 16-byte aligned pointers go by chunks; any other width goes
+// by element, one warp per row, which a named split other than kRowKernel
+// cannot run.  The wrapper has checked that n_out > 0.
 int gather_aggregate(const void* table, int dtype, int64_t rows, int d,
                      const int32_t* idx, const float* w, int n_out, int k,
                      float* out, cudaStream_t stream, int split) {
   const int elem = dtype == 1 ? 2 : 4;
-  if ((dtype != 0 && dtype != 1) || d <= 0 || d * elem % 16 != 0)
+  if ((dtype != 0 && dtype != 1) || d <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!chunked_rows(static_cast<int64_t>(d) * elem, {table, out})) {
+    if (split != kPlanSplit && split != kRowKernel)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype == 0)
+      return run_wide(TableElems<0>{table, rows}, d, idx, w, n_out, k, out,
+                      stream);
+    return run_wide(TableElems<1>{table, rows}, d, idx, w, n_out, k, out,
+                    stream);
+  }
   const int chunks = d * elem / 16;
   const uint4* t = static_cast<const uint4*>(table);
   if (dtype == 0)
@@ -566,19 +754,28 @@ int gather_aggregate(const void* table, int dtype, int64_t rows, int d,
                     stream, split);
 }
 
-// The control-variate delta, one warp per output row.  The wrapper has
-// checked that d is a multiple of 4 and at most 512, that x, hist, base and
-// out are 16-byte aligned and that n_out > 0.
+// The control-variate delta, one warp per output row.  Columns go by x's
+// 16-byte chunks where d is a multiple of 4, at most 512, and x, hist,
+// base and out are 16-byte aligned (a bfloat16 history row is then read 8
+// bytes a lane); by element otherwise.  The wrapper has checked that
+// n_out > 0.
 int cv_fanout_aggregate(const float* x, int64_t c, int d, const void* hist,
                         int hist_dtype, int64_t hist_rows,
                         const int32_t* field_in, int64_t sentinel,
                         const int32_t* pos, const float* w, int n_out, int k,
                         const float* base, float* out, cudaStream_t stream) {
-  if ((hist_dtype != 0 && hist_dtype != 1) || d <= 0 || d % 4 != 0)
+  if ((hist_dtype != 0 && hist_dtype != 1) || d <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int chunks = d / 4;
   int64_t hist_live = sentinel < hist_rows ? sentinel : hist_rows;
   if (hist_live < 0) hist_live = 0;
+  if (!chunked_rows(static_cast<int64_t>(d) * 4, {x, hist, base, out})) {
+    if (hist_dtype == 0)
+      return run_wide(CvElems<0>{x, c, field_in, hist, hist_live, base}, d,
+                      pos, w, n_out, k, out, stream);
+    return run_wide(CvElems<1>{x, c, field_in, hist, hist_live, base}, d,
+                    pos, w, n_out, k, out, stream);
+  }
+  const int chunks = d / 4;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   const float4* base4 = reinterpret_cast<const float4*>(base);
   if (hist_dtype == 0)
@@ -649,11 +846,70 @@ fanout_backward_coop_kernel(const float4* __restrict__ g, int chunks,
     scatter_row<kCpl>(f, threadIdx.x & 31, g, chunks, pos, w, k, c, grad_x);
 }
 
-// Blocks of fanout_backward_coop_kernel<kCpl> that the current device
-// holds at once, counted at the first call on each device.
-template <int kCpl>
-cudaError_t resident_blocks(int* blocks) {
-  static int counted[kMaxDevices] = {};  // 0: not yet counted
+// The same scatter for a g row of any width d, a tile of kWideTile columns
+// at a time in registers, one scalar atomicAdd per element.
+__device__ __forceinline__ void scatter_row_wide(
+    int f, int lane, const float* __restrict__ g, int d,
+    const int32_t* __restrict__ pos, const float* __restrict__ w, int k,
+    int64_t c, float* __restrict__ grad_x) {
+  const int32_t* pos_f = pos + static_cast<int64_t>(f) * k;
+  const float* w_f = w + static_cast<int64_t>(f) * k;
+  for (int c0 = 0; c0 < d; c0 += kWideTile) {
+    float gv[kWideCols];
+#pragma unroll
+    for (int q = 0; q < kWideCols; ++q) {
+      const int col = c0 + lane + 32 * q;
+      gv[q] = col < d ? g[static_cast<int64_t>(f) * d + col] : 0.f;
+    }
+    for (int base = 0; base < k; base += 32) {
+      const int j = base + lane;
+      int my_p = 0;
+      float my_w = 0.f;
+      if (j < k) {
+        my_p = pos_f[j];
+        my_w = w_f[j];
+      }
+      unsigned mask =
+          __ballot_sync(kFullMask, slot_live(j < k, my_p, my_w, c));
+      while (mask) {  // warp-uniform
+        const int s = __ffs(mask) - 1;
+        mask &= mask - 1;
+        const int p = __shfl_sync(kFullMask, my_p, s);
+        const float ws = __shfl_sync(kFullMask, my_w, s);
+        float* row = grad_x + static_cast<int64_t>(p) * d;
+#pragma unroll
+        for (int q = 0; q < kWideCols; ++q) {
+          const int col = c0 + lane + 32 * q;
+          if (col < d) atomicAdd(row + col, ws * gv[q]);
+        }
+      }
+    }
+  }
+}
+
+// fanout_backward_coop_kernel for rows of any width: zero-fill by float,
+// grid-wide barrier, scatter by element.
+__global__ void __launch_bounds__(kThreads)
+fanout_backward_wide_kernel(const float* __restrict__ g, int d,
+                            const int32_t* __restrict__ pos,
+                            const float* __restrict__ w, int n_out, int k,
+                            int64_t c, float* __restrict__ grad_x) {
+  const int64_t total = c * d;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < total; i += stride)
+    grad_x[i] = 0.f;
+  cg::this_grid().sync();
+  for (int f = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); f < n_out;
+       f += gridDim.x * kWarpsPerBlock)
+    scatter_row_wide(f, threadIdx.x & 31, g, d, pos, w, k, c, grad_x);
+}
+
+// Blocks of the cooperative `kernel` that the current device holds at
+// once, counted at the first call on each device into the caller's
+// `counted[kMaxDevices]` (0: not yet counted).
+template <class Kernel>
+cudaError_t resident_blocks(Kernel kernel, int* counted, int* blocks) {
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return e;
@@ -662,8 +918,8 @@ cudaError_t resident_blocks(int* blocks) {
     int sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, fanout_backward_coop_kernel<kCpl>, kThreads, 0);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
     if (e != cudaSuccess) return e;
     if (sms * per_sm < 1) return cudaErrorLaunchOutOfResources;
     counted[device] = sms * per_sm;
@@ -672,43 +928,62 @@ cudaError_t resident_blocks(int* blocks) {
   return cudaSuccess;
 }
 
+// Launches a cooperative backward `kernel` over n_out rows of g that also
+// zero-fills `fill_items` stores (float4s or floats) of grad_x.
+template <class Kernel>
+cudaError_t launch_coop(Kernel kernel, int* counted, int n_out,
+                        int64_t fill_items, void** args,
+                        cudaStream_t stream) {
+  const int row_blocks = (n_out + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  // cooperative: every block must be resident at once
+  int resident = 0;
+  const cudaError_t e = resident_blocks(kernel, counted, &resident);
+  if (e != cudaSuccess) return e;
+  // a thread zero-fills kFillPerThread items: a smaller grid, whose
+  // barrier is cheaper, measured no slower to fill
+  constexpr int kFillPerThread = 4;
+  const int64_t fill_blocks = (fill_items + kThreads * kFillPerThread - 1) /
+                              (kThreads * kFillPerThread);
+  int64_t blocks = row_blocks > fill_blocks ? row_blocks : fill_blocks;
+  if (blocks > resident) blocks = resident;
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(kernel), dim3(static_cast<unsigned>(blocks)),
+      dim3(kThreads), args, 0, stream);
+}
+
 template <int kCpl>
 cudaError_t launch_backward(const float* g, int chunks, const int32_t* pos,
                             const float* w, int n_out, int k, int64_t c,
                             float* grad_x, cudaStream_t stream) {
+  static int counted[kMaxDevices] = {};
   const float4* g4 = reinterpret_cast<const float4*>(g);
   float4* grad4 = reinterpret_cast<float4*>(grad_x);
-  const int row_blocks = (n_out + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  // cooperative: every block must be resident at once
-  int resident = 0;
-  const cudaError_t counted = resident_blocks<kCpl>(&resident);
-  if (counted != cudaSuccess) return counted;
-  // a thread zero-fills kFillPerThread chunks: a smaller grid, whose
-  // barrier is cheaper, measured no slower to fill
-  constexpr int kFillPerThread = 4;
-  const int64_t fill_blocks = (c * chunks + kThreads * kFillPerThread - 1) /
-                              (kThreads * kFillPerThread);
-  int64_t blocks = row_blocks > fill_blocks ? row_blocks : fill_blocks;
-  if (blocks > resident) blocks = resident;
   void* args[] = {&g4, &chunks, &pos, &w, &n_out, &k, &c, &grad4};
-  return cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(fanout_backward_coop_kernel<kCpl>),
-      dim3(static_cast<unsigned>(blocks)), dim3(kThreads), args, 0, stream);
+  return launch_coop(fanout_backward_coop_kernel<kCpl>, counted, n_out,
+                     c * chunks, args, stream);
 }
 
-// The wrapper has checked that d is a multiple of 4, at most 512, that
-// grad_x is 16-byte aligned and that n_out > 0 and c > 0.
+// Rows of whole 16-byte chunks (d a multiple of 4, at most 512) behind
+// 16-byte aligned pointers scatter 16 bytes an atomic; any other width
+// scatters by element.  The wrapper has checked that n_out > 0 and c > 0.
 int fanout_backward(const float* g, const int32_t* pos, const float* w,
                     int n_out, int k, int64_t c, int d, float* grad_x,
                     cudaStream_t s) {
-  const int chunks = d / 4;
-  const int cpl = (chunks + 31) / 32;
-  if (d % 4 != 0 || cpl < 1 || cpl > 4 || n_out <= 0 || k < 0 || c <= 0)
+  if (d < 1 || n_out <= 0 || k < 0 || c <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if (cpl == 1) err = launch_backward<1>(g, chunks, pos, w, n_out, k, c, grad_x, s);
-  else if (cpl == 2) err = launch_backward<2>(g, chunks, pos, w, n_out, k, c, grad_x, s);
-  else err = launch_backward<4>(g, chunks, pos, w, n_out, k, c, grad_x, s);
+  if (!chunked_rows(static_cast<int64_t>(d) * 4, {g, grad_x})) {
+    static int counted[kMaxDevices] = {};
+    void* args[] = {&g, &d, &pos, &w, &n_out, &k, &c, &grad_x};
+    err = launch_coop(fanout_backward_wide_kernel, counted, n_out, c * d,
+                      args, s);
+  } else {
+    const int chunks = d / 4;
+    const int cpl = (chunks + 31) / 32;
+    if (cpl == 1) err = launch_backward<1>(g, chunks, pos, w, n_out, k, c, grad_x, s);
+    else if (cpl == 2) err = launch_backward<2>(g, chunks, pos, w, n_out, k, c, grad_x, s);
+    else err = launch_backward<4>(g, chunks, pos, w, n_out, k, c, grad_x, s);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -736,8 +1011,9 @@ int sgt_fanout_aggregate(const void* x, int dtype, int64_t c, int d,
                           static_cast<cudaStream_t>(stream), kPlanSplit);
 }
 
-// The same function with a named split: 0 one warp per row, or 1, 2, 4, 8
-// warps per row (rows of at most 512 bytes).  For measurement.
+// The same function with a named split: 0 one warp per row (any width), or
+// 1, 2, 4, 8 warps per row (rows of whole 16-byte chunks, at most 512
+// bytes).  For measurement.
 int sgt_gather_aggregate_split(const void* table, int dtype, int64_t rows,
                                int d, const int32_t* idx, const float* w,
                                int n_out, int k, float* out, void* stream,
@@ -748,9 +1024,12 @@ int sgt_gather_aggregate_split(const void* table, int dtype, int64_t rows,
 }
 
 // The split sgt_hbm_gather_aggregate / sgt_fanout_aggregate choose, or 0
-// where they run one warp per row without the split kernel.
+// where they run one warp per row without the split kernel (also every
+// width that goes by element).
 int sgt_gather_plan(int dtype, int d, int n_out, int k) {
-  return plan_split(n_out, k, d * (dtype == 1 ? 2 : 4) / 16);
+  const int64_t row_bytes = static_cast<int64_t>(d) * (dtype == 1 ? 2 : 4);
+  if (!chunked_rows(row_bytes, {})) return kRowKernel;  // by element
+  return plan_split(n_out, k, static_cast<int>(row_bytes / 16));
 }
 
 // Sampled term of the CV estimator on top of the full term: x [c, d]

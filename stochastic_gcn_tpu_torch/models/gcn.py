@@ -237,10 +237,15 @@ def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
     new_histories = [None] * spec.num_agg_layers
     for s in spec.specs:
         if isinstance(s, DropoutSpec):
-            h = L.dropout(gen, h, kp)
+            h = L.dropout_layer(gen, h, kp, spec.cvd)
         elif isinstance(s, DenseSpec):
             h = L.dense(params[s.name], h, L.relu if s.relu else L.identity,
                         s.norm)
+        elif isinstance(s, AugDenseSpec):
+            h = L.aug_dropout_dense(params[s.name], gen, h, kp, L.relu,
+                                    s.norm)
+        elif isinstance(s, DetFCSpec):
+            h = L.det_dropout_fc(params[s.name], h, kp, s.norm)
         elif isinstance(s, AggSpec):
             l = s.index
             ls = pack.layers[l]
@@ -250,10 +255,6 @@ def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
                     histories[l], spec.cvd, spec.normalization)
             else:
                 h = agg.plain_aggregate(h, ls, spec.normalization)
-        else:
-            raise NotImplementedError(
-                f"{type(s).__name__} (CVD / det-dropout layers) is not "
-                "ported yet (ROADMAP.md, queue 1)")
     return h, tuple(new_histories)
 
 

@@ -38,8 +38,11 @@ outside PyTorch's allocator, so they can be captured in a CUDA graph.
 The C entries pick the kernel for a shape themselves (several warps per
 output row for the full term, one warp per row at K = 1, for rows above
 512 bytes and for the CV delta; a cooperative zero-fill-and-scatter for the
-backward).  ``gather_aggregate_split`` runs the gather with a named split
-instead, for measurement.
+backward).  Rows of any width ``d >= 1`` are taken: rows of whole 16-byte
+chunks, at most 2048 bytes, behind 16-byte aligned pointers run the chunked
+kernels, every other width (602 raw features, 1433, a single column) the
+same functions by element.  ``gather_aggregate_split`` runs the gather with
+a named split instead, for measurement.
 """
 
 from __future__ import annotations
@@ -50,7 +53,6 @@ from . import _build
 from .gather import row_gather
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_CHUNKS = 128        # 16-byte chunks per row the kernel takes (4 per lane)
 
 # launches per wrapper since the last reset_launches().  A launch recorded
 # into a CUDA graph counts once, at capture; replays of the graph do not
@@ -148,13 +150,8 @@ def _check(table: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError(f"table {tuple(table.shape)} must be 2-D")
     if not table.is_contiguous():
         raise ValueError("table, index and weights must be contiguous")
-    row_bytes = table.shape[1] * table.element_size()
-    if row_bytes % 16 or row_bytes // 16 > _MAX_CHUNKS:
-        raise ValueError(f"row width {table.shape[1]} x {table.dtype} must "
-                         f"be a multiple of 16 bytes and at most "
-                         f"{16 * _MAX_CHUNKS} bytes")
-    if table.data_ptr() % 16:
-        raise ValueError("table must be 16-byte aligned")
+    if table.shape[1] < 1:
+        raise ValueError(f"table {tuple(table.shape)} has no columns")
     if idx.numel() >= 2 ** 31:
         raise ValueError("more than 2^31 slots")
 
@@ -240,8 +237,7 @@ def fanout_aggregate_backward(g: torch.Tensor, pos: torch.Tensor,
     if f == 0 or rows == 0:
         return torch.zeros((rows, g.shape[1]), dtype=torch.float32,
                            device=g.device)
-    # the kernel's entry zero-fills grad itself (rows of whole 16-byte
-    # chunks, and the allocator aligns to more than 16 bytes)
+    # the kernel's entry zero-fills grad itself
     grad = torch.empty((rows, g.shape[1]), dtype=torch.float32,
                        device=g.device)
     _call(g.device, "sgt_fanout_aggregate_backward",
@@ -302,8 +298,6 @@ def _cv_fanout_forward(x, hist, field_in, sentinel, pos, w, base):
                              f"{x.device}, {t.device}")
     if not (hist.is_contiguous() and base.is_contiguous()):
         raise ValueError("the history and base must be contiguous")
-    if hist.data_ptr() % 16 or base.data_ptr() % 16:
-        raise ValueError("the history and base must be 16-byte aligned")
     f, k = pos.shape
     out = torch.empty_like(base)
     if f == 0:
@@ -376,7 +370,8 @@ def hbm_gather_aggregate(table: torch.Tensor, idx: torch.Tensor,
 def gather_aggregate_split(table: torch.Tensor, idx: torch.Tensor,
                            w: torch.Tensor, split: int) -> torch.Tensor:
     """The gather-aggregate with a named ``split``: 0 for one warp per
-    output row, or 1, 2, 4, 8 warps per row (rows of at most 512 bytes).
+    output row, or 1, 2, 4, 8 warps per row (rows of whole 16-byte chunks,
+    at most 512 bytes).
     The public functions choose the split themselves; this one is for
     holding every split against the plain version and timing it (the
     kernel's plan is chosen from these times), and does not count in

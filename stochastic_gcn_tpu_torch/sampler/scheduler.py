@@ -1,4 +1,4 @@
-"""On-device receptive-field scheduler (uniform sampling, no-dedup layout).
+"""On-device receptive-field scheduler (uniform sampling).
 
 Port of stochastic_gcn_tpu/sampler/scheduler.py.  The layer-by-layer
 expansion runs on the device over the :class:`PaddedGraph`:
@@ -6,13 +6,20 @@ expansion runs on the device over the :class:`PaddedGraph`:
 * uniform fanout sampling without replacement — one uniform per row at
   degree 1, top-k of iid uniforms over the padded row otherwise; edge
   weights are rescaled by ``deg/|sampled|`` so the estimator is unbiased;
-* the append-only field layout: the input field is ``field_out ++
-  sampled ids`` and ``slot_pos[f, j] = F + f*k + j``, so the output field is
-  a prefix of the input field;
+* dedup-compacted fields (:func:`compact_field`, the default): the input
+  field is ``field_out ++ the new unique ids`` in node-id order, capacity
+  ``F + min(F*k, N)``, and a slot's position comes from a ``[N+1]``
+  position table; weight-masked slots are parked at :data:`PARKED_POS`;
+* the append-only field layout (:func:`append_field`, ``dedup=False``
+  unless something forces dedup): the input field is ``field_out ++
+  sampled ids`` and ``slot_pos[f, j] = F + f*k + j``;
+* either way the output field is a prefix of the input field;
 * sentinel padding: absent slots/nodes use id ``N`` with weight 0.
 
-Dedup compaction, importance sampling and owner-aligned layouts are not
-ported yet: the scheduler raises where the JAX one would take them.
+Every shape is static and nothing waits for the device, so a schedule can
+be captured with the step around it.  Importance sampling and owner-aligned
+layouts are not ported yet: the scheduler raises where the JAX one would
+take them.
 """
 
 from __future__ import annotations
@@ -25,8 +32,13 @@ import torch
 
 from ..data.graph import PaddedGraph, graph_rows
 
-_NOT_PORTED = ("not ported yet: see ROADMAP.md, queue 1, "
-               "'compact_field and dedup' / 'IS'")
+_NOT_PORTED = "not ported yet: see ROADMAP.md, queue 1, 'IS'"
+
+# Position of a weight-masked slot (a sentinel-neighbour pad) under dedup:
+# any value at or above the field capacity.  The gather kernels read such a
+# slot as a zero row and the backward skips it; without parking, every
+# masked slot would point at pos_table[N], which is garbage by contract.
+PARKED_POS = 1 << 30
 
 
 @dataclass(frozen=True)
@@ -148,39 +160,89 @@ def append_field(field_out: torch.Tensor, new_ids: torch.Tensor,
     return field_in, slot_pos
 
 
+def compact_field(field_out: torch.Tensor, new_ids: torch.Tensor,
+                  num_nodes: int, capacity: int):
+    """Dedup-compact ``field_out ++ new_ids`` into a static-capacity field.
+
+    The output field occupies positions ``[0, F)`` (the prefix invariant);
+    new unique ids get positions ``F + rank`` in node-id order, and the
+    rest of the field is sentinel padding.  Returns (field_in [capacity]
+    int32, pos_table [N+1] int32) where ``pos_table[id]`` is the position
+    of ``id`` in field_in.  ``pos_table[N]`` and the entries of ids outside
+    the field are unspecified: they are only ever dereferenced under
+    weight-0 masks.  ``field_out``'s real ids must be unique and
+    ``capacity - F`` at least the number of new unique ids, as
+    :func:`field_capacities` guarantees.
+
+    Static shapes and no host synchronisation: masks and a cumsum over the
+    ``N + 1`` ids, then one candidate-sized scatter of each new id to its
+    rank (duplicates carry the same id to the same slot, so which write
+    wins does not matter; candidates that are not new go to one spare slot
+    past the end, which is cut off)."""
+    n, f = num_nodes, field_out.shape[0]
+    dev = field_out.device
+    cand = new_ids.reshape(-1).to(torch.int64)
+    seen = field_out.to(torch.int64)
+    new_mask = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    new_mask.index_fill_(0, cand, True).index_fill_(0, seen, False)
+    new_mask[n] = False
+    cum = torch.cumsum(new_mask, dim=0, dtype=torch.int32)
+    pos_table = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    pos_table.index_copy_(0, seen, torch.arange(f, dtype=torch.int32,
+                                                device=dev))
+    pos_table = torch.where(new_mask, f + cum - 1, pos_table)
+
+    is_new = new_mask.index_select(0, cand)
+    rank = cum.index_select(0, cand).to(torch.int64) - 1
+    spare = capacity - f
+    new_by_rank = torch.full((spare + 1,), n, dtype=torch.int32, device=dev)
+    new_by_rank.scatter_(0, torch.where(is_new, rank, spare),
+                         cand.to(torch.int32))
+    field_in = torch.cat([field_out.to(torch.int32), new_by_rank[:spare]])
+    return field_in, pos_table
+
+
 def schedule(gen: torch.Generator, graph: PaddedGraph,
              batch_ids: torch.Tensor, degrees: Sequence[int], cv: bool,
              need_aw: bool = False, importance=None, owner_blocks: int = 0,
-             dedup: bool = False) -> BatchFields:
+             dedup: bool = True) -> BatchFields:
     """Build the receptive field of one minibatch: expand top-down with
     ``degrees[L-1], ..., degrees[0]`` and return everything input side
-    first.  ``batch_ids`` is [batch_size] int32, sentinel (``N``)-padded.
-    """
+    first.  ``batch_ids`` is [batch_size] int32, sentinel (``N``)-padded,
+    with unique real ids.
+
+    ``dedup=False`` selects the append-only :func:`append_field` layout
+    unless :func:`effective_dedup` forces compaction (a layer that samples
+    more than ``2N`` slots)."""
     n = graph.num_nodes
     degrees = list(degrees)
     num_layers = len(degrees)
     if importance is not None or owner_blocks > 1:
         raise NotImplementedError(
             f"importance sampling / owner-aligned fields {_NOT_PORTED}")
-    if effective_dedup(dedup, batch_ids.shape[0], degrees, n,
-                       graph.pad_degree):
-        why = "asked for" if dedup else (
-            f"forced: some layer samples more than 2N = {2 * n} slots at "
-            f"batch {batch_ids.shape[0]}; a smaller batch avoids it")
-        raise NotImplementedError(
-            f"dedup-compacted fields ({why}) {_NOT_PORTED}")
+    dedup = effective_dedup(dedup, batch_ids.shape[0], degrees, n,
+                            graph.pad_degree)
     caps = field_capacities(batch_ids.shape[0], degrees, n, graph.pad_degree,
-                            dedup=False)
+                            dedup=dedup)
 
     field = batch_ids.to(torch.int32)
     fields = [field]
     layer_samples = []
     for l in range(num_layers):
         degree = degrees[num_layers - l - 1]
+        cap = caps[num_layers - l - 1]
         nbr_id, slot_w, slot_aw, scales = expand_uniform(
             gen, graph, field, degree, need_aw)
-        field, slot_pos = append_field(field, nbr_id, n,
-                                       caps[num_layers - l - 1])
+        if dedup:
+            field, pos_table = compact_field(field, nbr_id, n, cap)
+            # weight-masked slots park instead of all pointing at
+            # pos_table[N]
+            slot_pos = torch.where(
+                slot_w != 0.0,
+                pos_table.index_select(0, nbr_id.reshape(-1).to(
+                    torch.int64)).reshape(nbr_id.shape), PARKED_POS)
+        else:
+            field, slot_pos = append_field(field, nbr_id, n, cap)
         layer_samples.append(LayerSample(slot_pos=slot_pos, slot_w=slot_w,
                                          slot_aw=slot_aw, scales=scales))
         fields.append(field)

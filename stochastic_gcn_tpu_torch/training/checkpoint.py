@@ -6,7 +6,9 @@ per pytree leaf, keyed by the leaf's ``jax.tree_util.keystr`` path:
 ``leaf:['state'].opt_state[0].mu['dense0']['weights']`` (optax's
 ``ScaleByAdamState``; ``count`` is an int32 scalar), ``bf16leaf:['state']
 .histories[0][0]``, ``leaf:['state'].step``,
-``leaf:['eval_histories'][0][0]`` and ``leaf:['key']``.  bfloat16 leaves
+``leaf:['eval_histories'][0][0]`` and ``leaf:['key']``; with Polyak
+averaging also ``leaf:['state'].avg_params['dense0']['weights']``, and under
+det-dropout a second history per layer, ``histories[0][1]``.  bfloat16 leaves
 are stored as uint16 bit views under ``bf16leaf:``.  Loop counters for
 ``--resume`` ride along as ``extra:<name>``.  The port writes exactly the
 leaves a JAX ``Trainer`` with the same flags expects, and reads the full
@@ -27,6 +29,7 @@ import torch
 from .step import AdamState, TrainState, param_keys
 
 _LEAF, _BF16, _EXTRA = "leaf:", "bf16leaf:", "extra:"
+_AVG = "['state'].avg_params"
 
 
 def _bf16_to_f32(bits: np.ndarray) -> np.ndarray:
@@ -83,6 +86,9 @@ def _state_leaves(state: TrainState, eval_histories) -> list:
     out += [(f"['state'].histories[{i}][{j}]", h)
             for i, hl in enumerate(state.histories) for j, h in enumerate(hl)]
     out.append(("['state'].step", state.step))
+    if state.avg_params is not None:
+        out += [(f"{_AVG}['{l}']['{n}']", state.avg_params[l][n])
+                for l, n in keys]
     out += [(f"['eval_histories'][{i}][{j}]", h)
             for i, hl in enumerate(eval_histories) for j, h in enumerate(hl)]
     return out
@@ -125,12 +131,21 @@ def load_checkpoint(ckpt_dir: str, state: TrainState, eval_histories,
     and eval histories from a checkpoint either package wrote, IN PLACE
     into ``state`` / ``eval_histories`` (which fix the expected leaves,
     shapes, dtypes and device).  Every leaf is checked before any is
-    copied: a missing leaf raises KeyError, a wrong shape ValueError."""
+    copied: a missing leaf raises KeyError, a wrong shape ValueError.
+
+    The Polyak average follows this run's ``polyak_decay``, as in the JAX
+    package: a run that keeps an average and loads a checkpoint without one
+    seeds the average from the restored weights; a run without one ignores
+    a saved average."""
     path = checkpoint_path(ckpt_dir)
     wanted = [(k, t) for k, t in _state_leaves(state, eval_histories)
               if load_history or "histories" not in k]
     with np.load(path, allow_pickle=False) as z:
         files = set(z.files)
+        seed_avg = state.avg_params is not None and not any(
+            f.startswith(_LEAF + _AVG) for f in files)
+        if seed_avg:
+            wanted = [(k, t) for k, t in wanted if not k.startswith(_AVG)]
         arrays = []
         for k, t in wanted:
             if _LEAF + k in files:
@@ -148,6 +163,9 @@ def load_checkpoint(ckpt_dir: str, state: TrainState, eval_histories,
     with torch.no_grad():
         for (_, t), arr in zip(wanted, arrays):
             t.copy_(torch.as_tensor(arr))
+        if seed_avg:
+            for l, n in param_keys(state.params):
+                state.avg_params[l][n].copy_(state.params[l][n])
     print(f"Model restored from file: {path}")
     return state, eval_histories
 

@@ -4,9 +4,11 @@ Port of stochastic_gcn_tpu/training/loop.py for the single-device padded
 graph: the constructor puts the train and eval graphs, features, labels,
 the train state (params, Adam state, bf16 train histories) and the eval
 histories on an explicit device.  ``train_epoch`` / ``sgd_train`` /
-``evaluate`` / ``predict`` / ``test`` / ``run_tests`` / ``save`` /
-``load`` follow the JAX Trainer; checkpoints use the JAX file layout, so
-either package resumes the other's.
+``evaluate`` / ``predict`` / ``test`` / ``run_tests`` /
+``gradient_variance`` / ``save`` / ``load`` follow the JAX Trainer, for
+every estimator the flags select (NS, CV, CVD, det-dropout, Exact; with or
+without preprocessing; Polyak-averaged evaluation weights); checkpoints use
+the JAX file layout, so either package resumes the other's.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from ..data.graph import Dataset, dense_rows, pad_csr
 from ..data.preprocess import cap_adj_degree
 from ..models import gcn as M
 from ..sampler.scheduler import MinibatchIterator
-from ..utils.metrics import f1_from_counts
+from ..utils.metrics import Stat, f1_from_counts
 from . import step as S
 from .checkpoint import (checkpoint_path, load_checkpoint, load_loop_extras,
                          save_checkpoint)
@@ -55,6 +57,10 @@ def to_device_features(cfg, feats, num_nodes: int, device) -> torch.Tensor:
 
 
 def _refuse_unported(cfg) -> None:
+    if cfg.det_dropout and (cfg.importance or cfg.test_importance):
+        # as the JAX Trainer: importance sampling produces no cross-term
+        # (slot_aw) weights
+        raise ValueError("--det_dropout is incompatible with --importance")
     unported = {
         "--model mlp": cfg.model == "mlp",
         "--dp/--tp > 1 (multi-device)": cfg.dp > 1 or cfg.tp > 1,
@@ -62,14 +68,8 @@ def _refuse_unported(cfg) -> None:
         "--graph_format edgelist": cfg.graph_format != "padded",
         "--importance": cfg.importance,
         "--test_importance": cfg.test_importance,
-        "--cvd": cfg.cvd,
-        "--test_cvd": cfg.test_cvd,
-        "--det_dropout": cfg.det_dropout,
-        "--field_dedup": cfg.field_dedup,
-        "--polyak_decay > 0": cfg.polyak_decay > 0,
         "--lazy_fullterm": cfg.lazy_fullterm,
         "--ckpt_async": cfg.ckpt_async,
-        "--gradvar": cfg.gradvar,
     }
     asked = [k for k, v in unported.items() if v]
     if asked:
@@ -94,6 +94,12 @@ class Trainer:
         n = ds.num_data
 
         train_adj, full_adj = ds.train_adj, ds.full_adj
+        test_feats_pp = ds.test_feats
+        if cfg.gradvar:
+            # the gradient-variance analysis evaluates on the train graph:
+            # the eval graph and PP features alias the train side's
+            full_adj = train_adj.copy()
+            test_feats_pp = ds.train_feats.copy()
         if cfg.pad_degree != -1:
             train_adj = cap_adj_degree(train_adj, cfg.pad_degree, cfg.seed)
             full_adj = cap_adj_degree(full_adj, cfg.pad_degree, cfg.seed)
@@ -108,7 +114,7 @@ class Trainer:
         tr_feats, tr_sparse = assemble_input_features(
             cfg, ds.feats, ds.train_feats, cfg.preprocess)
         te_feats, te_sparse = assemble_input_features(
-            cfg, ds.feats, ds.test_feats, cfg.test_preprocess)
+            cfg, ds.feats, test_feats_pp, cfg.test_preprocess)
         self.train_spec = M.build_model_spec(
             cfg, in_dim, out_dim, cfg.preprocess, cfg.cv, cfg.cvd, tr_sparse)
         self.test_spec = M.build_model_spec(
@@ -163,6 +169,13 @@ class Trainer:
     def params(self) -> dict:
         return self.state.params
 
+    def _eval_params(self) -> dict:
+        """The weights evaluation and serving use: the Polyak / EMA average
+        when ``polyak_decay > 0``, the raw weights otherwise."""
+        if self.cfg.polyak_decay > 0 and self.state.avg_params is not None:
+            return self.state.avg_params
+        return self.state.params
+
     @staticmethod
     def _batch_matrix(ids, batch_size: int, num_nodes: int) -> np.ndarray:
         """[S, B] sentinel-padded batch-id matrix."""
@@ -198,16 +211,17 @@ class Trainer:
     def _record_epoch_stats(self, metrics, run_t: float):
         """FLOP/size accounting per epoch (gcn/vrgcn.py:50-69): sparse ops
         g_ops = (adj + fadj nnz) * dim * 4, dense ops nn_ops =
-        sum(layer_comp * field size) * 4."""
+        sum(layer_comp * field size) * 4, each doubled under cvd."""
         spec = self.train_spec
         field_sizes, adj_sizes, fadj_sizes = (
             metrics[k].cpu().numpy()
             for k in ("field_sizes", "adj_sizes", "fadj_sizes"))
+        mult = 2 if spec.cvd else 1      # CVD runs two streams
         g_ops = 0.0
         for l in range(spec.num_agg_layers):
             dim = spec.agg0_dim if l == 0 else self.cfg.hidden1
-            g_ops += float(adj_sizes[l] + fadj_sizes[l]) * dim * 4
-        nn_ops = sum(comp * float(field_sizes[idx]) * 4
+            g_ops += float(adj_sizes[l] + fadj_sizes[l]) * dim * 4 * mult
+        nn_ops = sum(comp * float(field_sizes[idx]) * 4 * mult
                      for comp, idx in spec.layer_comp)
         self.epoch_stats = dict(run_t=run_t, g_t=0.0, g_ops=g_ops,
                                 nn_ops=nn_ops, field_sizes=field_sizes,
@@ -218,7 +232,7 @@ class Trainer:
                                 self.ds.num_data)
         with torch.no_grad():
             self.eval_histories, out = epoch(
-                self.params, self.eval_histories, self.graph_full,
+                self._eval_params(), self.eval_histories, self.graph_full,
                 self.test_features, self.labels,
                 torch.from_numpy(bm).to(self.device), self.gen)
         return out
@@ -286,6 +300,57 @@ class Trainer:
         out = None
         for _ in range(num_runs):
             out = self.test(log)
+        return out
+
+    def gradient_variance(self, times: int = 1000, log=print) -> dict:
+        """Bias and standard deviation of the predictions and of the
+        first-layer weight gradient of the train model (sampled, with
+        dropout) against the eval model (``full``), over ``times`` fresh
+        schedules and dropout masks of the first train batch.  Every figure
+        is the mean absolute value over elements, relative to the mean
+        absolute full prediction or gradient.  Returns ``pred_bias``,
+        ``grad_bias``, ``pred_stdev``, ``grad_stdev``, ``full_pred_stdev``
+        and ``full_grad_stdev``."""
+        cfg, n = self.cfg, self.ds.num_data
+        batch = torch.from_numpy(self._batch_matrix(
+            self.ds.train_d[:cfg.batch_size], cfg.batch_size, n)[0]
+        ).to(self.device)
+        full_fn = S.build_pred_and_grad(cfg, self.test_spec,
+                                        self.test_degrees, n)
+        part_fn = S.build_pred_and_grad(cfg, self.train_spec,
+                                        self.train_degrees, n)
+
+        def sample(fn, histories, graph, features):
+            preds, grads = Stat(), Stat()
+            for _ in range(times):
+                p, g = fn(self.state.params, histories, graph, features,
+                          self.labels, batch, self.gen)
+                preds.add(p)
+                grads.add(g)
+            return preds, grads
+
+        full_preds, full_grads = sample(full_fn, self.eval_histories,
+                                        self.graph_full, self.test_features)
+        fp_m = np.mean(np.abs(full_preds.mean()))
+        fg_m = np.mean(np.abs(full_grads.mean()))
+        log(f"Full pred stdev = {np.mean(full_preds.std()) / fp_m}")
+        log(f"Full grad stdev = {np.mean(full_grads.std()) / fg_m}")
+        part_preds, part_grads = sample(part_fn, self.state.histories,
+                                        self.graph_train,
+                                        self.train_features)
+        out = dict(
+            pred_bias=np.mean(np.abs(part_preds.mean()
+                                     - full_preds.mean())) / fp_m,
+            grad_bias=np.mean(np.abs(full_grads.mean()
+                                     - part_grads.mean())) / fg_m,
+            pred_stdev=np.mean(part_preds.std()) / fp_m,
+            grad_stdev=np.mean(part_grads.std()) / fg_m,
+            full_pred_stdev=np.mean(full_preds.std()) / fp_m,
+            full_grad_stdev=np.mean(full_grads.std()) / fg_m)
+        log(f"Part pred bias = {out['pred_bias']}")
+        log(f"Part pred stdev = {out['pred_stdev']}")
+        log(f"Part grad bias = {out['grad_bias']}")
+        log(f"Part grad stdev = {out['grad_stdev']}")
         return out
 
     # ------------------------------------------------------------------
@@ -431,14 +496,17 @@ class Trainer:
             f"(data = {self.amt_data})")
         return self.completed_epochs
 
-    def load(self, load_history: bool = False):
+    def load(self, load_history: Optional[bool] = None):
         """Restore ``<ckpt_dir>/model.ckpt.npz``, written by either package:
-        params, Adam state and step, plus (``load_history``) the train and
-        eval histories.  Then, as in the JAX Trainer (train.py:174), the
+        params, Adam state, step and the Polyak average (reconciled with
+        this run's ``polyak_decay``), plus (``load_history``; by default
+        only under ``--gradvar``) the train and eval histories.  Then, as in the JAX Trainer (train.py:174), the
         eval histories take a copy of the CURRENT train histories cast to
         the eval dtype when the two models' history shapes match.  The
         checkpoint's JAX RNG key is not carried over: the frameworks draw
         different streams."""
+        if load_history is None:
+            load_history = self.cfg.gradvar
         load_checkpoint(self.cfg.ckpt_dir, self.state, self.eval_histories,
                         load_history=load_history)
         self._params_version += 1      # new weights: predict must refresh

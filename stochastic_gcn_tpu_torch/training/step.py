@@ -45,6 +45,9 @@ class TrainState:
     opt_state: AdamState
     histories: tuple          # per agg layer: tuple of [N+1, d] tensors
     step: torch.Tensor        # int32 scalar
+    # Polyak / EMA average of the params after each update; None unless
+    # polyak_decay > 0
+    avg_params: Optional[dict] = None
 
 
 def param_keys(params: dict) -> list:
@@ -110,11 +113,14 @@ def init_train_state(gen: torch.Generator, cfg, spec: M.ModelSpec,
     ``cfg.history_dtype``, all on ``device``."""
     params = {l: {n: t.to(device) for n, t in p.items()}
               for l, p in M.init_params(gen, spec).items()}
+    avg = {l: {n: t.clone() for n, t in p.items()}
+           for l, p in params.items()} if cfg.polyak_decay > 0 else None
     return TrainState(
         params=params, opt_state=make_optimizer(cfg).init(params),
         histories=M.init_histories(spec, num_nodes, 8,
                                    DTYPES[cfg.history_dtype], device),
-        step=torch.zeros((), dtype=torch.int32, device=device))
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        avg_params=avg)
 
 
 def scatter_histories(histories, new_histories, fields, num_nodes: int):
@@ -123,9 +129,12 @@ def scatter_histories(histories, new_histories, fields, num_nodes: int):
 
     Sentinel-padded field entries write into row N, which is safe: every
     read of row N is masked by a zero edge weight or a sentinel gather.
-    Under the no-dedup layout a field may repeat an id; each duplicate
-    carries an equally valid sample of the same activation, and which
-    write wins is unspecified (on CUDA it varies from run to run)."""
+    Dedup-compacted fields hold each real id once.  Under the no-dedup
+    layout a field may repeat an id; each duplicate carries an equally
+    valid sample of the same activation, and which write wins is
+    unspecified (on CUDA it varies from run to run).  ``index_copy_``
+    serves both, so the JAX function's ``unique`` hint has no counterpart
+    here."""
     for hist_l, new_l, field_l in zip(histories, new_histories, fields[:-1]):
         if new_l is None:
             continue
@@ -199,6 +208,13 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
             grads.setdefault(l, {})[n] = g
         tx.update(grads, state.opt_state, state.params)
         with torch.no_grad():
+            if cfg.polyak_decay > 0:
+                # EMA over the weights after the update: a*d + p*(1-d)
+                d = cfg.polyak_decay
+                avg = [state.avg_params[l][n] for l, n in keys]
+                torch._foreach_mul_(avg, d)
+                torch._foreach_add_(avg, [state.params[l][n]
+                                          for l, n in keys], alpha=1 - d)
             new_h = tuple(None if hl is None else
                           tuple(h.detach() for h in hl) for hl in new_h)
             scatter_histories(state.histories, new_h, pack.fields,
@@ -242,7 +258,8 @@ def build_train_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
 def _eval_schedule(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                    num_nodes: int, graph, batch_ids: torch.Tensor,
                    gen: torch.Generator) -> BatchFields:
-    """The eval-side schedule (one place for the eval sampling semantics)."""
+    """The schedule of evaluation, prediction and pred-and-grad: one place
+    for their sampling semantics (the train step schedules for itself)."""
     return schedule(gen, graph, batch_ids, degrees, spec.cv,
                     need_aw=spec.det_dropout, dedup=cfg.field_dedup)
 
@@ -287,3 +304,30 @@ def build_eval_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
         return histories, out
 
     return _epoch
+
+
+def build_pred_and_grad(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
+                        num_nodes: int):
+    """``run(params, histories, graph, features, labels, batch_ids, gen) ->
+    (predictions [B, C], d loss / d first-layer weights)``: the probe of the
+    gradient-variance harness.  A fresh schedule, dropout applied, no
+    weight update and no history scatter."""
+
+    def _run(params, histories, graph, features, labels, batch_ids, gen):
+        pack = _eval_schedule(cfg, spec, degrees, num_nodes, graph,
+                              batch_ids, gen)
+        batch_field = pack.fields[-1]
+        valid = (batch_field < num_nodes).float()
+        y = _labels_gather(labels, batch_field, num_nodes)
+        first = M.first_param_layer(spec)
+        params = {l: {n: t.detach() for n, t in p.items()}
+                  for l, p in params.items()}
+        weights = params[first]["weights"].requires_grad_()
+        logits, _ = M.forward(params, spec, pack, graph, histories, features,
+                              gen, cfg.keep_prob, train=True)
+        loss, _ = M.loss_and_metrics(params, spec, logits, y, valid,
+                                     cfg.weight_decay)
+        grad, = torch.autograd.grad(loss, [weights])
+        return M.predict(spec, logits.detach()), grad
+
+    return _run

@@ -1,4 +1,5 @@
-"""F1 metrics from per-class counters.
+"""F1 metrics from per-class counters, and the gradient-variance
+accumulator.
 
 Port of stochastic_gcn_tpu/utils/metrics.py without scikit-learn: the
 counters are taken on the device and the F1 scores follow sklearn's
@@ -48,3 +49,23 @@ def f1_from_counts(tp, fp, fn, multitask: bool) -> tuple[float, float]:
         present = per_denom > 0
         macro = per_f1[present].mean() if present.any() else 0.0
     return float(micro), float(macro)
+
+
+class Stat:
+    """Accumulates arrays across runs; elementwise mean and standard
+    deviation (population, as ``np.std``).  Tensors are moved to the host
+    as they are added."""
+
+    def __init__(self):
+        self.vals: list[np.ndarray] = []
+
+    def add(self, v) -> None:
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        self.vals.append(np.asarray(v))
+
+    def mean(self) -> np.ndarray:
+        return np.mean(np.stack(self.vals), axis=0)
+
+    def std(self) -> np.ndarray:
+        return np.std(np.stack(self.vals), axis=0)

@@ -60,6 +60,20 @@ CASES = [  # (rows, d, F, K, dtype)
     (300, 384, 24, 40, torch.float32),        # 96 chunks: 3 per lane
     (300, 512, 24, 40, torch.float32),        # 128 chunks: 4 per lane
     (300, 1024, 24, 40, torch.bfloat16),      # 128 chunks: 4 per lane
+    # rows that are not whole 16-byte chunks, or more than 128 of them: the
+    # same functions by element
+    (300, 602, 24, 40, torch.float32),        # raw features: 2408-byte rows
+    (300, 602, 24, 40, torch.bfloat16),       # their bf16 history: 1204 bytes
+    (300, 1, 24, 40, torch.float32),          # one column
+    (300, 1, 13, 1, torch.bfloat16),
+    (300, 3, 24, 40, torch.float32),
+    (300, 513, 24, 40, torch.float32),        # one column past 128 chunks
+    (300, 516, 24, 40, torch.float32),        # 129 chunks
+    (300, 1433, 24, 40, torch.float32),       # Cora's width
+    (300, 1433, 13, 11, torch.bfloat16),
+    (300, 2048, 24, 40, torch.bfloat16),      # 256 chunks
+    (5000, 602, 512, 64, torch.float32),      # the full term at Dcap 64
+    (5000, 602, 512, 1, torch.float32),       # K = 1
 ]
 
 
@@ -90,12 +104,35 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fn(table.double(), idx, w)
     with pytest.raises(ValueError, match="contiguous"):
         fn(table[:, ::2], idx, w)
-    with pytest.raises(ValueError, match="16 bytes"):
-        fn(table[:, :3].contiguous(), idx, w)
-    with pytest.raises(ValueError, match="16 bytes"):     # 129 chunks
-        fn(torch.zeros(50, 516, device=cuda), idx, w)
+    with pytest.raises(ValueError, match="no columns"):
+        fn(table[:, :0].contiguous(), idx, w)
     with pytest.raises(ValueError, match="device"):
         fn(table, idx.cpu(), w)
+
+
+@pytest.mark.requires_cuda
+def test_rows_of_any_width_compute(cuda):
+    """Rows that are not whole 16-byte chunks, rows above 128 chunks and a
+    table whose first row is not 16-byte aligned used to be refused; they
+    compute, and what they compute is the plain version's."""
+    table, idx, w = (torch.from_numpy(a).to(cuda)
+                     for a in _inputs(7, 50, 8, 6, 4))
+    for t in (table[:, :3].contiguous(),                  # 12-byte rows
+              torch.randn(50, 516, device=cuda)):         # 129 chunks
+        got = K.hbm_gather_aggregate(t, idx, w)
+        torch.testing.assert_close(
+            got, K.hbm_gather_aggregate_ref(t, idx, w), **TOL)
+    # 32-byte rows that start 4 bytes into an allocation
+    odd = torch.randn(50 * 8 + 1, device=cuda)[1:].view(50, 8)
+    assert odd.data_ptr() % 16 == 4 and odd.is_contiguous()
+    for fn, ref in ((K.hbm_gather_aggregate, K.hbm_gather_aggregate_ref),
+                    (K.fanout_aggregate, K.fanout_aggregate_ref)):
+        torch.testing.assert_close(fn(odd, idx, w), ref(odd, idx, w), **TOL)
+    assert K.gather_plan(torch.zeros(8, 602, device=cuda), 512, 64) == 0
+    # the measuring entry: one warp per row at any width, a named split not
+    K.gather_aggregate_split(table[:, :3].contiguous(), idx, w, 0)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        K.gather_aggregate_split(table[:, :3].contiguous(), idx, w, 2)
 
 
 @pytest.mark.requires_cuda
@@ -170,6 +207,13 @@ BACKWARD_CASES = [  # (C, F, K, d)
     (300, 24, 8, 256),        # 2 float4 chunks per lane
     (300, 24, 8, 384),        # 3 -> the 4-per-lane instantiation
     (300, 24, 8, 512),        # 4 per lane
+    # any other width scatters by element
+    (300, 24, 8, 602),
+    (300, 24, 8, 1),
+    (300, 13, 8, 3),
+    (300, 24, 8, 513),
+    (300, 24, 8, 1433),
+    (1024, 512, 1, 602),
 ]
 
 
@@ -223,6 +267,35 @@ def test_fanout_aggregate_gradient_on_card(cuda):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("d", [602, 1, 513])
+def test_gradients_on_card_at_any_width(cuda, d):
+    """The gradient through FanoutAggregate and CVFanoutAggregate at widths
+    that go by element, on compacted slots (repeated and parked
+    positions), equals autograd through the plain versions."""
+    n, c, f, k = 3000, 1024, 512, 8
+    x, hist, field_in, pos, w, base = (
+        t.to(cuda) for t in _cv_inputs(26, n, c, d, f, k, torch.bfloat16))
+    x = torch.nan_to_num(x)
+    g = torch.from_numpy(np.random.default_rng(27).normal(
+        size=(f, d)).astype(np.float32)).to(cuda)
+    for kernel, ref in (
+            (lambda t: K.fanout_aggregate(t, pos, w),
+             lambda t: K.fanout_aggregate_ref(t, pos, w)),
+            (lambda t: K.cv_fanout_aggregate(t, hist, field_in, n, pos, w,
+                                             base),
+             lambda t: K.cv_fanout_aggregate_ref(t, hist, field_in, n, pos,
+                                                 w, base))):
+        xk, xr = x.clone().requires_grad_(), x.clone().requires_grad_()
+        before = K.LAUNCHES["fanout_aggregate_backward"]
+        out, want = kernel(xk), ref(xr)
+        torch.testing.assert_close(out, want, **TOL)
+        out.backward(g)
+        want.backward(g)
+        assert K.LAUNCHES["fanout_aggregate_backward"] == before + 1
+        torch.testing.assert_close(xk.grad, xr.grad, **TOL)
+
+
+@pytest.mark.requires_cuda
 def test_full_term_on_card_refuses_a_table_that_requires_grad(cuda):
     table, idx, w = (torch.from_numpy(a).to(cuda)
                      for a in _inputs(11, 50, 8, 6, 4))
@@ -266,6 +339,102 @@ def test_train_steps_on_card_match_cpu(cuda):
     for l, k in St.param_keys(cpu[0].params):
         torch.testing.assert_close(gpu[0].params[l][k].cpu(),
                                    cpu[0].params[l][k], rtol=0, atol=1e-4)
+
+
+# launches per train step, and what is compared with the CPU run
+ESTIMATOR_STEPS = {
+    "cvd": (dict(cv=True, cvd=True, test_cv=True, test_cvd=True),
+            {"cv_fanout_aggregate": 1, "hbm_gather_aggregate": 1,
+             "fanout_aggregate": 1, "fanout_aggregate_backward": 1}),
+    # no preprocessing: the first layer aggregates 30-wide rows, which the
+    # kernels take by element; two layers, dedup forced by the batch size
+    "exact": (dict(cv=False, test_cv=False, preprocess=False,
+                   test_preprocess=False, batch_size=64),
+              {"cv_fanout_aggregate": 0, "hbm_gather_aggregate": 0,
+               "fanout_aggregate": 2, "fanout_aggregate_backward": 1}),
+    "cv_nopp": (dict(cv=True, test_cv=True, preprocess=False,
+                     test_preprocess=False, field_dedup=True),
+                {"cv_fanout_aggregate": 2, "hbm_gather_aggregate": 2,
+                 "fanout_aggregate": 0, "fanout_aggregate_backward": 1}),
+    "det_dropout": (dict(cv=True, test_cv=True, det_dropout=True),
+                    {"cv_fanout_aggregate": 1, "hbm_gather_aggregate": 2,
+                     "fanout_aggregate": 2, "fanout_aggregate_backward": 3}),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", list(ESTIMATOR_STEPS))
+def test_estimator_train_steps_on_card_match_cpu(cuda, name):
+    """10 train steps of each estimator at exhaustive degree with dropout
+    off (deterministic) on the card and on the CPU from the same weights,
+    at a feature width of 30 (not a multiple of 4): the launches per step
+    are the estimator's, and the weights agree (det-dropout, whose moments
+    at keep_prob 1 divide by a zero variance's floor, is held to a finite
+    loss only)."""
+    over, per_step = ESTIMATOR_STEPS[name]
+    ds = synthetic_dataset(num_nodes=240, feature_dim=30, num_classes=5,
+                           normalization="graphsage", seed=0)
+    cfg = Config(**{**dict(dataset="synthetic", batch_size=16, degree=10000,
+                           test_degree=10000, hidden1=16,
+                           normalization="graphsage", layer_norm=True,
+                           num_fc_layers=2, weight_decay=5e-4, dropout=0.0,
+                           pad_degree=-1, seed=1, test_batch_size=24),
+                    **over})
+    it = MinibatchIterator(ds.train_d, 3)
+    it.shuffle()
+    bm = Trainer._batch_matrix(it.data, cfg.batch_size, ds.num_data)[:10]
+    out = {}
+    for dev in ("cpu", cuda):
+        tr = Trainer(cfg, ds, device=dev)
+        K.reset_launches()
+        tr.state, m = tr._train_epoch(
+            tr.state, tr.graph_train, tr.train_features, tr.labels,
+            torch.from_numpy(bm).to(dev), tr.gen)
+        out[str(dev)] = (tr, float(m["loss"]), dict(K.LAUNCHES))
+    cpu, gpu = out["cpu"], out[str(cuda)]
+    assert gpu[2] == {k: v * len(bm) for k, v in per_step.items()}
+    assert np.isfinite(gpu[1])
+    if name != "det_dropout":
+        assert abs(gpu[1] - cpu[1]) <= 1e-4
+        for l, k in St.param_keys(cpu[0].params):
+            torch.testing.assert_close(gpu[0].params[l][k].cpu(),
+                                       cpu[0].params[l][k], rtol=0,
+                                       atol=1e-4)
+        got = gpu[0].evaluate(ds.val_d)
+        want = cpu[0].evaluate(ds.val_d)
+        assert abs(got[0] - want[0]) <= 1e-4
+
+
+@pytest.mark.requires_cuda
+def test_dedup_schedule_on_card_keeps_its_invariants(cuda):
+    """compact_field and the dedup schedule on the card: int32 contiguous
+    slots, the prefix invariant, each real id once, a live slot's position
+    holding a neighbour of its row, dead slots parked."""
+    from stochastic_gcn_tpu_torch.data.graph import pad_csr
+    from stochastic_gcn_tpu_torch.sampler import scheduler as S
+    ds = synthetic_dataset(num_nodes=600, feature_dim=8, num_classes=4,
+                           avg_degree=8, normalization="graphsage", seed=0)
+    g = pad_csr(ds.full_adj, -1, device=cuda)
+    n = ds.num_data
+    batch = torch.from_numpy(np.r_[ds.train_d[:60], [n] * 4].astype(
+        np.int32)).to(cuda)
+    pack = S.schedule(torch.Generator(device=cuda).manual_seed(1), g, batch,
+                      (3, 2), cv=True, need_aw=True)
+    assert [f.shape[0] for f in pack.fields] == S.field_capacities(
+        64, (3, 2), n, g.pad_degree)
+    nbr = g.nbr.cpu().numpy()
+    for l, ls in enumerate(pack.layers):
+        assert ls.slot_pos.dtype == torch.int32 and ls.slot_pos.is_contiguous()
+        f_in = pack.fields[l].cpu().numpy()
+        f_out = pack.fields[l + 1].cpu().numpy()
+        np.testing.assert_array_equal(f_in[:len(f_out)], f_out)
+        real = f_in[f_in < n]
+        assert len(set(real)) == len(real)
+        pos, w = ls.slot_pos.cpu().numpy(), ls.slot_w.cpu().numpy()
+        assert (pos[w == 0] == S.PARKED_POS).all()
+        rows, cols = np.nonzero(w)
+        for r, c in zip(rows, cols):
+            assert f_in[pos[r, c]] in nbr[f_out[r]]
 
 
 # ---- the split kernel: every split on the shapes the split must get
@@ -465,7 +634,11 @@ def _cv_inputs(seed, n, c, d, f, k, dtype):
 CV_ROWS = [(32, torch.float32), (32, torch.bfloat16), (64, torch.bfloat16),
            (64, torch.float32), (128, torch.bfloat16), (128, torch.float32),
            (256, torch.float32), (256, torch.bfloat16), (384, torch.float32),
-           (512, torch.bfloat16), (512, torch.float32)]
+           (512, torch.bfloat16), (512, torch.float32),
+           # by element: x and history rows paired by column
+           (602, torch.float32), (602, torch.bfloat16), (1, torch.float32),
+           (1, torch.bfloat16), (513, torch.bfloat16), (516, torch.float32),
+           (1433, torch.float32), (1433, torch.bfloat16)]
 
 
 @pytest.mark.requires_cuda
@@ -564,9 +737,12 @@ def test_cv_fanout_on_card_refuses_what_the_kernel_does_not_take(cuda):
         fn(x, hist.double(), field_in, 300, pos, w, base)
     with pytest.raises(ValueError, match="contiguous"):
         fn(x, hist.t().contiguous().t(), field_in, 300, pos, w, base)
-    with pytest.raises(ValueError, match="16 bytes"):
-        fn(x[:, :3].contiguous(), hist[:, :3].contiguous(), field_in, 300,
-           pos, w, base[:, :3].contiguous())
+    # three columns, once refused: computed by element
+    narrow = (x[:, :3].contiguous(), hist[:, :3].contiguous(), field_in, 300,
+              pos, w, base[:, :3].contiguous())
+    torch.testing.assert_close(fn(*narrow),
+                               K.cv_fanout_aggregate_ref(*narrow), **TOL)
+    before += 1
     with pytest.raises(ValueError, match="device"):
         fn(x, hist.cpu(), field_in, 300, pos, w, base)
     with pytest.raises(ValueError, match="device"):

@@ -328,16 +328,24 @@ def test_schedule_shapes_match_jax(small):
     batch = np.r_[np.arange(20), [120] * 4].astype(np.int32)
     jpack = _jax_pack(jg, batch, (1, 1), 0)
     pack = S.schedule(torch.Generator().manual_seed(0), tg, T(batch), (1, 1),
-                      cv=True)
+                      cv=True, dedup=False)
     for f, jf in zip(pack.fields, jpack.fields):
         assert tuple(f.shape) == jf.shape and f.dtype == torch.int32
     for ls, jls in zip(pack.layers, jpack.layers):
         np.testing.assert_array_equal(N(ls.slot_pos),
                                       np.asarray(jls.slot_pos))
     np.testing.assert_array_equal(N(pack.fields[-1]), batch)
+    # dedup is the default, as in the JAX scheduler: compacted capacities
+    dedup = S.schedule(torch.Generator().manual_seed(0), tg, T(batch), (1, 1),
+                       cv=True)
+    want = JS.schedule(
+        jax.random.PRNGKey(0), jg, jnp.asarray(batch, jnp.int32), (1, 1),
+        cv=True)
+    assert [tuple(f.shape) for f in dedup.fields] == \
+        [f.shape for f in want.fields]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         S.schedule(torch.Generator(), tg, T(batch), (1,), cv=True,
-                   dedup=True)
+                   owner_blocks=2)
 
 
 def _history(rng, rows, d):

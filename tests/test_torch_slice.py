@@ -151,7 +151,7 @@ def test_cuda_trainer_without_cuda_raises(trained):
 
 def test_unported_options_raise(trained):
     cfg, ds, _, _ = trained
-    for over in ({"test_cvd": True}, {"dp": 2}, {"field_dedup": True},
-                 {"graph_format": "edgelist"}):
+    for over in ({"test_importance": True}, {"dp": 2},
+                 {"partition_nodes": "bfs"}, {"graph_format": "edgelist"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(port_cfg(cfg.replace(**over)), ds, device="cpu")

@@ -705,9 +705,9 @@ def test_cli_train_end_to_end(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("over", [
-    {"importance": True}, {"cvd": True}, {"det_dropout": True},
-    {"polyak_decay": 0.99}, {"lazy_fullterm": True}, {"ckpt_async": True},
-    {"model": "mlp"}, {"gradvar": True}])
+    {"importance": True}, {"test_importance": True}, {"tp": 2},
+    {"graph_format": "edgelist"}, {"lazy_fullterm": True},
+    {"ckpt_async": True}, {"model": "mlp"}, {"dp": 2}])
 def test_unported_training_options_raise(tmp_path, over):
     cfg = _flags(tmp_path)
     ds = Ld.load_data(port_cfg(cfg))
