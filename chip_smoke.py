@@ -140,15 +140,18 @@ from stochastic_gcn_tpu_torch.config import Config
 from stochastic_gcn_tpu_torch.data.graph import graph_rows
 from stochastic_gcn_tpu_torch.data.loaders import (community_sbm_dataset,
                                                    reddit_like)
+from stochastic_gcn_tpu_torch.data.preprocess import cap_adj_degree
 from stochastic_gcn_tpu_torch.models import aggregators as A
 from stochastic_gcn_tpu_torch.models import gcn as M
+from stochastic_gcn_tpu_torch.models.mlp import MLPTrainer
 from stochastic_gcn_tpu_torch.ops import cuda_spmm as K
 from stochastic_gcn_tpu_torch.ops import layers as L
 from stochastic_gcn_tpu_torch.ops.gather import row_gather
 from stochastic_gcn_tpu_torch.sampler.scheduler import (PARKED_POS,
+                                                        compact_field,
                                                         effective_dedup,
                                                         field_capacities,
-                                                        schedule)
+                                                        is_select, schedule)
 from stochastic_gcn_tpu_torch.training.loop import Trainer
 
 ROOT = Path(__file__).resolve().parent
@@ -214,7 +217,26 @@ STEP_LAUNCHES = {
     "det-dropout+PP": {"cv_fanout_aggregate": 1, "hbm_gather_aggregate": 2,
                        "fanout_aggregate": 2,
                        "fanout_aggregate_backward": 3},
+    # importance sampling and NS, both without a control variate: one
+    # aggregation layer under PP
+    "IS+PP": {"fanout_aggregate": 1, "fanout_aggregate_backward": 1},
+    "NS+PP": {"fanout_aggregate": 1, "fanout_aggregate_backward": 1},
 }
+# importance sampling on the Reddit-shaped graph at the JAX benchmark's IS
+# batch (bench.py:861-874): the auto slot cap (8 at this batch) and cap 0,
+# beside NS+PP at the same batch
+IS_BATCH = 4096
+IS_ARMS = (("IS+PP, slot cap auto", "IS+PP", {"importance": True,
+                                               "test_importance": True,
+                                               "is_slot_cap": -1}),
+           ("IS+PP, slot cap 0", "IS+PP", {"importance": True,
+                                           "test_importance": True,
+                                           "is_slot_cap": 0}),
+           ("NS+PP", "NS+PP", {}))
+# IS+PP on the SBM: NS+PP reached 0.66 at epoch 3 in ESTIMATOR_AB.json, so
+# this floor only catches a broken estimator
+IS_EPOCHS, IS_F1_FLOOR = 3, 0.40
+MLP_EPOCHS = 2
 
 
 def kernel_bytes(kind: str, live_rows: float, row_bytes: int, f: int,
@@ -385,15 +407,15 @@ def _library_gather(table, sets, wants):
 
 def _library_backward(rows: int):
     """No single call does the masked weighted scatter-add:
-    ``zeros.index_add_`` alone, with the products ``w * g`` made outside
-    the timed window."""
+    ``zeros.index_add_`` alone, over the live slots only, with the products
+    ``w * g`` made outside the timed window (dead slots sent to one row
+    would time that row's atomic contention, not the scatter)."""
     def make(g, sets, wants):
         prepared = []
         for pos, w in sets:
             live = _live(pos, w, rows)
-            contrib = torch.where(live, w, 0.0).unsqueeze(-1) * g.unsqueeze(1)
-            prepared.append((torch.where(live, pos, 0).long().reshape(-1),
-                             contrib.reshape(-1, g.shape[1]).contiguous()))
+            contrib = w.unsqueeze(-1) * g.unsqueeze(1)
+            prepared.append((pos[live].long(), contrib[live].contiguous()))
 
         def call(i):
             pos, contrib = prepared[i % len(prepared)]
@@ -402,7 +424,7 @@ def _library_backward(rows: int):
 
         for i, want in enumerate(wants):
             _agree("library index_add_", call(i), want, *KERNEL_TOL)
-        return call, "index_add_ alone, product excluded"
+        return call, "index_add_ alone over the live slots, product excluded"
     return make
 
 
@@ -1303,6 +1325,182 @@ def phase_slice(tr: Trainer, n_ids: int = REQUEST_IDS) -> dict:
     return launches, per_request
 
 
+def phase_activation_stats(tr: Trainer) -> None:
+    """``Trainer.activation_stats`` in both modes: every layer's moments
+    printed, and all finite."""
+    for train in (True, False):
+        stats = tr.activation_stats(train=train)
+        mode = "training" if train else "evaluation"
+        print(f"activation_stats ({mode}): " + "; ".join(
+            f"{label} mean {v['mean']:.5g} std {v['std']:.5g} absmax "
+            f"{v['absmax']:.5g}" for label, v in stats.items()))
+        if not all(np.isfinite(x) for v in stats.values()
+                   for x in v.values()):
+            fail(f"activation_stats ({mode}): non-finite moments {stats}")
+
+
+def _is_slot_gathers(tr: Trainer, ids: torch.Tensor) -> None:
+    """The two ways to give each IS slot its node's weight multiplier and
+    field position: two ``[N+1]`` gathers (what ``is_slots`` does) or one
+    gather of a packed ``[N+1, 2]`` table (the JAX package's TPU layout),
+    its stack included, timed on one real batch."""
+    n, imp = tr.ds.num_data, tr.importance_train
+    sel = is_select(tr.gen, tr.graph_train, ids, tr.train_degrees[0], imp)
+    cap = field_capacities(ids.shape[0], tr.train_degrees, n,
+                           tr.graph_train.pad_degree, importance=True)[0]
+    _, pos_table = compact_field(ids, sel.sel_ids, n, cap)
+    inv_col = torch.where(sel.selected, sel.total_imp / (
+        imp * torch.clamp(sel.n_samples, min=1.0)), 0.0)
+    idx = sel.rows_nbr.reshape(-1).to(torch.int64)
+
+    def two(i):
+        return inv_col.index_select(0, idx), pos_table.index_select(0, idx)
+
+    def packed(i):
+        return torch.stack([inv_col, pos_table.view(torch.float32)],
+                           dim=1).index_select(0, idx)
+
+    a, b = two(0)
+    got = packed(0)
+    if not (torch.equal(got[:, 0], a)
+            and torch.equal(got[:, 1].contiguous().view(torch.int32), b)):
+        fail("is_slots: the packed gather disagrees with the two gathers")
+    print(f"importance: is_slots' lookups on a real batch ({idx.numel()} "
+          f"slots over [{n + 1}] tables): two gathers "
+          f"{_device_ms(two):.5f} ms, one packed [N+1, 2] gather with its "
+          f"stack {_device_ms(packed):.5f} ms")
+
+
+def _is_kernels(tr: Trainer, results: dict, label: str,
+                batches: int) -> None:
+    """The fanout and its backward on the slots of ``batches`` real IS
+    batches of ``tr``'s recipe, against their plain versions and timed,
+    with every split of the gather: seeded activations of the layer's
+    width, a seeded gradient.  Folded into ``results[kernel]["is_batches"]``
+    beside the main path's shapes."""
+    cfg, n = tr.cfg, tr.ds.num_data
+    bs = cfg.batch_size
+    bm = torch.from_numpy(tr._batch_matrix(
+        tr.train_iter.data[:batches * bs], bs, n)).to(tr.device)
+    packs = [schedule(tr.gen, tr.graph_train, ids, tr.train_degrees, False,
+                      importance=tr.importance_train, dedup=cfg.field_dedup,
+                      is_slot_cap=cfg.is_slot_cap) for ids in bm]
+    slots = [(p.layers[0].slot_pos, p.layers[0].slot_w) for p in packs]
+    c, (f, k) = packs[0].fields[0].shape[0], slots[0][0].shape
+    d = cfg.hidden1
+    rng = np.random.default_rng(cfg.seed)
+    x = torch.from_numpy(rng.standard_normal((c, d), dtype=np.float32)).to(
+        tr.device)
+    g = torch.from_numpy(rng.standard_normal((f, d), dtype=np.float32)).to(
+        tr.device)
+    live = sum(int((w != 0).sum()) for _, w in slots) / len(slots)
+    hits = [torch.unique(p[w != 0], return_counts=True)[1] for p, w in slots]
+    print(f"importance: {label}: {batches} real batches, C={c} F={f} K={k}: "
+          f"{live / f:.3f} live slots a row; a position is named by at most "
+          f"{max(int(h.max()) for h in hits)} slots, "
+          f"{sum(h.float().mean().item() for h in hits) / len(hits):.2f} on "
+          f"average (the backward's atomic contention)")
+    for kname, res in [
+            ("fanout_aggregate", _compare(
+                f"fanout {label}", K.fanout_aggregate,
+                K.fanout_aggregate_ref, x, slots, True,
+                library=_library_gather)),
+            ("fanout_aggregate_backward", _compare(
+                f"backward {label}",
+                lambda g_, p, w: K.fanout_aggregate_backward(g_, p, w, c),
+                lambda g_, p, w: K.fanout_aggregate_backward_ref(g_, p, w, c),
+                g, slots, True, kind="backward", rows=c,
+                library=_library_backward(c)))]:
+        case = f"{label} train batch: C={c} F={f} K={k} d={d}"
+        _report(results, kname, case, res)
+        results[kname].setdefault("is_batches", {})[case] = {
+            key: res.get(key) for key in (*MAIN_KEYS, "live", "distinct")}
+    _gather_splits(f"{label} train batch: f32 C={c} F={f} K={k}", x, slots)
+
+
+def phase_importance(ds, results: dict, device: str = "cuda",
+                     batches: int = 4) -> dict:
+    """Importance sampling on the Reddit-shaped graph at batch
+    ``IS_BATCH``, the JAX benchmark's IS record (bench.py:861-874): IS+PP
+    with the auto slot cap and with cap 0, and NS+PP at the same batch for
+    the ratio.  Each arm: a warm-up epoch, then a timed epoch with the
+    counters reset just before it, its launches per step checked exactly;
+    ms/step, sampled edges/s, the share of selected slots the cap dropped,
+    peak memory.  Then, for each IS arm, the kernels on ``batches`` real
+    batches (``_is_kernels``), and for the first the two layouts of
+    ``is_slots``' lookups.  Returns {path: launch counts}."""
+    paths, ms = {}, {}
+    for label, name, over in IS_ARMS:
+        cfg = Config(**{**SLICE_CFG, "cv": False, "test_cv": False,
+                        "batch_size": IS_BATCH, **over})
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, ds, device=device)
+        t_setup = time.perf_counter() - t0
+        tr.train_epoch()
+        _sync(device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        amt0 = tr.amt_data
+        t0 = time.perf_counter()
+        loss, _, _, steps = tr.train_epoch()
+        _sync(device)
+        secs = time.perf_counter() - t0
+        launches = paths[f"{label} train epoch (Reddit, batch {IS_BATCH})"] \
+            = dict(K.LAUNCHES)
+        es = tr.epoch_stats
+        kept = int(es["adj_sizes"].sum())
+        dropped = es["is_dropped"]
+        ms[label] = 1e3 * secs / steps
+        print(f"importance: {label} (batch {IS_BATCH}, Trainer set-up "
+              f"{t_setup:.2f} s): {steps} steps in {secs:.3f} s -> "
+              f"{ms[label]:.3f} ms/step; {tr.amt_data - amt0} sampled edges "
+              f"-> {(tr.amt_data - amt0) / secs:.0f} edges/s; slot cap "
+              f"dropped {dropped} of {kept + dropped} selected slots "
+              f"({100 * dropped / max(kept + dropped, 1):.4f}%); last loss "
+              f"{loss:.5f}; peak device memory {_peak_gib(device):.3f} GiB; "
+              f"kernel launches {launches} = "
+              f"{ {k: v / steps for k, v in launches.items()} } per step")
+        if not np.isfinite(loss):
+            fail(f"{label}: non-finite training loss {loss}")
+        check_launches(f"a {label} train epoch", launches, {
+            k: per * steps for k, per in STEP_LAUNCHES[name].items()})
+        if name == "IS+PP":
+            if label == IS_ARMS[0][0]:
+                _is_slot_gathers(tr, torch.from_numpy(tr._batch_matrix(
+                    tr.train_iter.data[:IS_BATCH], IS_BATCH,
+                    ds.num_data)[0]).to(tr.device))
+            _is_kernels(tr, results, label, batches)
+        del tr
+    ns = ms["NS+PP"]
+    print("importance: ms/step against NS+PP at the same batch: " + "; ".join(
+        f"{label} {t / ns:.2f}x" for label, t in ms.items()
+        if label != "NS+PP"))
+    return paths
+
+
+def phase_mlp(ds, device: str = "cuda", cfg_kw=CONVERGE_CFG,
+              epochs: int = MLP_EPOCHS) -> None:
+    """The NeighbourMLP (``--model mlp``) on the SBM: ``epochs`` epochs,
+    ms per epoch and val micro-F1 after each; fails on a non-finite
+    loss."""
+    t0 = time.perf_counter()
+    tr = MLPTrainer(Config(**{**cfg_kw, "model": "mlp"}), ds, device=device)
+    t_setup = time.perf_counter() - t0
+    for epoch in range(epochs):
+        _sync(device)
+        t0 = time.perf_counter()
+        loss, _ = tr.train_epoch()
+        _sync(device)
+        secs = time.perf_counter() - t0
+        f1 = tr.evaluate(ds.val_d)[2]
+        print(f"mlp: epoch {epoch + 1}: {1e3 * secs:.1f} ms, last loss "
+              f"{loss:.5f}, val micro-F1 {f1:.4f} (features "
+              f"{tuple(tr.features.shape)}, set-up {t_setup:.2f} s)")
+        if not np.isfinite(loss):
+            fail(f"mlp: non-finite training loss {loss}")
+
+
 def phase_converge(results: dict, device: str = "cuda", sbm_kw=SBM_KW,
                    cfg_kw=CONVERGE_CFG, max_epochs: int = CONVERGE_EPOCHS,
                    target: float = CONVERGE_F1, batches: int = 4) -> dict:
@@ -1465,10 +1663,12 @@ def phase_estimators(ds, cv_tr: Trainer, cv_curve, device: str = "cuda",
                      cvd_epochs: int = CVD_EPOCHS,
                      exact_epochs: int = EXACT_EPOCHS,
                      times: int = GRADVAR_TIMES,
-                     dense_ids: int = EXACT_DENSE_IDS, results=None):
+                     dense_ids: int = EXACT_DENSE_IDS, results=None,
+                     is_epochs: int = IS_EPOCHS):
     """The other estimators of the repository's A/B on the convergence
     phase's SBM: CVD+PP and Exact to ``target``, det-dropout+PP for an
-    epoch, then the gradient-variance table from the trained CV+PP
+    epoch, IS+PP for ``is_epochs`` (best val micro-F1 at least
+    ``IS_F1_FLOOR``), then the gradient-variance table from the trained CV+PP
     (``cv_tr``) and CVD+PP weights.  With ``results`` (the per-kernel
     results, on the card) the standalone fanout is also held against its
     plain version on the first layer of a real Exact train batch.  Returns
@@ -1533,6 +1733,16 @@ def phase_estimators(ds, cv_tr: Trainer, cv_curve, device: str = "cuda",
             None)
     del det
 
+    ispp = Trainer(Config(**{**cfg_kw, "cv": False, "test_cv": False,
+                             "importance": True, "test_importance": True}),
+                   ds, device=device)
+    curve = counted("IS+PP (importance, test_importance)", "IS+PP", ispp,
+                    is_epochs, None)
+    if not max(curve) >= IS_F1_FLOOR:
+        fail(f"IS+PP val micro-F1 {max(curve):.4f} < {IS_F1_FLOOR} in "
+             f"{is_epochs} epochs")
+    del ispp
+
     ns = {"cv": False, "test_cv": False}
     arms = [("no dropout", "NS+PP", {**ns, "dropout": 0.0}, cv_tr),
             ("no dropout", "CV+PP", {"dropout": 0.0}, cv_tr),
@@ -1586,22 +1796,34 @@ def main() -> None:
     kernels = phase_kernels()
     t0 = time.perf_counter()
     ds = reddit_like()
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cap_adj_degree(ds.full_adj, SLICE_CFG["pad_degree"], SLICE_CFG["seed"])
+    t_cap = time.perf_counter() - t0
+    above = int((np.diff(ds.full_adj.indptr) > SLICE_CFG["pad_degree"]).sum())
     print(f"graph: Reddit-shaped, {ds.num_data} nodes, built in "
-          f"{time.perf_counter() - t0:.2f} s (host)")
+          f"{t_graph:.2f} s (host); cap_adj_degree at pad degree "
+          f"{SLICE_CFG['pad_degree']}: {t_cap:.2f} s for {above} rows above "
+          f"the cap (host loop, the JAX package's draws; each Trainer caps "
+          f"both of its graphs)")
     tr, launches, steps = phase_train(ds)
     phase_train_kernels(tr, kernels)
     phase_profile(tr)
+    phase_activation_stats(tr)
     served, per_request = phase_slice(tr)
     del tr
+    is_paths = phase_importance(ds, kernels)
+    del ds
     exact, sbm, cv_tr, cv_curve = phase_converge(kernels)
     estimator_paths, per_step = phase_estimators(sbm, cv_tr, cv_curve,
                                                  results=kernels)
+    phase_mlp(sbm)
     per_step["CV+PP"] = {name: count / steps
                          for name, count in launches.items()}
     # the counted paths: each had the counters at 0 just before it and was
     # read just after
     paths = {"train epoch": launches, "served requests": served,
-             "Exact evaluation": exact, **estimator_paths}
+             "Exact evaluation": exact, **is_paths, **estimator_paths}
     total = {name: sum(p[name] for p in paths.values()) for name in kernels}
     idle = [name for name, count in total.items() if count == 0]
     if idle:
@@ -1616,7 +1838,8 @@ def main() -> None:
          "launches_per_step": launches[name] / steps,
          "launches_per_step_by_estimator": {
              est: counts[name] for est, counts in per_step.items()},
-         "launches_per_request": per_request[name]}
+         "launches_per_request": per_request[name],
+         "is_batches": res.get("is_batches", {})}
         for name, res in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,8 @@ Flag names and semantics are the reference's (train.py:25-67), parsed by
 the torch device.  Trains with ``sgd_train`` (epoch lines, checkpoint in
 ``--ckpt_dir``, ``--resume``, SIGTERM -> checkpoint and exit), then runs
 the Test passes; ``--gradvar`` runs the gradient-variance analysis between
-the two.  ``--model mlp`` is not ported yet and raises.
+the two.  ``--model mlp`` trains the NeighbourMLP baseline for ``--epochs``
+epochs instead, with the JAX package's lines.
 """
 
 from __future__ import annotations
@@ -39,7 +40,21 @@ def main(argv=None):
     print("{} training data, {} validation data, {} testing data.".format(
         len(ds.train_d), len(ds.val_d), len(ds.test_d)))
 
-    trainer = Trainer(cfg, ds, device=own.device)   # raises on mlp
+    if cfg.model == "mlp":
+        from ..models.mlp import MLPTrainer
+        trainer = MLPTrainer(cfg, ds, device=own.device)
+        for epoch in range(cfg.epochs):
+            loss, acc = trainer.train_epoch()
+            vloss, vacc, micro, macro = trainer.evaluate(ds.val_d)
+            print(f"Epoch: {epoch + 1:04d} train_loss= {loss:.5f} "
+                  f"train_acc= {acc:.5f} val_loss= {vloss:.5f} "
+                  f"val_acc= {vacc:.5f} mi F1={micro:.5f} ma F1={macro:.5f}")
+        tloss, tacc, micro, macro = trainer.evaluate(ds.test_d)
+        print(f"Test set results: cost= {tloss:.5f} accuracy= {tacc:.5f} "
+              f"mi F1={micro:.5f} ma F1={macro:.5f}  time= 0.00000")
+        return trainer
+
+    trainer = Trainer(cfg, ds, device=own.device)
     # preemption (SIGTERM) -> finish the epoch, checkpoint, exit cleanly;
     # relaunching the same command with --resume continues from there
     trainer.install_preemption_handler()

@@ -1,9 +1,8 @@
 """Host-side graph/feature preprocessing (pure numpy/scipy).
 
 The slice of stochastic_gcn_tpu/data/preprocess.py the port needs, copied
-because that package's ``data`` modules import JAX.  ``cap_adj_degree`` is
-vectorised here (same distribution, not the same draws as the JAX copy's
-per-row loop, which takes seconds at Reddit scale).
+because that package's ``data`` modules import JAX.  ``cap_adj_degree``
+makes the JAX copy's draws, so both packages keep the same edges.
 """
 
 from __future__ import annotations
@@ -74,27 +73,39 @@ def cap_adj_degree(adj: sp.csr_matrix, max_degree: int, seed: int = 0,
                    rescale: bool = True) -> sp.csr_matrix:
     """Cap each row of a CSR adjacency to at most ``max_degree`` entries.
 
-    Rows above the cap keep a uniform random ``max_degree``-subset of their
-    entries (in CSR order), rescaled by ``deg/max_degree`` so the row mass
-    is preserved (``rescale=False`` keeps raw weights); other rows are
-    unchanged.  The subset is the ``max_degree`` entries with the smallest
-    iid uniform keys in each row — one sort for the whole matrix."""
+    The JAX package's draws exactly: one ``default_rng(seed)``, and for
+    each row above the cap, in row order, ``rng.choice(deg, max_degree,
+    replace=False)``; the picked entries are kept in the drawn order,
+    rescaled by ``deg/max_degree`` so the row mass is preserved
+    (``rescale=False`` keeps raw weights).  Rows within the cap make no
+    draws and are copied unchanged, all at once."""
     adj = adj.tocsr()
+    indptr, indices, data = adj.indptr, adj.indices, adj.data
     n = adj.shape[0]
-    deg = np.diff(adj.indptr)
-    row = np.repeat(np.arange(n), deg)
-    keys = np.random.default_rng(seed).random(adj.nnz)
-    keys[deg[row] <= max_degree] = -1.0          # short rows keep everything
-    order = np.lexsort((keys, row))              # by row, then key
-    rank = np.arange(adj.nnz) - np.repeat(adj.indptr[:-1], deg)
-    keep = np.sort(order[rank < max_degree])     # back to CSR order
-    data = adj.data[keep].astype(adj.data.dtype, copy=True)
-    big = deg[row[keep]] > max_degree
-    if rescale:
-        data[big] = data[big] * (deg[row[keep]][big] / float(max_degree))
+    deg = np.diff(indptr)
     new_deg = np.minimum(deg, max_degree)
-    indptr = np.concatenate([[0], np.cumsum(new_deg)]).astype(adj.indptr.dtype)
-    return sp.csr_matrix((data, adj.indices[keep], indptr), shape=adj.shape)
+    new_indptr = np.zeros(n + 1, dtype=indptr.dtype)
+    np.cumsum(new_deg, out=new_indptr[1:])
+    row = np.repeat(np.arange(n), deg)
+    short = deg[row] <= max_degree
+    dest = np.flatnonzero(short)
+    dest = new_indptr[row[dest]] + (dest - indptr[row[dest]])
+    rng = np.random.default_rng(seed)
+    capped = []
+    for r in np.flatnonzero(deg > max_degree):
+        lo, hi = indptr[r], indptr[r + 1]
+        d = hi - lo
+        pick = lo + rng.choice(d, size=max_degree, replace=False)
+        w = data[pick] * (d / float(max_degree)) if rescale else data[pick]
+        capped.append((new_indptr[r], indices[pick], w))
+    # the dtype the JAX copy's concatenation of its rows takes
+    out_dtype = np.result_type(data.dtype, *(w.dtype for *_, w in capped))
+    out_i = np.empty(new_indptr[-1], dtype=indices.dtype)
+    out_d = np.empty(new_indptr[-1], dtype=out_dtype)
+    out_i[dest], out_d[dest] = indices[short], data[short]
+    for at, idx, w in capped:
+        out_i[at:at + max_degree], out_d[at:at + max_degree] = idx, w
+    return sp.csr_matrix((out_d, out_i, new_indptr), shape=adj.shape)
 
 
 def compute_pp_features(adj: sp.csr_matrix, feats):

@@ -222,20 +222,35 @@ def _slice_inputs(features: torch.Tensor, field0: torch.Tensor,
     return row_gather(features, field0, sentinel=num_nodes)
 
 
+def _tap(taps, label: str, h) -> None:
+    """Append ``(label, mean, population std, absmax)`` of ``h`` in float32
+    (of the mean stream of a CVD ``(mu, var)`` pair) to ``taps``, a list
+    the caller owns; None taps nothing."""
+    if taps is None:
+        return
+    x = (h[0] if isinstance(h, tuple) else h).detach().float()
+    taps.append((label, x.mean(), torch.std(x, correction=0),
+                 x.abs().max()))
+
+
 def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
             histories, features: torch.Tensor, gen: torch.Generator,
-            keep_prob: float, train: bool):
+            keep_prob: float, train: bool, taps=None):
     """Run the layer stack.
 
     Returns (logits [B, output_dim], new_histories) where new_histories[l]
     is a tuple of arrays on the rows of pack.fields[l], to be scattered
-    into the history buffers at those node ids."""
+    into the history buffers at those node ids.  ``taps``: a list that
+    takes the moments (:func:`_tap`) of the input, labelled ``"input"``,
+    and of every layer's output, labelled ``"<i>:<spec class>"`` as in the
+    JAX package."""
     kp = keep_prob if train else 1.0
     h = _slice_inputs(features, pack.fields[0], graph.num_nodes)
     if spec.reverse_input_dropout and train:
         h = L.dropout(gen, h, kp)
+    _tap(taps, "input", h)
     new_histories = [None] * spec.num_agg_layers
-    for s in spec.specs:
+    for i, s in enumerate(spec.specs):
         if isinstance(s, DropoutSpec):
             h = L.dropout_layer(gen, h, kp, spec.cvd)
         elif isinstance(s, DenseSpec):
@@ -255,6 +270,7 @@ def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
                     histories[l], spec.cvd, spec.normalization)
             else:
                 h = agg.plain_aggregate(h, ls, spec.normalization)
+        _tap(taps, f"{i}:{type(s).__name__}", h)
     return h, tuple(new_histories)
 
 
@@ -268,10 +284,18 @@ def loss_and_metrics(params: dict, spec: ModelSpec, logits: torch.Tensor,
     registered vars."""
     first, names = weight_decay_param_names(spec)
     wd = sum(params[first][n].square().sum() / 2.0 for n in names)
-    loss = weight_decay * wd
+    return masked_loss_and_accuracy(weight_decay * wd, logits, labels,
+                                    valid_mask, spec.multitask)
 
+
+def masked_loss_and_accuracy(penalty, logits: torch.Tensor,
+                             labels: torch.Tensor, valid_mask: torch.Tensor,
+                             multitask: bool):
+    """``penalty`` plus the mean cross-entropy over the valid rows (sigmoid
+    per class when ``multitask``, softmax otherwise), and the accuracy
+    over them."""
     nvalid = torch.clamp(valid_mask.sum(), min=1.0)
-    if spec.multitask:
+    if multitask:
         ce = (torch.relu(logits) - logits * labels
               + torch.log1p(torch.exp(-logits.abs()))).mean(dim=1)
         preds_ok = (logits > 0) == (labels > 0.5)
@@ -279,7 +303,7 @@ def loss_and_metrics(params: dict, spec: ModelSpec, logits: torch.Tensor,
     else:
         ce = -(labels * torch.log_softmax(logits, dim=1)).sum(dim=1)
         acc_row = (logits.argmax(dim=1) == labels.argmax(dim=1)).float()
-    loss = loss + (ce * valid_mask).sum() / nvalid
+    loss = penalty + (ce * valid_mask).sum() / nvalid
     accuracy = (acc_row * valid_mask).sum() / nvalid
     return loss, accuracy
 

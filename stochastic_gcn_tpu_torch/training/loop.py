@@ -2,13 +2,14 @@
 
 Port of stochastic_gcn_tpu/training/loop.py for the single-device padded
 graph: the constructor puts the train and eval graphs, features, labels,
-the train state (params, Adam state, bf16 train histories) and the eval
-histories on an explicit device.  ``train_epoch`` / ``sgd_train`` /
-``evaluate`` / ``predict`` / ``test`` / ``run_tests`` /
-``gradient_variance`` / ``save`` / ``load`` follow the JAX Trainer, for
-every estimator the flags select (NS, CV, CVD, det-dropout, Exact; with or
-without preprocessing; Polyak-averaged evaluation weights); checkpoints use
-the JAX file layout, so either package resumes the other's.
+the importance tables, the train state (params, Adam state, bf16 train
+histories) and the eval histories on an explicit device.  ``train_epoch``
+/ ``sgd_train`` / ``evaluate`` / ``predict`` / ``test`` / ``run_tests`` /
+``activation_stats`` / ``gradient_variance`` / ``save`` / ``load`` follow
+the JAX Trainer, for every estimator the flags select (NS, CV, CVD,
+det-dropout, Exact, importance sampling; with or without preprocessing;
+Polyak-averaged evaluation weights); checkpoints use the JAX file layout,
+so either package resumes the other's.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from ..data.graph import Dataset, dense_rows, pad_csr
 from ..data.preprocess import cap_adj_degree
 from ..models import gcn as M
-from ..sampler.scheduler import MinibatchIterator
+from ..sampler.scheduler import MinibatchIterator, compute_importance
 from ..utils.metrics import Stat, f1_from_counts
 from . import step as S
 from .checkpoint import (checkpoint_path, load_checkpoint, load_loop_extras,
@@ -62,12 +63,13 @@ def _refuse_unported(cfg) -> None:
         # (slot_aw) weights
         raise ValueError("--det_dropout is incompatible with --importance")
     unported = {
-        "--model mlp": cfg.model == "mlp",
         "--dp/--tp > 1 (multi-device)": cfg.dp > 1 or cfg.tp > 1,
         "--partition_nodes": cfg.partition_nodes != "none",
         "--graph_format edgelist": cfg.graph_format != "padded",
-        "--importance": cfg.importance,
-        "--test_importance": cfg.test_importance,
+        # the superseded per-epoch importance row table is not ported; the
+        # slots come from is_slots' per-node gathers
+        "--is_row_table with importance sampling":
+            cfg.is_row_table and (cfg.importance or cfg.test_importance),
         "--lazy_fullterm": cfg.lazy_fullterm,
         "--ckpt_async": cfg.ckpt_async,
     }
@@ -118,8 +120,8 @@ class Trainer:
         self.train_spec = M.build_model_spec(
             cfg, in_dim, out_dim, cfg.preprocess, cfg.cv, cfg.cvd, tr_sparse)
         self.test_spec = M.build_model_spec(
-            cfg, in_dim, out_dim, cfg.test_preprocess, cfg.test_cv,
-            cfg.test_cvd, te_sparse)
+            cfg.replace(importance=cfg.test_importance), in_dim, out_dim,
+            cfg.test_preprocess, cfg.test_cv, cfg.test_cvd, te_sparse)
         self.train_features = to_device_features(cfg, tr_feats, n, device)
         self.test_features = to_device_features(cfg, te_feats, n, device)
         self.labels = dense_rows(ds.labels, n, device=device)
@@ -127,6 +129,11 @@ class Trainer:
                                    * self.train_spec.num_agg_layers)
         self.test_degrees = tuple([cfg.test_degree]
                                   * self.test_spec.num_agg_layers)
+        # the [N+1] tables importance sampling draws by (zeros when off)
+        self.importance_train = compute_importance(self.graph_train) \
+            if cfg.importance else torch.zeros(n + 1, device=device)
+        self.importance_test = compute_importance(self.graph_full) \
+            if cfg.test_importance else torch.zeros(n + 1, device=device)
 
         # the reference's one runtime data guard (scheduler.cpp:114-115):
         # corrupt edge weights fail loudly at build, not sample garbage
@@ -196,7 +203,8 @@ class Trainer:
                                 self.ds.num_data)
         self.state, metrics = self._train_epoch(
             self.state, self.graph_train, self.train_features, self.labels,
-            torch.from_numpy(bm).to(self.device), self.gen)
+            torch.from_numpy(bm).to(self.device), self.gen,
+            self.importance_train)
         self._params_version += 1
         loss = float(metrics["loss"])
         acc = float(metrics["accuracy"])
@@ -211,11 +219,14 @@ class Trainer:
     def _record_epoch_stats(self, metrics, run_t: float):
         """FLOP/size accounting per epoch (gcn/vrgcn.py:50-69): sparse ops
         g_ops = (adj + fadj nnz) * dim * 4, dense ops nn_ops =
-        sum(layer_comp * field size) * 4, each doubled under cvd."""
+        sum(layer_comp * field size) * 4, each doubled under cvd.  Also
+        keeps ``is_dropped``, the selected IS slots the slot cap dropped
+        over the epoch."""
         spec = self.train_spec
-        field_sizes, adj_sizes, fadj_sizes = (
+        field_sizes, adj_sizes, fadj_sizes, is_dropped = (
             metrics[k].cpu().numpy()
-            for k in ("field_sizes", "adj_sizes", "fadj_sizes"))
+            for k in ("field_sizes", "adj_sizes", "fadj_sizes",
+                      "is_dropped"))
         mult = 2 if spec.cvd else 1      # CVD runs two streams
         g_ops = 0.0
         for l in range(spec.num_agg_layers):
@@ -225,7 +236,8 @@ class Trainer:
                      for comp, idx in spec.layer_comp)
         self.epoch_stats = dict(run_t=run_t, g_t=0.0, g_ops=g_ops,
                                 nn_ops=nn_ops, field_sizes=field_sizes,
-                                adj_sizes=adj_sizes, fadj_sizes=fadj_sizes)
+                                adj_sizes=adj_sizes, fadj_sizes=fadj_sizes,
+                                is_dropped=int(is_dropped))
 
     def _run(self, epoch, data_ids):
         bm = self._batch_matrix(data_ids, self.cfg.test_batch_size,
@@ -234,7 +246,8 @@ class Trainer:
             self.eval_histories, out = epoch(
                 self._eval_params(), self.eval_histories, self.graph_full,
                 self.test_features, self.labels,
-                torch.from_numpy(bm).to(self.device), self.gen)
+                torch.from_numpy(bm).to(self.device), self.gen,
+                self.importance_test)
         return out
 
     def evaluate(self, data_ids):
@@ -302,6 +315,35 @@ class Trainer:
             out = self.test(log)
         return out
 
+    def activation_stats(self, data_ids=None, train: bool = True) -> dict:
+        """Per-layer activation moments of one batch: the training model,
+        histories and sampling (with dropout) with ``train``, the
+        evaluation model's otherwise.  ``data_ids`` defaults to the first
+        train (validation) batch.  Returns ``{label: {"mean", "std",
+        "absmax"}}`` as Python floats, the labels of
+        :func:`models.gcn.forward`'s taps."""
+        cfg, n = self.cfg, self.ds.num_data
+        if data_ids is None:
+            data_ids = self.ds.train_d[:cfg.batch_size] if train \
+                else self.ds.val_d[:cfg.test_batch_size]
+        bsz = cfg.batch_size if train else cfg.test_batch_size
+        batch = torch.from_numpy(self._batch_matrix(
+            np.asarray(data_ids)[:bsz], bsz, n)[0]).to(self.device)
+        if train:
+            fn = S.make_activation_taps(cfg, self.train_spec,
+                                        self.train_degrees, n, True)
+            out = fn(self.state.params, self.state.histories,
+                     self.graph_train, self.train_features, self.labels,
+                     batch, self.gen, self.importance_train)
+        else:
+            fn = S.make_activation_taps(cfg, self.test_spec,
+                                        self.test_degrees, n, False)
+            out = fn(self._eval_params(), self.eval_histories,
+                     self.graph_full, self.test_features, self.labels,
+                     batch, self.gen, self.importance_test)
+        return {k: {"mean": float(m), "std": float(s), "absmax": float(a)}
+                for k, (m, s, a) in out.items()}
+
     def gradient_variance(self, times: int = 1000, log=print) -> dict:
         """Bias and standard deviation of the predictions and of the
         first-layer weight gradient of the train model (sampled, with
@@ -316,28 +358,30 @@ class Trainer:
             self.ds.train_d[:cfg.batch_size], cfg.batch_size, n)[0]
         ).to(self.device)
         full_fn = S.build_pred_and_grad(cfg, self.test_spec,
-                                        self.test_degrees, n)
+                                        self.test_degrees, n, False)
         part_fn = S.build_pred_and_grad(cfg, self.train_spec,
-                                        self.train_degrees, n)
+                                        self.train_degrees, n, True)
 
-        def sample(fn, histories, graph, features):
+        def sample(fn, histories, graph, features, importance):
             preds, grads = Stat(), Stat()
             for _ in range(times):
                 p, g = fn(self.state.params, histories, graph, features,
-                          self.labels, batch, self.gen)
+                          self.labels, batch, self.gen, importance)
                 preds.add(p)
                 grads.add(g)
             return preds, grads
 
         full_preds, full_grads = sample(full_fn, self.eval_histories,
-                                        self.graph_full, self.test_features)
+                                        self.graph_full, self.test_features,
+                                        self.importance_test)
         fp_m = np.mean(np.abs(full_preds.mean()))
         fg_m = np.mean(np.abs(full_grads.mean()))
         log(f"Full pred stdev = {np.mean(full_preds.std()) / fp_m}")
         log(f"Full grad stdev = {np.mean(full_grads.std()) / fg_m}")
         part_preds, part_grads = sample(part_fn, self.state.histories,
                                         self.graph_train,
-                                        self.train_features)
+                                        self.train_features,
+                                        self.importance_train)
         out = dict(
             pred_bias=np.mean(np.abs(part_preds.mean()
                                      - full_preds.mean())) / fp_m,

@@ -172,13 +172,37 @@ def _batch_stats(pack: BatchFields, graph, num_nodes: int, cv: bool):
     return adj_sizes.sum(), field_sizes, adj_sizes, fadj_sizes
 
 
+def _schedule(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...], graph,
+              batch_ids: torch.Tensor, gen: torch.Generator, importance,
+              train_mode: bool) -> BatchFields:
+    """The schedule of every step: one place for the sampling semantics of
+    training (``cfg.importance`` with ``cfg.is_slot_cap``) and of
+    evaluation, prediction and the eval side of pred-and-grad
+    (``cfg.test_importance``; the auto slot cap, -1, resolves to 0 there,
+    so inference keeps every edge into a selected node).  ``importance``
+    is the ``[N+1]`` table, needed only when the mode samples by it."""
+    use_is = cfg.importance if train_mode else cfg.test_importance
+    if use_is and importance is None:
+        raise ValueError("importance sampling needs the importance table")
+    return schedule(gen, graph, batch_ids, degrees, spec.cv,
+                    need_aw=spec.det_dropout,
+                    importance=importance if use_is else None,
+                    dedup=cfg.field_dedup,
+                    is_approx_topk=cfg.is_approx_topk,
+                    is_recall_target=cfg.is_recall_target,
+                    is_slot_cap=(cfg.is_slot_cap if train_mode
+                                 else max(cfg.is_slot_cap, 0)))
+
+
 def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                      num_nodes: int):
-    """``step(state, graph, features, labels, batch_ids, gen, pack=None)
-    -> (state, metrics)``: schedule (unless a prebuilt ``pack`` is given),
-    forward, loss, backward, Adam, then the history scatter of the detached
-    new rows.  ``state`` is updated in place and returned; the metrics
-    (loss, accuracy, amt_data, field/adj/fadj sizes) stay on the device.
+    """``step(state, graph, features, labels, batch_ids, gen, pack=None,
+    importance=None) -> (state, metrics)``: schedule (unless a prebuilt
+    ``pack`` is given; ``importance`` is the ``[N+1]`` table that
+    ``cfg.importance`` samples by), forward, loss, backward, Adam, then the
+    history scatter of the detached new rows.  ``state`` is updated in
+    place and returned; the metrics (loss, accuracy, amt_data,
+    field/adj/fadj sizes, ``is_dropped``) stay on the device.
 
     The params enter the forward as fresh ``requires_grad`` aliases and the
     gradients come from ``torch.autograd.grad``, so no ``.grad`` buffers
@@ -186,10 +210,10 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
     tx = make_optimizer(cfg)
 
     def _step(state: TrainState, graph, features, labels, batch_ids, gen,
-              pack: Optional[BatchFields] = None):
+              pack: Optional[BatchFields] = None, importance=None):
         if pack is None:
-            pack = schedule(gen, graph, batch_ids, degrees, spec.cv,
-                            need_aw=spec.det_dropout, dedup=cfg.field_dedup)
+            pack = _schedule(cfg, spec, degrees, graph, batch_ids, gen,
+                             importance, train_mode=True)
         batch_field = pack.fields[-1]
         valid = (batch_field < num_nodes).float()
         y = _labels_gather(labels, batch_field, num_nodes)
@@ -222,9 +246,12 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
             state.step += 1
         amt, field_sizes, adj_sizes, fadj_sizes = _batch_stats(
             pack, graph, num_nodes, spec.cv)
+        is_dropped = pack.is_dropped if pack.is_dropped is not None \
+            else torch.zeros((), dtype=torch.int32, device=amt.device)
         return state, {"loss": loss.detach(), "accuracy": acc.detach(),
                        "amt_data": amt, "field_sizes": field_sizes,
-                       "adj_sizes": adj_sizes, "fadj_sizes": fadj_sizes}
+                       "adj_sizes": adj_sizes, "fadj_sizes": fadj_sizes,
+                       "is_dropped": is_dropped}
 
     return _step
 
@@ -232,50 +259,45 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
 def build_train_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                       num_nodes: int):
     """Whole-epoch runner: ``epoch(state, graph, features, labels,
-    batch_matrix, gen) -> (state, metrics)`` runs the train step over the
-    rows of an ``[S, B]`` batch-id matrix.  Returns the LAST step's loss
-    and accuracy (the reference's window-1 Averager), the per-step
-    ``amt_steps`` (the Trainer sums them on the host in int64), and the
-    summed ``amt_data`` and field/adj/fadj sizes; all on the device."""
+    batch_matrix, gen, importance=None) -> (state, metrics)`` runs the
+    train step over the rows of an ``[S, B]`` batch-id matrix.  Returns the
+    LAST step's loss and accuracy (the reference's window-1 Averager), the
+    per-step ``amt_steps`` (the Trainer sums them on the host in int64),
+    and the summed ``amt_data``, field/adj/fadj sizes and ``is_dropped``;
+    all on the device."""
     _step = build_train_step(cfg, spec, degrees, num_nodes)
 
     def _epoch(state: TrainState, graph, features, labels, batch_matrix,
-               gen):
+               gen, importance=None):
         ms = []
         for batch_ids in batch_matrix:
-            state, m = _step(state, graph, features, labels, batch_ids, gen)
+            state, m = _step(state, graph, features, labels, batch_ids, gen,
+                             importance=importance)
             ms.append(m)
         amts = torch.stack([m["amt_data"] for m in ms])
         return state, {
             "loss": ms[-1]["loss"], "accuracy": ms[-1]["accuracy"],
             "amt_steps": amts, "amt_data": amts.sum(),
             **{k: torch.stack([m[k] for m in ms]).sum(dim=0)
-               for k in ("field_sizes", "adj_sizes", "fadj_sizes")}}
+               for k in ("field_sizes", "adj_sizes", "fadj_sizes",
+                         "is_dropped")}}
 
     return _epoch
-
-
-def _eval_schedule(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
-                   num_nodes: int, graph, batch_ids: torch.Tensor,
-                   gen: torch.Generator) -> BatchFields:
-    """The schedule of evaluation, prediction and pred-and-grad: one place
-    for their sampling semantics (the train step schedules for itself)."""
-    return schedule(gen, graph, batch_ids, degrees, spec.cv,
-                    need_aw=spec.det_dropout, dedup=cfg.field_dedup)
 
 
 def build_eval_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                      num_nodes: int, with_preds: bool = False):
     """Whole-evaluation runner over an [S, B] batch-id matrix:
-    ``epoch(params, histories, graph, features, labels, batch_matrix, gen)
-    -> (histories, out)`` with per-batch losses/accuracies, summed per-class
-    F1 counters and, ``with_preds``, the [S, B, C] class probabilities and
-    their [S, B] batch fields.  Histories are refreshed in place."""
+    ``epoch(params, histories, graph, features, labels, batch_matrix, gen,
+    importance=None) -> (histories, out)`` with per-batch
+    losses/accuracies, summed per-class F1 counters and, ``with_preds``,
+    the [S, B, C] class probabilities and their [S, B] batch fields.
+    Histories are refreshed in place."""
 
     def _eval_one(params, histories, graph, features, labels, batch_ids,
-                  gen):
-        pack = _eval_schedule(cfg, spec, degrees, num_nodes, graph,
-                              batch_ids, gen)
+                  gen, importance):
+        pack = _schedule(cfg, spec, degrees, graph, batch_ids, gen,
+                         importance, train_mode=False)
         batch_field = pack.fields[-1]
         valid = (batch_field < num_nodes).float()
         y = _labels_gather(labels, batch_field, num_nodes)
@@ -291,8 +313,9 @@ def build_eval_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
         return out
 
     def _epoch(params, histories, graph, features, labels, batch_matrix,
-               gen):
-        ys = [_eval_one(params, histories, graph, features, labels, b, gen)
+               gen, importance=None):
+        ys = [_eval_one(params, histories, graph, features, labels, b, gen,
+                        importance)
               for b in batch_matrix]
         cols = [torch.stack(c) for c in zip(*ys)]
         losses, accs, tps, fps, fns, nvalid = cols[:6]
@@ -307,15 +330,18 @@ def build_eval_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
 
 
 def build_pred_and_grad(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
-                        num_nodes: int):
-    """``run(params, histories, graph, features, labels, batch_ids, gen) ->
-    (predictions [B, C], d loss / d first-layer weights)``: the probe of the
-    gradient-variance harness.  A fresh schedule, dropout applied, no
-    weight update and no history scatter."""
+                        num_nodes: int, train_mode: bool = False):
+    """``run(params, histories, graph, features, labels, batch_ids, gen,
+    importance=None) -> (predictions [B, C], d loss / d first-layer
+    weights)``: the probe of the gradient-variance harness.  A fresh
+    schedule (training's sampling semantics with ``train_mode``,
+    evaluation's otherwise), dropout applied, no weight update and no
+    history scatter."""
 
-    def _run(params, histories, graph, features, labels, batch_ids, gen):
-        pack = _eval_schedule(cfg, spec, degrees, num_nodes, graph,
-                              batch_ids, gen)
+    def _run(params, histories, graph, features, labels, batch_ids, gen,
+             importance=None):
+        pack = _schedule(cfg, spec, degrees, graph, batch_ids, gen,
+                         importance, train_mode)
         batch_field = pack.fields[-1]
         valid = (batch_field < num_nodes).float()
         y = _labels_gather(labels, batch_field, num_nodes)
@@ -329,5 +355,27 @@ def build_pred_and_grad(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                                      cfg.weight_decay)
         grad, = torch.autograd.grad(loss, [weights])
         return M.predict(spec, logits.detach()), grad
+
+    return _run
+
+
+def make_activation_taps(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
+                         num_nodes: int, train_mode: bool):
+    """``run(params, histories, graph, features, labels, batch_ids, gen,
+    importance=None) -> {label: (mean, std, absmax)}``: the per-layer
+    activation moments of one batch (the reference's layer activation
+    logging, as a standalone probe).  The schedule and dropout of training
+    with ``train_mode``, of evaluation otherwise; no history scatter.  The
+    moments stay on the device."""
+
+    @torch.no_grad()
+    def _run(params, histories, graph, features, labels, batch_ids, gen,
+             importance=None):
+        pack = _schedule(cfg, spec, degrees, graph, batch_ids, gen,
+                         importance, train_mode)
+        taps: list = []
+        M.forward(params, spec, pack, graph, histories, features, gen,
+                  cfg.keep_prob, train=train_mode, taps=taps)
+        return {label: stats for label, *stats in taps}
 
     return _run

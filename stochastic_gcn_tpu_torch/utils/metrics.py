@@ -51,6 +51,27 @@ def f1_from_counts(tp, fp, fn, multitask: bool) -> tuple[float, float]:
     return float(micro), float(macro)
 
 
+def calc_f1(y_pred, y_true, multitask: bool) -> tuple[float, float]:
+    """Micro/macro F1 of host predictions, as
+    ``sklearn.metrics.f1_score(average="micro"/"macro")`` gives them.
+    Multitask thresholds the probabilities at 0.5 and macro averages every
+    column; single-label argmaxes both sides and macro averages the classes
+    present in ``y_true`` or ``y_pred``.  One multitask column is binary to
+    scikit-learn: both of its labels, 0 and 1, are classes."""
+    y_pred, y_true = np.asarray(y_pred), np.asarray(y_true)
+    if multitask:
+        p, t = y_pred > 0.5, y_true > 0.5
+        if p.shape[1] == 1:
+            p, t = np.hstack([~p, p]), np.hstack([~t, t])
+            multitask = False
+    else:
+        cls = np.arange(max(y_pred.shape[1], y_true.shape[1]))
+        p = y_pred.argmax(axis=1)[:, None] == cls[None, :]
+        t = y_true.argmax(axis=1)[:, None] == cls[None, :]
+    return f1_from_counts((p & t).sum(0), (p & ~t).sum(0), (~p & t).sum(0),
+                          multitask)
+
+
 class Stat:
     """Accumulates arrays across runs; elementwise mean and standard
     deviation (population, as ``np.std``).  Tensors are moved to the host

@@ -750,3 +750,114 @@ def test_cv_fanout_on_card_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="require grad"):
         fn(x, hist.clone().requires_grad_(), field_in, 300, pos, w, base)
     assert K.LAUNCHES["cv_fanout_aggregate"] == before
+
+
+# ---- importance sampling: the kernels on IS slots ----
+
+def _is_pack(dev, batch: int, cap: int, seed: int = 1):
+    """One importance-sampled schedule on ``dev`` of a 3000-node graph with
+    degrees up to 64: ``[F, Dcap]`` slots, or ``[F, cap]`` under the slot
+    cap, mostly parked, with positions repeated across rows."""
+    from stochastic_gcn_tpu_torch.data.graph import pad_csr
+    from stochastic_gcn_tpu_torch.sampler import scheduler as S
+    ds = synthetic_dataset(num_nodes=3000, feature_dim=8, num_classes=4,
+                           avg_degree=40, normalization="graphsage", seed=0,
+                           max_degree=64)
+    g = pad_csr(ds.full_adj, -1, device=dev)
+    n = ds.num_data
+    ids = np.full(batch, n, np.int32)
+    real = ds.train_d[:batch - 8]
+    ids[:len(real)] = real
+    pack = S.schedule(torch.Generator(device=dev).manual_seed(seed), g,
+                      torch.from_numpy(ids).to(dev), (1,), cv=True,
+                      importance=S.compute_importance(g), is_slot_cap=cap)
+    return pack, g
+
+
+IS_SHAPES = [(256, 0), (256, 8), (2048, -1)]     # (batch, slot cap)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("batch, cap", IS_SHAPES)
+def test_kernels_on_importance_slots(cuda, batch, cap):
+    """The fanout, its backward and the CV kernel on the slots of a real IS
+    schedule made on the card, plus two rows the IS layout makes common:
+    every slot parked, and every slot naming one position."""
+    pack, g = _is_pack(cuda, batch, cap)
+    ls = pack.layers[0]
+    pos, w = ls.slot_pos.clone(), ls.slot_w.clone()
+    f, k = pos.shape
+    assert k == (g.pad_degree if cap == 0 else 8)
+    assert (pos[w == 0] == (1 << 30)).all()
+    c = pack.fields[0].shape[0]
+    live = pos[w != 0]
+    assert live.numel() and int(live.max()) < c
+    pos[0], w[0] = 1 << 30, 0.0                         # all parked
+    pos[1], w[1] = int(live[0]), 0.5                    # one position
+    rng = np.random.default_rng(30)
+    x = torch.from_numpy(rng.normal(size=(c, 128)).astype(np.float32)).to(
+        cuda)
+    gr = torch.from_numpy(rng.normal(size=(f, 128)).astype(np.float32)).to(
+        cuda)
+    got = K.fanout_aggregate(x, pos, w)
+    torch.testing.assert_close(got, K.fanout_aggregate_ref(x, pos, w), **TOL)
+    assert not got[0].any()
+    torch.testing.assert_close(got[1], 0.5 * k * x[int(live[0])], **TOL)
+    grad = K.fanout_aggregate_backward(gr, pos, w, c)
+    torch.testing.assert_close(
+        grad, K.fanout_aggregate_backward_ref(gr, pos, w, c), **TOL)
+    hist = torch.from_numpy(rng.normal(size=(g.num_nodes + 8, 128)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    base = torch.from_numpy(rng.normal(size=(f, 128)).astype(
+        np.float32)).to(cuda)
+    n = g.num_nodes
+    got = K.cv_fanout_aggregate(x, hist, pack.fields[0], n, pos, w, base)
+    torch.testing.assert_close(got, K.cv_fanout_aggregate_ref(
+        x, hist.float(), pack.fields[0], n, pos, w, base), **TOL)
+    assert torch.equal(got[0], base[0])
+
+
+# launches per train step of the IS arms
+IS_STEPS = {
+    "IS+PP": (dict(cv=False, test_cv=False),
+              {"fanout_aggregate": 1, "fanout_aggregate_backward": 1}),
+    "IS+CV": (dict(cv=True, test_cv=True),
+              {"cv_fanout_aggregate": 1, "hbm_gather_aggregate": 1,
+               "fanout_aggregate_backward": 1}),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", list(IS_STEPS))
+def test_importance_train_steps_on_card_match_cpu(cuda, name):
+    """10 IS train steps on the card and on the CPU from the same weights:
+    the degree is large enough that every member of the union is drawn, so
+    the selection and the weights are deterministic; dropout off."""
+    over, per_step = IS_STEPS[name]
+    ds = synthetic_dataset(num_nodes=240, feature_dim=16, num_classes=5,
+                           normalization="graphsage", seed=0)
+    cfg = Config(**{**dict(dataset="synthetic", batch_size=16, degree=10000,
+                           test_degree=10000, hidden1=16, importance=True,
+                           test_importance=True, normalization="graphsage",
+                           layer_norm=True, num_fc_layers=2,
+                           weight_decay=5e-4, dropout=0.0, pad_degree=-1,
+                           seed=1, test_batch_size=24), **over})
+    it = MinibatchIterator(ds.train_d, 3)
+    it.shuffle()
+    bm = Trainer._batch_matrix(it.data, cfg.batch_size, ds.num_data)[:10]
+    out = {}
+    for dev in ("cpu", cuda):
+        tr = Trainer(cfg, ds, device=dev)
+        K.reset_launches()
+        tr.state, m = tr._train_epoch(
+            tr.state, tr.graph_train, tr.train_features, tr.labels,
+            torch.from_numpy(bm).to(dev), tr.gen, tr.importance_train)
+        out[str(dev)] = (tr, float(m["loss"]), dict(K.LAUNCHES))
+    cpu, gpu = out["cpu"], out[str(cuda)]
+    assert gpu[2] == {k: per_step.get(k, 0) * len(bm) for k in gpu[2]}
+    assert abs(gpu[1] - cpu[1]) <= 1e-4
+    for l, k in St.param_keys(cpu[0].params):
+        torch.testing.assert_close(gpu[0].params[l][k].cpu(),
+                                   cpu[0].params[l][k], rtol=0, atol=1e-4)
+    assert abs(gpu[0].evaluate(ds.val_d)[0]
+               - cpu[0].evaluate(ds.val_d)[0]) <= 1e-4

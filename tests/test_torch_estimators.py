@@ -647,7 +647,8 @@ def test_pred_and_grad_matches_jax(graphs, shared_noise, name, train_mode):
         JG.dense_rows(ds.labels, n), jnp.zeros((n + 1,)), jnp.asarray(batch),
         jax.random.PRNGKey(0))
     params = C.params_from_jax(_np_tree(jparams))
-    got_p, got_g = St.build_pred_and_grad(port_cfg(cfg), spec, degrees, n)(
+    got_p, got_g = St.build_pred_and_grad(port_cfg(cfg), spec, degrees, n,
+                                          train_mode)(
         params, hists, tg, G.dense_rows(feats, n),
         G.dense_rows(ds.labels, n), T(batch), torch.Generator())
     first = M.first_param_layer(spec)

@@ -151,7 +151,30 @@ def test_cuda_trainer_without_cuda_raises(trained):
 
 def test_unported_options_raise(trained):
     cfg, ds, _, _ = trained
-    for over in ({"test_importance": True}, {"dp": 2},
+    for over in ({"dp": 2},
                  {"partition_nodes": "bfs"}, {"graph_format": "edgelist"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(port_cfg(cfg.replace(**over)), ds, device="cpu")
+
+
+def test_predict_matches_jax_on_a_capped_graph(tmp_path):
+    """``--pad_degree 8`` on a graph with rows of up to 16 neighbours: both
+    Trainers cap their graphs with ``cap_adj_degree`` and must keep the same
+    edges, so a JAX checkpoint served by the port gives JAX's predictions."""
+    from stochastic_gcn_tpu.config import parse_flags
+    cfg = parse_flags(FLAGS + ["--ckpt_dir", str(tmp_path)]).replace(
+        pad_degree=8)
+    ds = jax_load_data(cfg)
+    deg = np.diff(ds.full_adj.indptr)
+    assert (deg > 8).sum() >= 20 and deg.max() >= 14
+    jt = JaxTrainer(cfg, ds)
+    for _ in range(2):
+        jt.train_epoch()
+    jt.save()
+    want = jt.predict(np.asarray(ds.test_d))
+    tr = _port(cfg, ds)
+    assert tr.graph_full.pad_degree == jt.graph_full.pad_degree == 8
+    np.testing.assert_array_equal(tr.graph_full.nbr.numpy(),
+                                  np.asarray(jt.graph_full.nbr))
+    got = tr.predict(np.asarray(ds.test_d))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)

@@ -705,9 +705,10 @@ def test_cli_train_end_to_end(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("over", [
-    {"importance": True}, {"test_importance": True}, {"tp": 2},
-    {"graph_format": "edgelist"}, {"lazy_fullterm": True},
-    {"ckpt_async": True}, {"model": "mlp"}, {"dp": 2}])
+    {"importance": True, "is_row_table": True}, {"partition_nodes": "bfs"},
+    {"tp": 2}, {"graph_format": "edgelist"}, {"lazy_fullterm": True},
+    {"ckpt_async": True}, {"test_importance": True, "is_row_table": True},
+    {"dp": 2}])
 def test_unported_training_options_raise(tmp_path, over):
     cfg = _flags(tmp_path)
     ds = Ld.load_data(port_cfg(cfg))
@@ -715,7 +716,14 @@ def test_unported_training_options_raise(tmp_path, over):
         Trainer(port_cfg(cfg.replace(**over)), ds, device="cpu")
 
 
-def test_cli_train_refuses_mlp(tmp_path):
-    with pytest.raises(NotImplementedError, match="mlp"):
-        train_cli.main(FLAGS + ["--ckpt_dir", str(tmp_path), "--model",
-                                "mlp", "--device", "cpu"])
+def test_cli_train_refuses_mlp(tmp_path, capsys):
+    """``--model mlp`` is ported: the CLI trains the NeighbourMLP and prints
+    the epoch and Test lines instead of refusing."""
+    from stochastic_gcn_tpu_torch.models.mlp import MLPTrainer
+    tr = train_cli.main(FLAGS + ["--ckpt_dir", str(tmp_path), "--model",
+                                 "mlp", "--epochs", "2", "--device", "cpu"])
+    assert isinstance(tr, MLPTrainer)
+    out = capsys.readouterr().out.splitlines()
+    assert [s[:11] for s in out if s.startswith("Epoch: ")] == \
+        ["Epoch: 0001", "Epoch: 0002"]
+    assert out[-1].startswith("Test set results: cost= ")
