@@ -113,33 +113,74 @@ Phases, one or more lines each:
    below NS+PP's, CVD+PP's is below NS+PP's under dropout, and every value
    is finite.
 
+8. formats — the reference's data formats at published sizes, written by
+   the port's fixture writers into a temporary directory and read by
+   ``load_data``.  PubMed-sized Planetoid files (19,717 nodes, 500
+   features, 3 classes, the 60/500/1000 split): the features must come out
+   sparse and go on the card padded-sparse (set-up time, ``nnz_cap`` and
+   ``pad_sparse_features``' seconds printed); ``configs/pubmed.sh``'s
+   command line (the package defaults: NS+PP, degree 20) and the CV recipe
+   (``--cv --test_cv --degree 1 --test_degree 1``) train 30 epochs each
+   (one 1000-id step an epoch): ms/step, peak memory, launches a step
+   checked exactly (the dense path's plus one ``fanout_aggregate`` over the
+   rows of W and its backward), and the best val micro-F1, which fails
+   below the JAX package's on the CPU (``PUBMED_REFERENCE_F1``,
+   scripts/formats_reference_f1.py) by more than 0.03.  The sparse first
+   layer's two kernels on 4 real train batches (field 0 of the NS+PP
+   arm's sampled rows, ``nnz_cap`` slots a row, the trained ``[500, 32]``
+   W): against their plain versions on every row and timed beside ``embedding_bag``,
+   ``zeros().index_add_`` and ``torch.sparse.mm`` and their bound, with
+   every split of the gather.  The CV arm is exported
+   (``export_predictor``) and served from a fresh ``load_predictor(...,
+   device="cuda")``: its answers on the 1000 test ids must equal
+   ``Trainer.predict`` bitwise and exact inference within 1e-4, and a
+   repeated request must be bitwise equal (export and load seconds, the
+   artifact's bytes, ms per request, launches per request).  Then
+   PPI-sized GraphSAGE JSON files (56,944 nodes, 50 features, 121 labels,
+   multi-label): ``configs/ppi.sh``'s flags with the CV recipe for one
+   timed epoch (CV kernels on 2048-byte float32 eval rows), launches
+   checked exactly, then 2048 test ids served from its artifact with the
+   same checks.  Phase 5 also serves its 3 requests from an artifact of the
+   trained Reddit-shaped model, bitwise equal to ``Trainer.predict``'s.
+
 The line before the last is a JSON object describing the kernels (times in
 device ms per call on real batches of the path that launches the kernel,
 ``bound_ms`` and ``bound_by``,
 ``library_ms``, ``replaced_ms`` where the kernel took over a composition;
 ``launches`` summed over the counted paths, the train epoch, the
-served requests, the Exact evaluation and one train epoch of each of CVD+PP,
-Exact and det-dropout+PP, and apart per train step of each estimator and
-per later request); the last is ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
+served requests, the Exact evaluation, one train epoch of each of CVD+PP,
+Exact and det-dropout+PP, the PubMed and PPI arms and the requests served
+from the three artifacts, and apart per train step of each estimator and
+per request of each serving path; the sparse first layer's cases under
+``sparse_layer_batches``); the last is ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
 from stochastic_gcn_tpu_torch.config import Config
-from stochastic_gcn_tpu_torch.data.graph import graph_rows
+from stochastic_gcn_tpu_torch.data.fixtures import (PlanetoidSpec,
+                                                    write_graphsage_fixture,
+                                                    write_planetoid_fixture)
+from stochastic_gcn_tpu_torch.data.graph import (PaddedSparseFeatures,
+                                                 graph_rows,
+                                                 pad_sparse_features)
 from stochastic_gcn_tpu_torch.data.loaders import (community_sbm_dataset,
-                                                   reddit_like)
+                                                   load_data, reddit_like)
 from stochastic_gcn_tpu_torch.data.preprocess import cap_adj_degree
 from stochastic_gcn_tpu_torch.models import aggregators as A
 from stochastic_gcn_tpu_torch.models import gcn as M
@@ -152,6 +193,8 @@ from stochastic_gcn_tpu_torch.sampler.scheduler import (PARKED_POS,
                                                         effective_dedup,
                                                         field_capacities,
                                                         is_select, schedule)
+from stochastic_gcn_tpu_torch.serving import (export_predictor,
+                                              load_predictor)
 from stochastic_gcn_tpu_torch.training.loop import Trainer
 
 ROOT = Path(__file__).resolve().parent
@@ -237,6 +280,36 @@ IS_ARMS = (("IS+PP, slot cap auto", "IS+PP", {"importance": True,
 # this floor only catches a broken estimator
 IS_EPOCHS, IS_F1_FLOOR = 3, 0.40
 MLP_EPOCHS = 2
+# the PubMed-sized Planetoid fixture: PubMed's published 19,717 nodes, 500
+# features, 3 classes and 60/500/1000 split (scripts/formats_reference_f1.py
+# writes the same files with the JAX package's writer)
+PUBMED_SPEC = dict(name="pubmed", num_train=60, num_extra=18657,
+                   num_val=500, num_test=1000, feature_dim=500,
+                   num_classes=3, avg_degree=4, words_per_node=50)
+PUBMED_EPOCHS = 30
+# configs/pubmed.sh's command line (the package defaults: NS+PP, degree
+# 20, batch 1000, hidden 32) and the paper's CV recipe
+PUBMED_ARMS = (("NS+PP", "NS+PP (configs/pubmed.sh)", {}),
+               ("CV+PP", "CV+PP (--cv --test_cv --degree 1 --test_degree 1)",
+                dict(cv=True, test_cv=True, degree=1, test_degree=1)))
+# the best val micro-F1 in PUBMED_EPOCHS epochs of the JAX package on the
+# CPU, same fixture and flags, mean over seeds 1, 2, 3
+# (scripts/formats_reference_f1.py --epochs 30 --seeds 1,2,3); the card
+# fails below it by more than PUBMED_F1_ATOL
+PUBMED_REFERENCE_F1 = {"NS+PP": 0.9900, "CV+PP": 0.99067}
+PUBMED_F1_ATOL = 0.03
+# PPI's published node, feature and label counts (multi-label)
+PPI_FIXTURE = dict(num_nodes=56944, feature_dim=50, num_classes=121,
+                   avg_degree=28, multilabel=True)
+# configs/ppi.sh's flags, with the CV recipe
+PPI_CFG = dict(dataset="ppi", normalization="graphsage", weight_decay=0.0,
+               dropout=0.2, layer_norm=True, batch_size=512, hidden1=512,
+               num_fc_layers=2, cv=True, test_cv=True, degree=1,
+               test_degree=1)
+PPI_SERVE_IDS = 2048
+# what a padded-sparse first layer adds to a train step: the fanout over
+# the rows of W, and its backward for the gradient in W
+SPARSE_LAYER = {"fanout_aggregate": 1, "fanout_aggregate_backward": 1}
 
 
 def kernel_bytes(kind: str, live_rows: float, row_bytes: int, f: int,
@@ -1075,22 +1148,38 @@ def phase_kernels(seed: int = 0) -> dict:
     return results
 
 
+def _plain_matmul(h, w: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """``L.matmul`` with the plain versions: padded-sparse rows in chunks
+    of ``chunk`` rows (the plain version materialises ``[rows, K, out]``)."""
+    if not isinstance(h, PaddedSparseFeatures):
+        return L.matmul(h, w)
+    return torch.cat([K.fanout_aggregate_ref(w, h.idx[i:i + chunk],
+                                             h.val[i:i + chunk].float())
+                      for i in range(0, h.idx.shape[0], chunk)])
+
+
 def exact_probs(tr: Trainer, ids: np.ndarray, chunk: int = 8192):
     """Exact inference with the plain versions: the dense chain on every
-    node, ``A_full . H`` over all rows in chunks, then the head."""
+    node (padded-sparse features through the plain sparse product),
+    ``A_full . H`` over all rows in chunks, then the head."""
     spec, g = tr.test_spec, tr.graph_full
     with torch.no_grad():
         h = tr.test_features
         for s in spec.specs:
             if isinstance(s, M.DenseSpec):
-                h = L.dense(tr.params[s.name], h,
-                            L.relu if s.relu else L.identity, s.norm)
+                p = tr._eval_params()[s.name]
+                h = _plain_matmul(h, p["weights"])
+                if s.norm:
+                    h = L.layer_norm(h, p["offset"], p["scale"], eps=1e-9)
+                h = torch.relu(h) if s.relu else h
             elif isinstance(s, M.AggSpec):
                 rows = h.shape[0]
                 a = torch.cat([K.hbm_gather_aggregate_ref(
                     h, g.nbr[i:i + chunk], g.w[i:i + chunk])
                     for i in range(0, rows, chunk)])
-                h = torch.cat([h, a], dim=1)
+                # graphsage concatenates the node's own row, gcn does not
+                h = a if spec.normalization == "gcn" else torch.cat([h, a],
+                                                                     dim=1)
         return M.predict(spec, h[torch.from_numpy(ids).to(h.device).long()])
 
 
@@ -1271,7 +1360,8 @@ def phase_profile(tr: Trainer, steps: int = PROFILE_STEPS) -> None:
 
 
 def phase_slice(tr: Trainer, n_ids: int = REQUEST_IDS) -> dict:
-    """Serve from ``tr``'s current (trained) weights."""
+    """Serve from ``tr``'s current (trained) weights: ``Trainer.predict``,
+    then the same requests from its exported artifact."""
     ds, cfg, device = tr.ds, tr.cfg, tr.device
     requests = [ds.test_d[i * n_ids:(i + 1) * n_ids] for i in range(REQUESTS)]
     if device.type == "cuda":
@@ -1322,7 +1412,15 @@ def phase_slice(tr: Trainer, n_ids: int = REQUEST_IDS) -> dict:
         fail("CV predictions differ from exact inference")
     check_launches("CV serving", launches, {
         "cv_fanout_aggregate": None, "hbm_gather_aggregate": None})
-    return launches, per_request
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        art, art_per_request, art_ms = _serve_from_artifact(
+            "Reddit-shaped slice artifact", tr, requests, outs, tmp)
+    print(f"slice: from the artifact {art_ms:.2f} ms per later request, "
+          f"Trainer.predict {later_ms:.2f}; launches per request "
+          f"{art_per_request} from the artifact, {per_request} live")
+    check_launches("CV serving from the artifact", art, {
+        "cv_fanout_aggregate": None, "hbm_gather_aggregate": None})
+    return launches, per_request, art, art_per_request
 
 
 def phase_activation_stats(tr: Trainer) -> None:
@@ -1786,6 +1884,314 @@ def phase_estimators(ds, cv_tr: Trainer, cv_curve, device: str = "cuda",
     return paths, per_step
 
 
+def _with_sparse_layer(per_step: dict) -> dict:
+    """``per_step`` launches plus those of a padded-sparse first layer."""
+    return {k: per_step.get(k, 0) + SPARSE_LAYER.get(k, 0)
+            for k in {*per_step, *SPARSE_LAYER}}
+
+
+def _epochs_counted(label: str, tr: Trainer, epochs: int, per_step: dict):
+    """``epochs`` epochs of ``tr``, the validation micro-F1 after each.  The
+    first is a warm-up; every later train epoch runs with the counters
+    reset just before it and read just after, and is timed; their sum must
+    be exactly ``per_step`` launches a step.  Returns (launches, steps,
+    ms/step, the F1 curve)."""
+    total = {name: 0 for name in K.LAUNCHES}
+    steps, secs, curve = 0, 0.0, []
+    if tr.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for epoch in range(epochs):
+        if epoch:
+            _sync(tr.device)
+            K.reset_launches()
+            t0 = time.perf_counter()
+        loss, _, _, n_steps = tr.train_epoch()
+        if epoch:
+            _sync(tr.device)
+            secs += time.perf_counter() - t0
+            steps += n_steps
+            for name, count in K.LAUNCHES.items():
+                total[name] += count
+        if not np.isfinite(loss):
+            fail(f"{label}: non-finite training loss {loss}")
+        curve.append(tr.evaluate(tr.ds.val_d)[2])
+    ms = 1e3 * secs / steps
+    print(f"formats: {label}: {steps} timed steps ({epochs - 1} epochs after "
+          f"a warm-up) -> {ms:.3f} ms/step; peak device memory "
+          f"{_peak_gib(tr.device):.3f} GiB; kernel launches {total} = "
+          f"{ {k: v / steps for k, v in total.items()} } per step; val "
+          f"micro-F1 by epoch {', '.join(f'{f:.4f}' for f in curve)}")
+    check_launches(f"{label} train epochs", total,
+                   {k: v * steps for k, v in per_step.items()})
+    return total, steps, ms, curve
+
+
+def _serve_from_artifact(label: str, tr: Trainer, requests, live,
+                         tmp: str, exact_ids=None):
+    """Export ``tr`` (``export_predictor``), load the artifact into a fresh
+    ``load_predictor(device="cuda")`` and serve ``requests`` from it, with
+    the counters reset just before and read just after.  Fails unless
+    every answer equals ``Trainer.predict``'s (``live``) bitwise, a
+    repeated first request gives the same bits, and (``exact_ids``) the
+    answers on those ids equal exact inference within ``SLICE_ATOL``.
+    Returns (launches, launches per request, ms per later request)."""
+    path = os.path.join(tmp, f"artifact_{len(os.listdir(tmp))}")
+    t0 = time.perf_counter()
+    export_predictor(tr, path)
+    export_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    t0 = time.perf_counter()
+    pred = load_predictor(path, device=tr.device)
+    load_s = time.perf_counter() - t0
+    _sync(tr.device)
+    K.reset_launches()
+    outs, times = [], []
+    for ids in requests:
+        t0 = time.perf_counter()
+        outs.append(pred.predict(ids))
+        _sync(tr.device)
+        times.append(time.perf_counter() - t0)
+    launches = dict(K.LAUNCHES)
+    per_request = {k: v / len(requests) for k, v in launches.items()}
+    again = pred.predict(requests[0])
+    later_ms = 1e3 * statistics.median(times[1:])
+    print(f"artifact: {label}: export_predictor {export_s:.3f} s, artifact "
+          f"{nbytes} bytes ({', '.join(sorted(os.listdir(path)))}); "
+          f"load_predictor {load_s:.3f} s; {len(requests)} requests of "
+          f"{', '.join(str(len(r)) for r in requests)} ids: "
+          f"{', '.join(f'{1e3 * t:.2f}' for t in times)} ms -> "
+          f"{later_ms:.2f} ms per later request; kernel launches "
+          f"{launches} = {per_request} per request")
+    for i, (got, want) in enumerate(zip(outs, live)):
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fail(f"{label}: request {i} from the artifact differs from "
+                 f"Trainer.predict, max abs diff "
+                 f"{np.abs(got - want).max() if got.shape == want.shape else got.shape}")
+    if not np.array_equal(again, outs[0]):
+        fail(f"{label}: a repeated request is not bitwise equal")
+    msg = "equal to Trainer.predict bitwise, repeated request bitwise equal"
+    if exact_ids is not None:
+        exact = exact_probs(tr, exact_ids).cpu().numpy()
+        got = pred.predict(exact_ids)
+        worst = float(np.abs(got - exact).max())
+        if not worst <= SLICE_ATOL:
+            fail(f"{label}: the artifact's answers differ from exact "
+                 f"inference by {worst:.3e}")
+        msg += (f"; max |artifact - exact inference| = {worst:.3e} on "
+                f"{len(exact_ids)} ids (atol {SLICE_ATOL})")
+    print(f"artifact: {label}: {msg}")
+    check_launches(f"{label} requests", launches,
+                   {k: None for k, v in launches.items() if v})
+    return launches, per_request, later_ms
+
+
+def _sparse_layer_kernels(tr: Trainer, results: dict, batches: int = 4,
+                          seed: int = 2) -> None:
+    """The sparse first layer's kernels on ``batches`` real train batches:
+    the layer-0 field's padded-sparse rows of each freshly scheduled batch,
+    with the trained ``W`` as the table (forward) and a seeded output
+    gradient (backward), against their plain versions on every row and
+    timed, with ``embedding_bag`` beside the forward and
+    ``zeros().index_add_`` over the live slots and ``torch.sparse.mm`` of
+    the field's ``X^T`` beside the backward; every split of the gather.
+    Folded into ``results[kernel]["sparse_layer_batches"]``."""
+    cfg, n = tr.cfg, tr.ds.num_data
+    bs = cfg.batch_size
+    packs = []
+    for _ in range(batches):
+        tr.train_iter.shuffle()
+        ids = torch.from_numpy(tr._batch_matrix(
+            tr.train_iter.data[:bs], bs, n)[0]).to(tr.device)
+        packs.append(schedule(tr.gen, tr.graph_train, ids, tr.train_degrees,
+                              tr.train_spec.cv, dedup=cfg.field_dedup))
+    rows = [M._slice_inputs(tr.train_features, p.fields[0], n)
+            for p in packs]
+    sets = [(r.idx, r.val.float().contiguous()) for r in rows]
+    w = tr.params[M.first_param_layer(tr.train_spec)]["weights"].detach()
+    dim, hidden = w.shape
+    f, k = sets[0][0].shape
+    live = sum(int(_live(i, v, dim).sum()) for i, v in sets) / batches
+    hits = [torch.unique(i[_live(i, v, dim)], return_counts=True)[1]
+            for i, v in sets]
+    print(f"formats: sparse first layer, {batches} real train batches: "
+          f"F={f} field-0 rows, K={k} slots a row (nnz_cap), table W "
+          f"[{dim}, {hidden}] f32; {live:.0f} live slots a batch "
+          f"({live / f:.1f} a row); a row of W is named by at most "
+          f"{max(int(h.max()) for h in hits)} slots, "
+          f"{sum(h.float().mean().item() for h in hits) / batches:.0f} on "
+          f"average (the backward's atomic contention)")
+    g = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (f, hidden), dtype=np.float32)).to(tr.device)
+    case = f"sparse first layer, PubMed train batch: W [{dim},{hidden}] F={f} K={k}"
+    fwd = _compare("sparse layer fanout", K.fanout_aggregate,
+                   K.fanout_aggregate_ref, w, sets, True,
+                   library=_library_gather)
+    bwd = _compare("sparse layer backward",
+                   lambda g_, p, v: K.fanout_aggregate_backward(g_, p, v,
+                                                                dim),
+                   lambda g_, p, v: K.fanout_aggregate_backward_ref(
+                       g_, p, v, dim), g, sets, True, kind="backward",
+                   rows=dim, library=_library_backward(dim))
+    # torch.sparse.mm(X_field^T, g): the field's rows as a CSR matrix,
+    # built outside the timed window
+    xts = []
+    with warnings.catch_warnings():      # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        for i, v in sets:
+            m = _live(i, v, dim)
+            r = torch.arange(f, device=i.device)[:, None].expand_as(i)[m]
+            xts.append(torch.sparse_coo_tensor(
+                torch.stack([i[m].long(), r]), v[m], (dim, f),
+                check_invariants=True).coalesce().to_sparse_csr())
+    for j, xt in enumerate(xts):
+        _agree("library torch.sparse.mm", torch.sparse.mm(xt, g),
+               K.fanout_aggregate_backward_ref(g, *sets[j], dim),
+               *KERNEL_TOL)
+    bwd["sparse_mm_ms"] = _device_ms(
+        lambda i: torch.sparse.mm(xts[i % len(xts)], g))
+    for kname, res in (("fanout_aggregate", fwd),
+                       ("fanout_aggregate_backward", bwd)):
+        _report(results, kname, case, res)
+        results[kname].setdefault("sparse_layer_batches", {})[case] = {
+            key: res.get(key)
+            for key in (*MAIN_KEYS, "live", "distinct", "sparse_mm_ms")
+            if key in res}
+    print(f"kernels: fanout_aggregate_backward {case}: torch.sparse.mm of "
+          f"the field's X^T (CSR) {bwd['sparse_mm_ms']:.5f} ms/call")
+    _gather_splits(case, w, sets)
+
+
+def phase_pubmed(tmp: str, results: dict, epochs: int = PUBMED_EPOCHS,
+                 device: str = "cuda"):
+    """The Planetoid format at PubMed's size: the port's fixture writer,
+    ``load_data``, padded-sparse features on the card; the two arms of
+    ``PUBMED_ARMS`` for ``epochs`` epochs each, their launches a step
+    checked exactly (the dense path's plus one sparse-layer fanout and its
+    backward) and their best val micro-F1 held against
+    ``PUBMED_REFERENCE_F1``; the sparse first layer's kernels on real
+    batches; the CV arm exported and served from its artifact.  Returns
+    ({path: launches}, {arm: launches per step}, launches per request)."""
+    t0 = time.perf_counter()
+    n = write_planetoid_fixture(tmp, PlanetoidSpec(**PUBMED_SPEC))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = load_data(Config(dataset="pubmed", data_dir=tmp))
+    load_s = time.perf_counter() - t0
+    if not (sp.issparse(ds.feats) and sp.issparse(ds.test_feats)):
+        fail("the Planetoid loader gave dense features")
+    nnz = np.diff(ds.test_feats.tocsr().indptr)
+    t0 = time.perf_counter()
+    pf = pad_sparse_features(ds.test_feats, Config().feat_nnz_cap, n)
+    pad_s = time.perf_counter() - t0
+    print(f"formats: PubMed-sized Planetoid files: {n} nodes, "
+          f"{ds.feature_dim} features, {ds.num_classes} classes, "
+          f"{len(ds.train_d)}/{len(ds.val_d)}/{len(ds.test_d)} split, "
+          f"{ds.full_adj.nnz} edges; written in {write_s:.2f} s, loaded in "
+          f"{load_s:.2f} s (host); PP features (ÂX) {ds.test_feats.nnz} "
+          f"nonzeros, {nnz.mean():.1f} a row, at most {nnz.max()}; "
+          f"pad_sparse_features {pad_s:.3f} s -> nnz_cap "
+          f"{pf.idx.shape[1]} (host)")
+    paths, per_step, per_request = {}, {}, None
+    for key, label, over in PUBMED_ARMS:
+        cfg = Config(dataset="pubmed", data_dir=tmp, ckpt_dir=tmp, **over)
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, ds, device=device)
+        setup_s = time.perf_counter() - t0
+        feats = tr.train_features
+        if not (isinstance(feats, PaddedSparseFeatures)
+                and feats.idx.device.type == feats.val.device.type
+                == tr.device.type):
+            fail(f"{label}: the features are not padded-sparse on the card")
+        print(f"formats: PubMed {label}: Trainer set-up {setup_s:.2f} s; "
+              f"features padded-sparse on the card, idx "
+              f"{list(feats.idx.shape)} int32, val {str(feats.val.dtype)[6:]}"
+              f", nnz_cap {feats.idx.shape[1]}")
+        want = _with_sparse_layer(STEP_LAUNCHES[key])
+        launches, steps, _, curve = _epochs_counted(
+            f"PubMed {label}", tr, epochs, want)
+        paths[f"PubMed {key} train epochs"] = launches
+        per_step[f"PubMed {key}"] = {k: v / steps
+                                     for k, v in launches.items()}
+        ref = PUBMED_REFERENCE_F1[key]
+        print(f"formats: PubMed {label}: best val micro-F1 {max(curve):.4f} "
+              f"against the JAX package's {ref:.4f} on the CPU (fails "
+              f"below by more than {PUBMED_F1_ATOL})")
+        if max(curve) < ref - PUBMED_F1_ATOL:
+            fail(f"PubMed {label}: val micro-F1 {max(curve):.4f} below the "
+                 f"reference {ref:.4f} by more than {PUBMED_F1_ATOL}")
+        if key == "NS+PP" and results is not None:
+            _sparse_layer_kernels(tr, results)
+        else:
+            ids = np.asarray(ds.test_d)
+            live = tr.predict(ids)
+            served, per_request, _ = _serve_from_artifact(
+                f"PubMed {label} artifact", tr, [ids] * REQUESTS,
+                [live] * REQUESTS, tmp, exact_ids=ids)
+            paths["PubMed served requests (artifact)"] = served
+        del tr
+    return paths, per_step, per_request
+
+
+def phase_ppi(tmp: str, device: str = "cuda", fixture=PPI_FIXTURE,
+              cfg_kw=PPI_CFG, serve_ids: int = PPI_SERVE_IDS):
+    """The GraphSAGE JSON format at PPI's size (multi-label, 121 labels):
+    ``configs/ppi.sh``'s flags with the CV recipe for one timed epoch (the
+    CV kernels on 2048-byte float32 eval rows), its launches a step checked
+    exactly; then the trained model exported and ``PPI_SERVE_IDS`` test
+    ids served from the artifact.  Returns ({path: launches}, launches a
+    step, launches per request)."""
+    os.makedirs(tmp, exist_ok=True)
+    prefix = os.path.join(tmp, "ppi")
+    t0 = time.perf_counter()
+    write_graphsage_fixture(prefix, **fixture)
+    write_s = time.perf_counter() - t0
+    cfg = Config(**cfg_kw, data_dir=tmp, ckpt_dir=tmp)
+    t0 = time.perf_counter()
+    ds = load_data(cfg)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, ds, device=device)
+    setup_s = time.perf_counter() - t0
+    hist = tr.eval_histories[0][0]
+    print(f"formats: PPI-sized GraphSAGE files: {ds.num_data} nodes, "
+          f"{ds.feature_dim} features, {ds.num_classes} labels "
+          f"(multitask {cfg.multitask}), {ds.full_adj.nnz} edges; written "
+          f"in {write_s:.2f} s, loaded in {load_s:.2f} s (host); Trainer "
+          f"set-up {setup_s:.2f} s, graph padded to "
+          f"{tr.graph_full.pad_degree}, eval history {list(hist.shape)} "
+          f"{str(hist.dtype)[6:]} ({hist.shape[1] * hist.element_size()}-"
+          f"byte rows)")
+    if tr.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sync(tr.device)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    loss, _, _, steps = tr.train_epoch()
+    _sync(tr.device)
+    secs = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    f1 = tr.evaluate(ds.val_d)[2]
+    print(f"formats: PPI CV+PP: one epoch of {steps} steps in {secs:.3f} s "
+          f"-> {1e3 * secs / steps:.3f} ms/step (first epoch: one-time "
+          f"warm-up included); last loss {loss:.5f}; val micro-F1 {f1:.4f}; "
+          f"peak device memory {_peak_gib(tr.device):.3f} GiB; kernel "
+          f"launches {launches} = "
+          f"{ {k: v / steps for k, v in launches.items()} } per step")
+    if not np.isfinite(loss):
+        fail(f"PPI: non-finite training loss {loss}")
+    check_launches("the PPI CV+PP train epoch", launches, {
+        k: v * steps for k, v in STEP_LAUNCHES["CV+PP"].items()})
+    ids = np.asarray(ds.test_d[:serve_ids])
+    live = tr.predict(ids)
+    served, per_request, _ = _serve_from_artifact(
+        "PPI CV+PP artifact", tr, [ids] * REQUESTS, [live] * REQUESTS, tmp,
+        exact_ids=ids)
+    return ({"PPI CV+PP train epoch": launches,
+             "PPI served requests (artifact)": served},
+            {k: v / steps for k, v in launches.items()}, per_request)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
@@ -1810,7 +2216,7 @@ def main() -> None:
     phase_train_kernels(tr, kernels)
     phase_profile(tr)
     phase_activation_stats(tr)
-    served, per_request = phase_slice(tr)
+    served, per_request, art, art_per_request = phase_slice(tr)
     del tr
     is_paths = phase_importance(ds, kernels)
     del ds
@@ -1818,16 +2224,30 @@ def main() -> None:
     estimator_paths, per_step = phase_estimators(sbm, cv_tr, cv_curve,
                                                  results=kernels)
     phase_mlp(sbm)
+    del sbm, cv_tr
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        pubmed_paths, pubmed_steps, pubmed_request = phase_pubmed(
+            os.path.join(tmp, "pubmed"), kernels)
+        ppi_paths, ppi_step, ppi_request = phase_ppi(
+            os.path.join(tmp, "ppi"))
     per_step["CV+PP"] = {name: count / steps
                          for name, count in launches.items()}
+    per_step.update(pubmed_steps)
+    per_step["PPI CV+PP"] = ppi_step
     # the counted paths: each had the counters at 0 just before it and was
     # read just after
     paths = {"train epoch": launches, "served requests": served,
-             "Exact evaluation": exact, **is_paths, **estimator_paths}
+             "served requests (artifact)": art,
+             "Exact evaluation": exact, **is_paths, **estimator_paths,
+             **pubmed_paths, **ppi_paths}
     total = {name: sum(p[name] for p in paths.values()) for name in kernels}
     idle = [name for name, count in total.items() if count == 0]
     if idle:
         fail(f"no counted path launched {idle}: {paths}")
+    requests = {"Reddit-shaped": per_request,
+                "Reddit-shaped, artifact": art_per_request,
+                "PubMed CV+PP, artifact": pubmed_request,
+                "PPI CV+PP, artifact": ppi_request}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name], "launches": total[name],
@@ -1837,9 +2257,12 @@ def main() -> None:
          "launches_by_path": {path: p[name] for path, p in paths.items()},
          "launches_per_step": launches[name] / steps,
          "launches_per_step_by_estimator": {
-             est: counts[name] for est, counts in per_step.items()},
+             est: counts.get(name, 0) for est, counts in per_step.items()},
          "launches_per_request": per_request[name],
-         "is_batches": res.get("is_batches", {})}
+         "launches_per_request_by_path": {
+             path: counts.get(name, 0) for path, counts in requests.items()},
+         "is_batches": res.get("is_batches", {}),
+         "sparse_layer_batches": res.get("sparse_layer_batches", {})}
         for name, res in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,14 @@
 
 Port of stochastic_gcn_tpu/data/graph.py for the padded layout: the whole
 graph lives on the device as static-shape ``[N+1, Dcap]`` rows (row ``N`` is
-an empty sentinel row), filled on the host with numpy.
+an empty sentinel row), filled on the host with numpy.  Sparse features
+live there the same way, as ``[N+1, nnz_cap]`` (column, value) slots
+(:class:`PaddedSparseFeatures`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -125,6 +128,59 @@ def dense_rows(x, num_nodes: Optional[int] = None, dtype=torch.float32,
     out = torch.zeros((n + 1, x.shape[1]), dtype=dtype, device=device)
     out[:x.shape[0]] = torch.from_numpy(x).to(device=device, dtype=dtype)
     return out
+
+
+@dataclass(frozen=True)
+class PaddedSparseFeatures:
+    """Row-padded sparse features: ``X[i] = sum_j val[i,j] * e_{idx[i,j]}``.
+
+    idx: [N+1, nnz_cap] int32 column ids; an empty slot holds ``dim``.
+    val: [N+1, nnz_cap] values (float32, or the features dtype); an empty
+      slot holds 0.  Row N, the sentinel node's, is empty.
+    ``X @ W`` is then ``out[i] = sum_j val[i,j] * W[idx[i,j]]``, a gather
+    of ``W``'s rows in which the sentinel column ``dim`` reads zero
+    (``ops/layers.py::matmul``)."""
+    idx: torch.Tensor
+    val: torch.Tensor
+    dim: int
+
+    def replace(self, **kw) -> "PaddedSparseFeatures":
+        return dataclasses.replace(self, **kw)
+
+
+def pad_sparse_features(x: sp.spmatrix, nnz_cap: int = 1024,
+                        num_nodes: Optional[int] = None,
+                        device="cpu") -> PaddedSparseFeatures:
+    """Pad a sparse feature matrix row-wise to ``cap = min(nnz_cap, max row
+    nnz)`` slots in CSR order.  A row with more than ``cap`` entries keeps
+    its ``cap`` largest-|value| entries, in the order of
+    ``np.argsort(-np.abs(vals))[:cap]``, the JAX package's call, so ties
+    break the same way (a documented deviation from the reference, which
+    keeps whole rows on the host).  Rows within the cap are copied all at
+    once; only the rows above it are visited one by one."""
+    x = x.tocsr()
+    n = x.shape[0] if num_nodes is None else num_nodes
+    dim = x.shape[1]
+    indptr, indices, data = x.indptr, x.indices, x.data
+    nnz = np.diff(indptr)
+    cap = int(min(nnz_cap, max(1, nnz.max() if len(nnz) else 1)))
+
+    idx = np.full((n + 1, cap), dim, dtype=np.int32)
+    val = np.zeros((n + 1, cap), dtype=np.float32)
+    row = np.repeat(np.arange(x.shape[0]), nnz)
+    short = nnz[row] <= cap
+    at = np.flatnonzero(short)
+    r, c = row[at], at - indptr[row[at]]
+    idx[r, c] = indices[at]
+    val[r, c] = data[at]
+    for r in np.flatnonzero(nnz > cap):
+        lo, hi = indptr[r], indptr[r + 1]
+        keep = np.argsort(-np.abs(data[lo:hi]))[:cap]
+        idx[r] = indices[lo:hi][keep]
+        val[r] = data[lo:hi][keep]
+    return PaddedSparseFeatures(idx=torch.from_numpy(idx).to(device),
+                                val=torch.from_numpy(val).to(device),
+                                dim=dim)
 
 
 @dataclass

@@ -3,12 +3,47 @@
 The slice of stochastic_gcn_tpu/data/preprocess.py the port needs, copied
 because that package's ``data`` modules import JAX.  ``cap_adj_degree``
 makes the JAX copy's draws, so both packages keep the same edges.
+:func:`standard_scale` stands in for scikit-learn's ``StandardScaler``,
+which the JAX loader uses and the port does not import.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+
+
+def row_normalize_features(features: sp.spmatrix) -> sp.spmatrix:
+    """Row-normalize a feature matrix: X <- D^-1 X (rowsum + 1e-9, inf ->
+    0), as gcn/utils.py:138-143."""
+    rowsum = np.asarray(features.sum(1)).flatten() + 1e-9
+    r_inv = np.power(rowsum, -1.0)
+    r_inv[np.isinf(r_inv)] = 0.0
+    return sp.diags(r_inv, 0).dot(features)
+
+
+def standard_scale(feats: np.ndarray, fit_rows: np.ndarray) -> np.ndarray:
+    """``StandardScaler().fit(feats[fit_rows]).transform(feats)`` in numpy:
+    every row standardised by the per-column mean and population standard
+    deviation of the rows ``fit_rows``, a near-constant column's deviation
+    read as 1.  As scikit-learn does it: float64 moments by the corrected
+    two-pass algorithm (Chan, Golub and LeVeque), the constant-column test
+    on the variance, then the mean and scale cast to the input's dtype and
+    applied to a copy, subtraction then division."""
+    fit = np.asarray(feats[fit_rows])
+    n = fit.shape[0]
+    mean = fit.sum(axis=0, dtype=np.float64) / n
+    temp = fit - mean
+    correction = temp.sum(axis=0)
+    var = (np.square(temp).sum(axis=0) - correction ** 2 / n) / n
+    eps = np.finfo(np.float64).eps
+    constant = var <= n * eps * var + (n * mean * eps) ** 2
+    scale = np.sqrt(var)
+    scale[constant] = 1.0
+    out = np.array(feats, copy=True)
+    out -= mean.astype(out.dtype)
+    out /= scale.astype(out.dtype)
+    return out
 
 
 def gcn_normalize_adj(adj: sp.spmatrix) -> sp.csr_matrix:
@@ -111,3 +146,39 @@ def cap_adj_degree(adj: sp.csr_matrix, max_degree: int, seed: int = 0,
 def compute_pp_features(adj: sp.csr_matrix, feats):
     """PP features: one application of the normalized adjacency, Â·X."""
     return adj.dot(feats)
+
+
+def data_augmentation(num_data, train_adj, full_adj, feats, labels,
+                      train_data, val_data, test_data, n_rep: int = 1):
+    """Block-diagonal graph replication (gcn/utils.py:416-449): ``n_rep``
+    copies of the training graph followed by one copy of the full graph;
+    train ids index the train copies, val/test ids the full copy.  Returns
+    ``(N', adj, feats, adj . feats, labels, train, val, test)``."""
+    if isinstance(feats, np.ndarray):
+        feats = np.tile(feats, [n_rep + 1, 1])
+    else:
+        feats = sp.vstack([feats] * (n_rep + 1)).tocsr()
+    labels = np.tile(labels, [n_rep + 1, 1])
+
+    train_coo = train_adj.tocoo()
+    full_coo = full_adj.tocoo()
+    rows, cols, vals = [], [], []
+    for t in range(n_rep):
+        rows.append(train_coo.row + t * num_data)
+        cols.append(train_coo.col + t * num_data)
+        vals.append(train_coo.data)
+    rows.append(full_coo.row + n_rep * num_data)
+    cols.append(full_coo.col + n_rep * num_data)
+    vals.append(full_coo.data)
+
+    big_n = num_data * (n_rep + 1)
+    adj = sp.csr_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(big_n, big_n), dtype=train_adj.dtype)
+
+    train_data = np.concatenate(
+        [train_data + t * num_data for t in range(n_rep)])
+    val_data = val_data + n_rep * num_data
+    test_data = test_data + n_rep * num_data
+    return (big_n, adj, feats, adj.dot(feats), labels,
+            train_data, val_data, test_data)

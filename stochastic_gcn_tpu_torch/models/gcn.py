@@ -16,6 +16,7 @@ from typing import Tuple, Union
 
 import torch
 
+from ..data.graph import PaddedSparseFeatures
 from ..ops import layers as L
 from ..ops.gather import row_gather
 from ..sampler.scheduler import BatchFields
@@ -216,25 +217,45 @@ def init_histories(spec: ModelSpec, num_nodes: int, row_multiple: int = 8,
 
 # ----------------------------- forward ------------------------------------
 
-def _slice_inputs(features: torch.Tensor, field0: torch.Tensor,
-                  num_nodes: int = -1) -> torch.Tensor:
-    """The layer-0 field's feature rows; sentinel ids read zero rows."""
+def _slice_inputs(features, field0: torch.Tensor, num_nodes: int = -1):
+    """The layer-0 field's feature rows; sentinel ids read zero rows.  Of
+    padded-sparse features the ``(idx, val)`` rows: an id at or above the
+    sentinel reads row N, whose slots are ``(dim, 0)``."""
+    if isinstance(features, PaddedSparseFeatures):
+        ids = field0.to(torch.int64).clamp(max=features.idx.shape[0] - 1)
+        return features.replace(idx=features.idx.index_select(0, ids),
+                                val=features.val.index_select(0, ids))
     return row_gather(features, field0, sentinel=num_nodes)
+
+
+def _densify(h: PaddedSparseFeatures) -> torch.Tensor:
+    """``[R, dim]`` float32 rows of padded-sparse ``h`` (the reference's
+    sparse_to_dense, gcn/models.py:128-133): each value added at its
+    column, the sentinel slots' zeros at column ``dim - 1``."""
+    rows = h.idx.shape[0]
+    dense = torch.zeros((rows, h.dim), dtype=torch.float32,
+                        device=h.val.device)
+    r = torch.arange(rows, device=h.val.device)[:, None].expand_as(h.idx)
+    safe = torch.clamp(h.idx, max=h.dim - 1).to(torch.int64)
+    return dense.index_put_((r, safe), h.val.float(), accumulate=True)
 
 
 def _tap(taps, label: str, h) -> None:
     """Append ``(label, mean, population std, absmax)`` of ``h`` in float32
-    (of the mean stream of a CVD ``(mu, var)`` pair) to ``taps``, a list
-    the caller owns; None taps nothing."""
+    (of the mean stream of a CVD ``(mu, var)`` pair, of the stored values
+    of padded-sparse features) to ``taps``, a list the caller owns; None
+    taps nothing."""
     if taps is None:
         return
+    if isinstance(h, PaddedSparseFeatures):
+        h = h.val
     x = (h[0] if isinstance(h, tuple) else h).detach().float()
     taps.append((label, x.mean(), torch.std(x, correction=0),
                  x.abs().max()))
 
 
 def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
-            histories, features: torch.Tensor, gen: torch.Generator,
+            histories, features, gen: torch.Generator,
             keep_prob: float, train: bool, taps=None):
     """Run the layer stack.
 
@@ -243,11 +264,18 @@ def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
     into the history buffers at those node ids.  ``taps``: a list that
     takes the moments (:func:`_tap`) of the input, labelled ``"input"``,
     and of every layer's output, labelled ``"<i>:<spec class>"`` as in the
-    JAX package."""
+    JAX package.  ``features`` is a dense ``[N+1, d]`` table or
+    :class:`PaddedSparseFeatures`; when no layer takes sparse input (no
+    preprocessing: an aggregator comes first) the sliced rows are
+    densified."""
     kp = keep_prob if train else 1.0
     h = _slice_inputs(features, pack.fields[0], graph.num_nodes)
     if spec.reverse_input_dropout and train:
         h = L.dropout(gen, h, kp)
+    if isinstance(h, PaddedSparseFeatures) and not any(
+            isinstance(s, _PARAM_SPECS) and s.sparse_inputs
+            for s in spec.specs):
+        h = _densify(h)
     _tap(taps, "input", h)
     new_histories = [None] * spec.num_agg_layers
     for i, s in enumerate(spec.specs):

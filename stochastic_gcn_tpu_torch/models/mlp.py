@@ -4,8 +4,9 @@ Port of stochastic_gcn_tpu/models/mlp.py: the features are
 ``hstack(X, ÂX, Â²X, ..., Â^num_layers X)``, built once on the host, then a
 ``num_fc_layers``-deep MLP with dropout before each dense layer.  No graph
 sampling at train time: a batch slices rows of the precomputed features,
-the degenerate all-preprocessed point of the estimator family.  Dense
-features only (sparse features are not ported yet, ROADMAP.md queue 1).
+the degenerate all-preprocessed point of the estimator family.  Sparse
+features are densified, whatever ``--dense_input`` says, as the JAX
+trainer does.
 """
 
 from __future__ import annotations
@@ -84,10 +85,6 @@ class MLPTrainer:
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("MLPTrainer(device='cuda') but CUDA is not "
                                "available")
-        if sp.issparse(ds.feats) and not cfg.dense_input:
-            raise NotImplementedError(
-                "padded-sparse features are not ported yet (ROADMAP.md, "
-                "queue 1); pass --dense_input")
         self.cfg, self.ds, self.device = cfg, ds, device
         n = ds.num_data
         feats_mh = multihop_features(ds.feats, ds.full_adj, cfg.num_layers)

@@ -1,6 +1,6 @@
 """Functional layer library.
 
-Port of stochastic_gcn_tpu/ops/layers.py (dense inputs only).  Parameters
+Port of stochastic_gcn_tpu/ops/layers.py.  Parameters
 are plain ``{name: Tensor}`` dicts with the JAX names and layout
 (``weights`` is ``[in, out]``, applied as ``x @ W``), so weights carry
 across with no transpose.  Every random draw takes an explicit
@@ -16,8 +16,11 @@ across with no transpose.  Every random draw takes an explicit
   linear, layer norm and a rectified-Gaussian ReLU
 * dropout_layer — dropout over the estimator's input type
 
-Padded-sparse inputs are not ported yet: the dual-stream and moment layers
-raise on anything but a tensor or a pair of tensors.
+Every layer that takes the input features also takes them padded-sparse
+(:class:`~..data.graph.PaddedSparseFeatures`): ``matmul`` gathers the
+weights' rows by column id (the hand-written ``fanout_aggregate`` kernel on
+the card, its plain version on the CPU), ``dropout`` masks the stored
+values, and det-dropout's variance stays padded-sparse with squared values.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ import math
 
 import torch
 
+from ..data.graph import PaddedSparseFeatures
+from .cuda_spmm import fanout_aggregate
+
 
 def glorot(gen: torch.Generator, shape) -> torch.Tensor:
     limit = math.sqrt(6.0 / (shape[0] + shape[1]))
@@ -33,9 +39,18 @@ def glorot(gen: torch.Generator, shape) -> torch.Tensor:
     return out.uniform_(-limit, limit, generator=gen)
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Dense ``x @ w``; a narrower input dtype (bfloat16 features) is
-    promoted to the weights' dtype, as JAX's mixed-precision dot does."""
+def matmul(x, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``; a narrower input dtype (bfloat16 features) is promoted to
+    the weights' dtype, as JAX's mixed-precision dot does.
+
+    For padded-sparse ``x`` the product is ``out[r] = sum_c val[r,c] *
+    w[idx[r,c]]``, the sentinel column ``dim`` reading zero: the JAX
+    package's ``take`` + ``einsum``, here :func:`fanout_aggregate` with
+    ``w`` as the table (``[dim, out]``; a position ``>= dim`` reads as a
+    zero row), ``idx`` as the positions and the values in float32 as the
+    slot weights.  It is differentiable in ``w``."""
+    if isinstance(x, PaddedSparseFeatures):
+        return fanout_aggregate(w, x.idx, x.val.float())
     return x.to(w.dtype) @ w
 
 
@@ -47,11 +62,14 @@ def layer_norm(x: torch.Tensor, offset: torch.Tensor, scale: torch.Tensor,
     return (x - mean) * torch.rsqrt(var + eps) * scale + offset
 
 
-def dropout(gen: torch.Generator, x: torch.Tensor,
-            keep_prob: float) -> torch.Tensor:
-    """Inverted dropout; the identity at ``keep_prob >= 1``."""
+def dropout(gen: torch.Generator, x, keep_prob: float):
+    """Inverted dropout; the identity at ``keep_prob >= 1``.  Padded-sparse
+    ``x`` keeps its columns and drops stored values, as the reference's
+    sparse_dropout over the nonzeros (gcn/layers.py:23-28)."""
     if keep_prob >= 1.0:
         return x
+    if isinstance(x, PaddedSparseFeatures):
+        return x.replace(val=dropout(gen, x.val, keep_prob))
     keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
     return torch.where(keep, x, 0.0) * (1.0 / keep_prob)
 
@@ -72,14 +90,6 @@ def dense(params: dict, x: torch.Tensor, act, norm: bool) -> torch.Tensor:
     return act(out)
 
 
-def _dense_only(*xs) -> None:
-    for x in xs:
-        if not isinstance(x, torch.Tensor):
-            raise NotImplementedError(
-                f"{type(x).__name__} inputs (padded-sparse features) are not "
-                "ported yet (ROADMAP.md, queue 1); pass --dense_input")
-
-
 def init_aug_dense(gen: torch.Generator, input_dim: int, output_dim: int,
                    norm: bool) -> dict:
     return init_dense(gen, input_dim, output_dim, norm)
@@ -90,7 +100,6 @@ def aug_dropout_dense(params: dict, gen: torch.Generator, inputs,
     """``(act(norm(dropout(x) @ W)), act(norm(mu @ W)).detach())`` for
     ``inputs = (x, mu)``, or ``x = mu = inputs`` for a single tensor."""
     x, mu = inputs if isinstance(inputs, tuple) else (inputs, inputs)
-    _dense_only(x, mu)
     x = matmul(dropout(gen, x, keep_prob), params["weights"])
     mu = matmul(mu, params["weights"])
     if norm:
@@ -110,7 +119,9 @@ _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 def det_dropout_fc(params: dict, inputs, keep_prob: float, norm: bool):
     """Moments ``(mu, var)`` of ``relu(norm(dropout(h) @ W))`` for an input
     with moments ``inputs = (mu, var)``, or a deterministic input tensor
-    (variance ``(1-p)/p * h^2`` from the dropout alone).
+    (variance ``(1-p)/p * h^2`` from the dropout alone; for padded-sparse
+    ``h`` the variance is padded-sparse too, with squared values, and its
+    linear step gathers the rows of ``W^2``).
 
     The 1.2 variance factor, the 1e-10 epsilons (layer norm, shared by the
     variance path so all-zero sentinel rows stay finite) and the 1e-20
@@ -118,11 +129,12 @@ def det_dropout_fc(params: dict, inputs, keep_prob: float, norm: bool):
     p = keep_prob
     if isinstance(inputs, tuple):
         mu, var = inputs
-        _dense_only(mu, var)
         mu2 = mu.square()
         var = (var + mu2) / p - mu2
+    elif isinstance(inputs, PaddedSparseFeatures):
+        mu = inputs
+        var = inputs.replace(val=(1.0 - p) / p * inputs.val.square())
     else:
-        _dense_only(inputs)
         mu = inputs
         var = (1.0 - p) / p * inputs.square()
 

@@ -23,7 +23,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..data.graph import Dataset, dense_rows, pad_csr
+from ..data.graph import Dataset, dense_rows, pad_csr, pad_sparse_features
 from ..data.preprocess import cap_adj_degree
 from ..models import gcn as M
 from ..sampler.scheduler import MinibatchIterator, compute_importance
@@ -48,13 +48,16 @@ def assemble_input_features(cfg, feats, nbr_feats, preprocess: bool):
     return out, sparse_input
 
 
-def to_device_features(cfg, feats, num_nodes: int, device) -> torch.Tensor:
+def to_device_features(cfg, feats, num_nodes: int, device):
+    """The ``[N+1, ...]`` feature table on ``device`` in
+    ``cfg.features_dtype``: sparse features padded to ``cfg.feat_nnz_cap``
+    slots a row (:func:`pad_sparse_features`, values cast), unless
+    ``--dense_input`` densifies them as it does dense ones."""
+    dtype = S.DTYPES[cfg.features_dtype]
     if sp.issparse(feats) and not cfg.dense_input:
-        raise NotImplementedError(
-            "padded-sparse features are not ported yet (ROADMAP.md, "
-            "queue 1); pass --dense_input")
-    return dense_rows(feats, num_nodes, dtype=S.DTYPES[cfg.features_dtype],
-                      device=device)
+        pf = pad_sparse_features(feats, cfg.feat_nnz_cap, num_nodes, device)
+        return pf.replace(val=pf.val.to(dtype))
+    return dense_rows(feats, num_nodes, dtype=dtype, device=device)
 
 
 def _refuse_unported(cfg) -> None:

@@ -1,5 +1,5 @@
-"""F1 metrics from per-class counters, and the gradient-variance
-accumulator.
+"""F1 metrics from per-class counters, the trailing-window averager, and
+the gradient-variance accumulator.
 
 Port of stochastic_gcn_tpu/utils/metrics.py without scikit-learn: the
 counters are taken on the device and the F1 scores follow sklearn's
@@ -70,6 +70,23 @@ def calc_f1(y_pred, y_true, multitask: bool) -> tuple[float, float]:
         t = y_true.argmax(axis=1)[:, None] == cls[None, :]
     return f1_from_counts((p & t).sum(0), (p & ~t).sum(0), (~p & t).sum(0),
                           multitask)
+
+
+class Averager:
+    """Trailing-window mean of the last ``window_size`` values
+    (gcn/utils.py:507-518); NaN before the first."""
+
+    def __init__(self, window_size: int):
+        self.window_size = window_size
+        self.window: list[float] = []
+
+    def add(self, n) -> None:
+        self.window.append(float(n))
+        if len(self.window) > self.window_size:
+            self.window = self.window[1:]
+
+    def mean(self) -> float:
+        return float(np.mean(self.window)) if self.window else float("nan")
 
 
 class Stat:

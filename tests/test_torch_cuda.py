@@ -861,3 +861,85 @@ def test_importance_train_steps_on_card_match_cpu(cuda, name):
                                    cpu[0].params[l][k], rtol=0, atol=1e-4)
     assert abs(gpu[0].evaluate(ds.val_d)[0]
                - cpu[0].evaluate(ds.val_d)[0]) <= 1e-4
+
+
+# --------------------- padded-sparse features, serving ---------------------
+
+def _sparse_first_layer(seed, rows, dim, k, hidden, dev):
+    """Padded-sparse rows as ``pad_sparse_features`` gives them (sentinel
+    column ``dim`` in the empty slots) and a ``[dim, hidden]`` weight."""
+    import scipy.sparse as sp
+    from stochastic_gcn_tpu_torch.data.graph import pad_sparse_features
+    rng = np.random.default_rng(seed)
+    x = sp.random(rows, dim, density=min(1.0, 0.7 * k / dim),
+                  random_state=seed, format="csr", dtype=np.float64)
+    x.data = rng.normal(size=x.nnz)
+    feats = pad_sparse_features(x, k, device=dev)
+    w = torch.from_numpy(rng.normal(size=(dim, hidden)).astype(np.float32))
+    return feats, w.to(dev)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows, dim, k, hidden", [
+    (2000, 500, 300, 32),          # PubMed's width, hundreds of nonzeros
+    (300, 1433, 40, 16),           # Cora's width
+    (257, 50, 64, 512),            # PPI's hidden width
+])
+def test_sparse_first_layer_kernels_match_plain_on_card(cuda, rows, dim, k,
+                                                        hidden):
+    """``matmul`` of padded-sparse rows by W on the card: one
+    ``fanout_aggregate`` over the rows of W (the sentinel column reads
+    zero) and, for the gradient in W, one ``fanout_aggregate_backward``;
+    both against the plain versions on the CPU."""
+    from stochastic_gcn_tpu_torch.ops import layers as L
+    feats, w = _sparse_first_layer(7, rows, dim, k, hidden, cuda)
+    g = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(rows + 1, hidden)).astype(np.float32))
+    wc = w.cpu().requires_grad_()
+    cpu_feats = feats.replace(idx=feats.idx.cpu(), val=feats.val.cpu())
+    want = L.matmul(cpu_feats, wc)
+    (want * g).sum().backward()
+    wg = w.clone().requires_grad_()
+    K.reset_launches()
+    got = L.matmul(feats, wg)
+    (got * g.to(cuda)).sum().backward()
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"cv_fanout_aggregate": 0, "fanout_aggregate": 1,
+                          "fanout_aggregate_backward": 1,
+                          "hbm_gather_aggregate": 0}
+    torch.testing.assert_close(got.cpu(), want.detach(), **TOL)
+    torch.testing.assert_close(wg.grad.cpu(), wc.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_predictor_on_card_equals_trainer_predict(cuda, tmp_path):
+    """A Planetoid fixture (padded-sparse PP features) trained on the card
+    for an epoch; its artifact served on the card equals
+    ``Trainer.predict`` bitwise, through the two CV kernels and the sparse
+    first layer's fanout, and repeated requests are bitwise equal."""
+    from stochastic_gcn_tpu_torch import serving
+    from stochastic_gcn_tpu_torch.data import fixtures
+    from stochastic_gcn_tpu_torch.data.loaders import load_data
+    d = str(tmp_path / "data")
+    fixtures.write_planetoid_fixture(d, fixtures.PlanetoidSpec(
+        name="pubmed", num_extra=600, num_test=100, feature_dim=60,
+        num_classes=3))
+    cfg = Config(dataset="pubmed", data_dir=d, cv=True, test_cv=True,
+                 degree=1, test_degree=1, batch_size=100,
+                 test_batch_size=64, ckpt_dir=str(tmp_path))
+    ds = load_data(cfg)
+    tr = Trainer(cfg, ds, device=cuda)
+    tr.train_epoch()
+    ids = np.asarray(ds.test_d)
+    path = serving.export_predictor(tr, str(tmp_path / "art"))
+    live = tr.predict(ids)
+    pred = serving.load_predictor(path, device=cuda)
+    K.reset_launches()
+    got = pred.predict(ids)
+    assert K.LAUNCHES["fanout_aggregate"] > 0, K.LAUNCHES
+    assert K.LAUNCHES["cv_fanout_aggregate"] > 0, K.LAUNCHES
+    assert K.LAUNCHES["hbm_gather_aggregate"] > 0, K.LAUNCHES
+    np.testing.assert_array_equal(got, live)
+    np.testing.assert_array_equal(pred.predict(ids[::-1]), got[::-1])
+    cpu = serving.load_predictor(path, device="cpu").predict(ids)
+    np.testing.assert_allclose(got, cpu, rtol=0, atol=1e-5)

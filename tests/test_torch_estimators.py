@@ -377,8 +377,16 @@ def test_dropout_layer_samples_the_moments():
     se = torch.sqrt(want_var / 40000)
     assert ((x.mean(0) - mu[0]).abs() < 5 * se).all()
     assert ((x.var(0) - want_var).abs() < 0.05 * want_var).all()
-    with pytest.raises(NotImplementedError, match="padded-sparse"):
-        L.det_dropout_fc({"weights": torch.eye(3)}, object(), 0.8, False)
+    # a padded-sparse input takes the layer's sparse branch: the moments of
+    # the dense input it stands for
+    dense = torch.tensor([[0.5, 0.0, -2.0], [0.0, 0.0, 0.0]])
+    sparse = G.PaddedSparseFeatures(
+        idx=torch.tensor([[2, 0], [3, 3]], dtype=torch.int32),
+        val=torch.tensor([[-2.0, 0.5], [0.0, 0.0]]), dim=3)
+    w = {"weights": torch.arange(6.0).reshape(3, 2) / 6}
+    for got, want in zip(L.det_dropout_fc(w, sparse, 0.8, False),
+                         L.det_dropout_fc(w, dense, 0.8, False)):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
 
 
 def test_init_aliases_match_init_dense():

@@ -659,6 +659,22 @@ def test_multihop_features_match_jax(mlp_setup, sparse):
                                   want.toarray() if sparse else want)
 
 
+def test_mlp_trainer_takes_sparse_features_like_jax(mlp_setup):
+    """Sparse features without ``--dense_input``: both MLP trainers densify
+    the multi-hop matrix (the JAX one through ``dense_rows``), to the same
+    values, and train on it."""
+    cfg, ds = mlp_setup
+    ds = dataclasses.replace(ds, feats=sp.csr_matrix(ds.feats))
+    assert not cfg.dense_input
+    jt = JMlp.MLPTrainer(cfg, ds)
+    pt = Mlp.MLPTrainer(port_cfg(cfg), ds, device="cpu")
+    assert pt.features.dtype == torch.float32
+    np.testing.assert_array_equal(N(pt.features), np.asarray(jt.features))
+    assert pt.spec == jt.spec
+    loss, _ = pt.train_epoch()
+    assert np.isfinite(loss)
+
+
 def _mlp_pair(cfg, ds):
     jt = JMlp.MLPTrainer(cfg, ds)
     pt = Mlp.MLPTrainer(port_cfg(cfg), ds, device="cpu")
