@@ -142,6 +142,32 @@ Phases, one or more lines each:
    checked exactly, then 2048 test ids served from its artifact with the
    same checks.  Phase 5 also serves its 3 requests from an artifact of the
    trained Reddit-shaped model, bitwise equal to ``Trainer.predict``'s.
+9. fullterm — the other forms of the CV full-neighbourhood term, each
+   through ``hbm_gather_aggregate`` and ``cv_fanout_aggregate``:
+   ``--lazy_fullterm`` at the Reddit-shaped recipe beside the per-step
+   term at batch 512 and 4096 (a warm-up and a counted epoch each: a lazy
+   step launches no full term, a lazy epoch one a-bar call; the a-bar
+   build timed alone, its rows held against the per-step term on 4 real
+   fields, the a-bar kernel call over every row against its plain
+   version), after phase 5; ``ema_aggregate`` on a real SBM batch (one
+   fanout launch) and lazy CV+PP to 0.90 on the SBM, then lazy CVD+PP and
+   det-dropout+PP for an epoch (the squared a-bar table checked), after
+   phase 7; then the SBM without its degree cap (max degree 1,243):
+   padded, edge-list with a covering budget and with the auto budget,
+   CV+PP for 3 epochs each (one train step of the covering edge list from
+   the padded arm's state within 1e-5, val micro-F1, the mean of 3 runs
+   an arm, within 0.01 and 0.02,
+   the auto budget dropping at most 0.1% of the edges, device graph bytes
+   and peak memory), 2 x 2048 test ids served from the edge-list artifact
+   (bitwise), the a-bar build on both train graphs, and the full term on
+   real fields as edge-list windows (K=576) against padded rows (K=1243)
+   at F=512 and 1024; then the two-tier term at batch 4096 (the gate
+   lowered to that batch for the phase) on both layouts: tiered and
+   untiered epochs in turns, the tiered term against the untiered call on
+   4 real fields and on a forced overflow, both timed on the host clock,
+   and the main, tail and untiered kernel calls timed on the device; and
+   the gate sweep: the full term on the full graph over fields of 4,096
+   to 131,072 rows, tiered against untiered, on the host clock.
 
 The line before the last is a JSON object describing the kernels (times in
 device ms per call on real batches of the path that launches the kernel,
@@ -149,14 +175,20 @@ device ms per call on real batches of the path that launches the kernel,
 ``library_ms``, ``replaced_ms`` where the kernel took over a composition;
 ``launches`` summed over the counted paths, the train epoch, the
 served requests, the Exact evaluation, one train epoch of each of CVD+PP,
-Exact and det-dropout+PP, the PubMed and PPI arms and the requests served
-from the three artifacts, and apart per train step of each estimator and
-per request of each serving path; the sparse first layer's cases under
-``sparse_layer_batches``); the last is ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
+Exact and det-dropout+PP, the PubMed and PPI arms, the requests served
+from the four artifacts and the full-term phase's epochs, and apart per
+train step of each estimator and per request of each serving path; the
+sparse first layer's cases under ``sparse_layer_batches``; the full-term
+phase's kernel cases under ``fullterm_cases`` with ``launch_floor_ms``,
+the tier's host-clock times under ``tier_wall_ms`` and the a-bar builds
+under ``lazy_anchor_ms``); the last is ``{"ok": true, "device":
+{...}}``.  Any failed check exits non-zero.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import re
@@ -176,7 +208,9 @@ from stochastic_gcn_tpu_torch.config import Config
 from stochastic_gcn_tpu_torch.data.fixtures import (PlanetoidSpec,
                                                     write_graphsage_fixture,
                                                     write_planetoid_fixture)
-from stochastic_gcn_tpu_torch.data.graph import (PaddedSparseFeatures,
+from stochastic_gcn_tpu_torch.data.graph import (FlatGraph,
+                                                 PaddedSparseFeatures,
+                                                 flat_row_windows,
                                                  graph_rows,
                                                  pad_sparse_features)
 from stochastic_gcn_tpu_torch.data.loaders import (community_sbm_dataset,
@@ -195,6 +229,7 @@ from stochastic_gcn_tpu_torch.sampler.scheduler import (PARKED_POS,
                                                         is_select, schedule)
 from stochastic_gcn_tpu_torch.serving import (export_predictor,
                                               load_predictor)
+from stochastic_gcn_tpu_torch.training import step as St
 from stochastic_gcn_tpu_torch.training.loop import Trainer
 
 ROOT = Path(__file__).resolve().parent
@@ -310,6 +345,52 @@ PPI_SERVE_IDS = 2048
 # what a padded-sparse first layer adds to a train step: the fanout over
 # the rows of W, and its backward for the gradient in W
 SPARSE_LAYER = {"fanout_aggregate": 1, "fanout_aggregate_backward": 1}
+# the other forms of the full term.  The convergence SBM without its degree
+# cap: power-law hubs trained without --pad_degree, the edge-list layout's
+# case; evaluated as served (test degree 1, test_cv), so that exhaustive
+# evaluation of 1,243-wide rows does not dominate the run
+UNCAPPED_SBM_KW = {**SBM_KW, "max_degree": -1}
+FULLTERM_CFG = {**CONVERGE_CFG, "pad_degree": -1, "test_degree": 1}
+FULLTERM_EPOCHS = 3
+# each arm's val micro-F1 is the mean of this many runs from the same seed:
+# two runs of one arm differ (which write of a repeated field id lands in
+# the history, and the backward's atomics, are unordered on the card), by
+# more than COVER_F1_ATOL at 3 epochs in one run of three
+FULLTERM_REPEATS = 3
+# an edge budget that covers every edge: edge_cap_per_row = max_degree
+COVER_EDGE_MULT = 1e9
+COVER_F1_ATOL, AUTO_F1_ATOL = 0.01, 0.02
+AUTO_TRUNCATED_MAX = 0.001   # the auto budget covers 99.9% of the edges
+STEP_ATOL = 1e-5             # one step of two layouts: logits and params
+FULLTERM_SERVE_IDS = 2048
+# the two-tier term's phase: the train field at batch 4096, with the gate
+# lowered to it; then the full term on fields of these many rows of the
+# full graph, tiered against untiered, which places the gate
+TIER_BATCH = 4096
+TIER_SWEEP_ROWS = (4096, 16384, 65536, 131072)
+# a-bar builds a device-time window: an edge list's build is ~110 launches,
+# and a window's launches must fit in the queue of pending launches
+ABAR_DEVICE_CALLS = 2
+TIER_LAUNCHES = {"cv_fanout_aggregate": 1, "hbm_gather_aggregate": 2,
+                 "fanout_aggregate_backward": 1}
+LAZY_BATCHES = (512, 4096)
+# --lazy_fullterm: launches a step, and once an epoch (the a-bar tables,
+# one per history table)
+LAZY_LAUNCHES = {
+    "lazy CV+PP": ({"cv_fanout_aggregate": 1, "fanout_aggregate_backward": 1},
+                   {"hbm_gather_aggregate": 1}),
+    "lazy CVD+PP": ({"cv_fanout_aggregate": 1, "fanout_aggregate": 1,
+                     "fanout_aggregate_backward": 1},
+                    {"hbm_gather_aggregate": 1}),
+    "lazy det-dropout+PP": ({"cv_fanout_aggregate": 1, "fanout_aggregate": 2,
+                             "fanout_aggregate_backward": 3},
+                            {"hbm_gather_aggregate": 2}),
+}
+# the JAX package's lazy CV+PP on the CPU at CONVERGE_CFG on the capped SBM
+# (scripts/lazy_reference_f1.py --epochs 15): 0.90 first at epoch 7, best
+# 0.9466 in 15; the card must reach CONVERGE_F1 in CONVERGE_EPOCHS
+LAZY_REFERENCE = {"first_epoch": 7, "best": 0.9466}
+EMA_ALPHA = 0.3
 
 
 def kernel_bytes(kind: str, live_rows: float, row_bytes: int, f: int,
@@ -2192,6 +2273,716 @@ def phase_ppi(tmp: str, device: str = "cuda", fixture=PPI_FIXTURE,
             {k: v / steps for k, v in launches.items()}, per_request)
 
 
+def _graph_bytes(g) -> int:
+    """Device bytes of a graph's tensors."""
+    return sum(t.numel() * t.element_size() for t in vars(g).values()
+               if isinstance(t, torch.Tensor))
+
+
+def _degree_line(adj) -> str:
+    deg = np.diff(adj.indptr)
+    return (f"{adj.shape[0]} nodes, {adj.nnz} edges, mean degree "
+            f"{deg.mean():.1f}, max {deg.max()}, p99 "
+            f"{np.percentile(deg, 99):.0f}, p99.9 "
+            f"{np.percentile(deg, 99.9):.0f}")
+
+
+def _graph_line(tr: Trainer) -> str:
+    parts = []
+    for name, g in (("train", tr.graph_train), ("full", tr.graph_full)):
+        if isinstance(g, FlatGraph):
+            shape = (f"edge list, budget {g.edge_cap_per_row} of max degree "
+                     f"{g.max_degree}, truncated {g.truncated_frac}")
+        else:
+            shape = f"padded to {g.pad_degree}"
+        parts.append(f"{name} graph {shape}, tier_w {g.tier_w} (tier_frac "
+                     f"{g.tier_frac:.3f}), {_graph_bytes(g) / 1e6:.1f} MB on "
+                     f"the device")
+    return "; ".join(parts)
+
+
+def _counted_epoch(label: str, tr: Trainer, per_step: dict,
+                   per_epoch: dict | None = None):
+    """One train epoch of ``tr`` with the counters reset just before it and
+    read just after, timed; fails unless it launched exactly ``per_step``
+    a step plus ``per_epoch`` once, and its loss is finite.  Returns
+    (launches, steps, ms/step, loss)."""
+    _sync(tr.device)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    loss, _, _, steps = tr.train_epoch()
+    _sync(tr.device)
+    secs = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    expected = {k: v * steps for k, v in per_step.items()}
+    for k, v in (per_epoch or {}).items():
+        expected[k] = expected.get(k, 0) + v
+    if not np.isfinite(loss):
+        fail(f"{label}: non-finite training loss {loss}")
+    check_launches(f"a {label} train epoch", launches, expected)
+    return launches, steps, 1e3 * secs / steps, loss
+
+
+def _wall_ms(fn, calls: int = 16) -> float:
+    """Host time per call of ``fn(i)`` ending in a synchronise: for calls
+    that read a value on the host (the two-tier term's big-row count), which
+    ``_device_ms`` cannot queue behind its spin."""
+    for i in range(2):
+        fn(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn(i)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
+def _profiled(fn):
+    """One call of ``fn()`` under ``torch.profiler``, after a warm-up call:
+    (device kernel ms, device kernels, {CUDA runtime call: count}, the
+    three kernels of most device time as (name, ms, count)), the runtime
+    calls naming any allocation or synchronisation the call makes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    runtime = {e.key: e.count for e in events
+               if e.device_type == DeviceType.CPU and e.key.startswith("cu")}
+    top = [(e.key[:70], dev_us(e) / 1e3, e.count)
+           for e in sorted(kernels, key=dev_us, reverse=True)[:3]]
+    # None where the profiler recorded no device time (not measured)
+    return (sum(dev_us(e) for e in kernels) / 1e3 if kernels else None,
+            sum(e.count for e in kernels), runtime, top)
+
+
+def _ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def _fullterm_case(results: dict, case: str, table, sets,
+                   floor_ms: float) -> dict:
+    """``hbm_gather_aggregate`` on ``sets`` over ``table`` against its plain
+    version, timed with its bound and ``embedding_bag``; printed and kept
+    under ``results["hbm_gather_aggregate"]["fullterm_cases"]`` with the
+    empty launch's time in the same phase."""
+    res = _compare(f"full term {case}", K.hbm_gather_aggregate,
+                   K.hbm_gather_aggregate_ref, table, sets, True,
+                   library=_library_gather)
+    _report(results, "hbm_gather_aggregate", case, res)
+    results["hbm_gather_aggregate"].setdefault("fullterm_cases", {})[case] = {
+        **{key: res.get(key) for key in (*MAIN_KEYS, "live", "distinct")},
+        "launch_floor_ms": floor_ms}
+    return res
+
+
+def _edgelist_slots(g: FlatGraph, field, width: int, start: int = 0):
+    """The edge-list full term's (neighbour, weight) windows of ``field``,
+    renormalised as ``full_neighborhood_mean_edgelist`` gives them."""
+    nbr, w, _ = flat_row_windows(g, field, width, start=start)
+    return nbr, A._apply_renorm(w, g, field)
+
+
+def _same_step(a: Trainer, b: Trainer, state, batch) -> tuple:
+    """One train step of ``a`` and of ``b`` on ``batch``, each from a copy
+    of ``state`` with generators seeded alike; fails unless the two
+    schedules are equal.  Returns the largest difference of the logits and
+    of the updated parameters."""
+    outs = []
+    for tr in (a, b):
+        st = copy.deepcopy(state)
+        dev = tr.device
+        pack = schedule(torch.Generator(device=dev).manual_seed(11),
+                        tr.graph_train, batch, tr.train_degrees, True,
+                        dedup=tr.cfg.field_dedup)
+        with torch.no_grad():
+            logits, _ = M.forward(st.params, tr.train_spec, pack,
+                                  tr.graph_train, st.histories,
+                                  tr.train_features,
+                                  torch.Generator(device=dev).manual_seed(12),
+                                  tr.cfg.keep_prob, train=True)
+        step = St.build_train_step(tr.cfg, tr.train_spec, tr.train_degrees,
+                                   tr.ds.num_data)
+        st, _ = step(st, tr.graph_train, tr.train_features, tr.labels, batch,
+                     torch.Generator(device=dev).manual_seed(12), pack=pack)
+        outs.append((pack, logits, st.params))
+    (pa, la, qa), (pb, lb, qb) = outs
+    for fa, fb in zip(pa.fields, pb.fields):
+        if not torch.equal(fa, fb):
+            fail("the padded and edge-list schedules differ")
+    return ((la - lb).abs().max().item(),
+            max((qa[l][k] - qb[l][k]).abs().max().item()
+                for l in qa for k in qa[l]))
+
+
+def phase_edgelist(results: dict, device: str = "cuda",
+                   sbm_kw=UNCAPPED_SBM_KW, cfg_kw=FULLTERM_CFG,
+                   epochs: int = FULLTERM_EPOCHS,
+                   repeats: int = FULLTERM_REPEATS,
+                   serve_ids: int = FULLTERM_SERVE_IDS,
+                   batches: int = 4, widths=(512, 1024)):
+    """The edge-list layout on the uncapped SBM at full width (CV+PP, batch
+    512): the padded graph, an edge list whose budget covers every edge and
+    one with the auto budget, ``epochs`` epochs each, the second counted
+    (launches a step exactly the padded CV+PP step's).  Fails unless one
+    train step of the covering arm from the padded arm's trained state
+    gives its logits and parameters within ``STEP_ATOL``, the covering
+    arm's val micro-F1 after ``epochs`` epochs (the mean of ``repeats``
+    runs of each arm) lies within ``COVER_F1_ATOL`` of the padded arm's and
+    the auto arm's within ``AUTO_F1_ATOL``, the auto budget drops at most
+    ``AUTO_TRUNCATED_MAX`` of the edges, and two requests of ``serve_ids``
+    test ids served from the auto arm's artifact equal
+    ``Trainer.predict``'s bitwise.  Then the full term on the edge list's
+    windows of ``batches`` real validation fields against the padded rows
+    of the same fields, F in ``widths``.  Returns (the dataset, {path:
+    launches}, {estimator: launches a step}, {path: launches a request})."""
+    t0 = time.perf_counter()
+    ds = community_sbm_dataset(**sbm_kw)
+    print(f"fullterm: uncapped SBM built in {time.perf_counter() - t0:.2f} s;"
+          f" full graph {_degree_line(ds.full_adj)}; train graph "
+          f"{_degree_line(ds.train_adj)}")
+    arms = {"padded": {},
+            "edge list, covering budget": {"graph_format": "edgelist",
+                                           "fadj_edge_mult": COVER_EDGE_MULT},
+            "edge list, auto budget": {"graph_format": "edgelist"}}
+    trainers, curves, paths, per_step, finals = {}, {}, {}, {}, {}
+    for label, over in arms.items():
+        before = torch.cuda.memory_allocated() / 2 ** 30 \
+            if torch.device(device).type == "cuda" else float("nan")
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = trainers[label] = Trainer(Config(**{**cfg_kw, **over}), ds,
+                                       device=device)
+        t_setup = time.perf_counter() - t0
+        curve, counted = [], None
+        for epoch in range(epochs):
+            if epoch == 1:
+                counted = _counted_epoch(f"{label} CV+PP", tr,
+                                         STEP_LAUNCHES["CV+PP"])
+            else:
+                tr.train_epoch()
+            curve.append(tr.evaluate(ds.val_d)[2])
+        curves[label] = curve
+        finals[label] = [curve[-1]]
+        launches, steps, ms, _ = counted
+        paths[f"{label} CV+PP train epoch (uncapped SBM)"] = launches
+        per_step[f"{label} CV+PP (uncapped SBM)"] = {
+            k: v / steps for k, v in launches.items()}
+        print(f"fullterm: {label}: set-up {t_setup:.2f} s; {_graph_line(tr)};"
+              f" truncated_edges_frac {tr.truncated_edges_frac}; "
+              f"{ms:.3f} ms/step (epoch 2, {steps} steps); peak device "
+              f"memory {_peak_gib(device):.3f} GiB ({before:.3f} GiB "
+              f"resident before the arm); val micro-F1 by epoch "
+              f"{', '.join(f'{f:.4f}' for f in curve)}")
+        for _ in range(repeats - 1):
+            # the first run's protocol: evaluation after every epoch draws
+            # from the Trainer's generator too
+            again = Trainer(Config(**{**cfg_kw, **over}), ds, device=device)
+            for _ in range(epochs):
+                again.train_epoch()
+                f1_again = again.evaluate(ds.val_d)[2]
+            finals[label].append(f1_again)
+            del again
+    tp = trainers["padded"]
+    tc = trainers["edge list, covering budget"]
+    ta = trainers["edge list, auto budget"]
+    if tc.graph_train.edge_cap_per_row != tc.graph_train.max_degree:
+        fail("the covering budget does not cover every edge")
+    batch = torch.from_numpy(tp._batch_matrix(
+        ds.train_d[:tp.cfg.batch_size], tp.cfg.batch_size,
+        ds.num_data)[0]).to(tp.device)
+    dl, dp = _same_step(tp, tc, tp.state, batch)
+    print(f"fullterm: one train step from the padded arm's trained state, "
+          f"padded against the covering edge list: max |logits diff| "
+          f"{dl:.3e}, max |params diff| {dp:.3e} (atol {STEP_ATOL})")
+    if not (dl <= STEP_ATOL and dp <= STEP_ATOL):
+        fail("one train step differs between the padded and edge-list "
+             "layouts")
+    f1 = {label: statistics.fmean(v) for label, v in finals.items()}
+    print(f"fullterm: val micro-F1 after {epochs} epochs, {repeats} runs "
+          f"an arm {finals}, means {f1} (covering within {COVER_F1_ATOL} "
+          f"of padded, auto within {AUTO_F1_ATOL})")
+    if abs(f1["edge list, covering budget"] - f1["padded"]) > COVER_F1_ATOL:
+        fail("the covering edge list's val micro-F1 is not the padded one's")
+    if abs(f1["edge list, auto budget"] - f1["padded"]) > AUTO_F1_ATOL:
+        fail("the auto-budget edge list's val micro-F1 strays from padded")
+    if ta.truncated_edges_frac > AUTO_TRUNCATED_MAX:
+        fail(f"the auto budget drops {ta.truncated_edges_frac} of the edges")
+
+    requests = [ds.test_d[i * serve_ids:(i + 1) * serve_ids]
+                for i in range(2)]
+    live = [ta.predict(r) for r in requests]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        art, art_per_request, _ = _serve_from_artifact(
+            "uncapped SBM, edge list (auto budget)", ta, requests, live, tmp)
+    paths["edge-list requests (artifact)"] = art
+    check_launches("edge-list serving from the artifact", art, {
+        "cv_fanout_aggregate": None, "hbm_gather_aggregate": None})
+
+    # the full term on real fields: edge-list windows against padded rows
+    floor_ms = _device_ms(lambda i: K.empty_launch(device))
+    hist = ta.state.histories[0][0]
+    for label, g in (("edge list, auto budget", ta.graph_train),
+                     ("padded", tp.graph_train)):
+        # the build on the host clock, as a lazy epoch pays it; then its
+        # device time alone
+        build = _wall_ms(lambda i, g=g: A.full_abar(hist, g, ds.num_data),
+                         calls=4)
+        calls = (-(-(ds.num_data + 1) // A.ABAR_CHUNK)
+                 if isinstance(g, FlatGraph) else 1)
+        print(f"fullterm: a-bar build on the uncapped train graph, {label} "
+              f"({calls} kernel calls): {build:.4f} ms a table, host clock "
+              f"with synchronise", flush=True)
+        results["hbm_gather_aggregate"].setdefault("lazy_anchor_ms", {})[
+            f"a-bar build, uncapped SBM train graph, {label}"] = build
+        dev_ms = _device_ms(lambda i, g=g: A.full_abar(hist, g, ds.num_data),
+                            calls=ABAR_DEVICE_CALLS)
+        prof_ms, kernels, runtime, top = _profiled(
+            lambda g=g: A.full_abar(hist, g, ds.num_data))
+        nbytes = _abar_bytes(g, hist, ds.num_data)
+        print(f"fullterm: a-bar build, {label}: device {dev_ms:.4f} ms a "
+              f"table, bound {bound_ms(nbytes, 0)[0]:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB: the graph's slots, the history and "
+              f"the table once); profiled once: {kernels} kernels recorded, "
+              f"{_ms_text(prof_ms)}, CUDA runtime calls {runtime}, most "
+              f"device time {top}", flush=True)
+        results["hbm_gather_aggregate"].setdefault("lazy_anchor_ms", {})[
+            f"a-bar build, uncapped SBM train graph, {label}, device"] = \
+            dev_ms
+    gf, gp = ta.graph_full, tp.graph_full
+    width = min(gf.edge_cap_per_row, gf.max_degree)
+    ids = torch.from_numpy(ds.val_d.astype(np.int32)).to(hist.device)
+    for f in widths:
+        fields = [ids[i * f:(i + 1) * f] for i in range(batches)]
+        _fullterm_case(results, f"edge-list windows, bf16 history "
+                       f"{list(hist.shape)} F={f} K={width} (real fields)",
+                       hist, [_edgelist_slots(gf, fld, width)
+                              for fld in fields], floor_ms)
+        _fullterm_case(results, f"padded rows, bf16 history "
+                       f"{list(hist.shape)} F={f} K={gp.pad_degree} (real "
+                       f"fields)", hist,
+                       [graph_rows(gp, fld)[:2] for fld in fields], floor_ms)
+    return ds, paths, per_step, {"uncapped SBM edge list, artifact":
+                                 art_per_request}
+
+
+def _abar_bytes(g, hist, n: int) -> float:
+    """The bytes an a-bar build must move: the graph's (neighbour, weight)
+    slots once (the padded rows, or the edge list's blocks), each history
+    row once and the ``[R, d]`` float32 table once."""
+    slots = g.idx.numel() if isinstance(g, FlatGraph) else g.nbr.numel()
+    return (8 * slots + hist.shape[0] * hist.shape[1] * hist.element_size()
+            + 4 * hist.shape[0] * hist.shape[1])
+
+
+def _tier_slots(g, field):
+    """The two-tier term's kernel inputs for ``field``: the main slots
+    ``[F, tier_w]`` and the compacted tail slots ``[big_cap, width -
+    tier_w]``, as ``full_neighborhood_mean`` builds them; and the big-row
+    count and capacity."""
+    w1, f = g.tier_w, field.shape[0]
+    ids = field.to(torch.int64)
+    if isinstance(g, FlatGraph):
+        width = min(g.edge_cap_per_row, g.max_degree)
+        deg = torch.clamp(g.deg.index_select(0, ids), max=width)
+    else:
+        width, deg = g.pad_degree, g.deg.index_select(0, ids)
+    big_cap = A._tier_cap(f, g.tier_frac)
+    pos, n_big = A._big_row_positions(deg > w1, big_cap)
+    at = torch.cat([ids, ids.new_full((1,), g.num_nodes)]).index_select(
+        0, pos.to(torch.int64))
+    if isinstance(g, FlatGraph):
+        main = _edgelist_slots(g, field, w1)
+        tail = _edgelist_slots(g, at.to(torch.int32), width - w1, start=w1)
+    else:
+        main = (g.nbr[:, :w1].index_select(0, ids),
+                g.w[:, :w1].index_select(0, ids))
+        tail = (g.nbr[:, w1:].index_select(0, at),
+                g.w[:, w1:].index_select(0, at))
+    return main, tail, int(n_big), big_cap
+
+
+def phase_tier(ds, results: dict, device: str = "cuda",
+               cfg_kw=FULLTERM_CFG, batch_size: int = TIER_BATCH,
+               batches: int = 4):
+    """The two-tier full term on the uncapped SBM at batch ``batch_size``,
+    where the train field reaches ``TIER_MIN_ROWS``: padded and edge list
+    (auto budget), a warm-up and a counted epoch each (2 full-term launches
+    a step: main and tail).  On ``batches`` real fields the tiered term
+    equals the untiered kernel call within ``KERNEL_TOL``, and a forced
+    overflow (a tail capacity below the big-row count) too; both timed on
+    the host clock in one window (the tier reads its big-row count on the
+    host), and the main and tail kernel calls on the device.  Then
+    :func:`_tier_sweep` on each layout's full graph, at the module's own
+    gate.  Returns ({path: launches}, {estimator: launches a step})."""
+    paths, per_step = {}, {}
+    floor_ms = _device_ms(lambda i: K.empty_launch(device))
+    gate = A.TIER_MIN_ROWS
+    # the port's gate lies above this batch (models/aggregators.py): lowered
+    # for this phase, which measures the tier
+    A.TIER_MIN_ROWS = batch_size
+    full = {}
+    try:
+        for label, over in (("padded", {}), ("edge list", {"graph_format":
+                                                           "edgelist"})):
+            full[label] = _tier_arm(
+                label, Config(**{**cfg_kw, **over, "batch_size": batch_size}),
+                ds, results, device, batches, floor_ms, paths, per_step)
+    finally:
+        A.TIER_MIN_ROWS = gate
+    for label, (g, hist) in full.items():
+        _tier_sweep(label, g, hist, results)
+    return paths, per_step
+
+
+def _tier_arm(label: str, cfg, ds, results: dict, device, batches: int,
+              floor_ms: float, paths: dict, per_step: dict):
+    """One layout of ``phase_tier``; returns its full graph and history
+    for :func:`_tier_sweep`."""
+    batch_size = cfg.batch_size
+    tr = Trainer(cfg, ds, device=device)
+    g = tr.graph_train
+    if g.tier_w <= 0:
+        fail(f"tier: the {label} train graph has no tier split")
+    off = dataclasses.replace(g, tier_w=-1)
+    tr.train_epoch()
+    ms_tier, ms_off = [], []
+    for tiered in (True, False, False, True):    # in turns
+        tr.graph_train = g if tiered else off
+        launches, steps, ms, _ = _counted_epoch(
+            f"{'tiered' if tiered else 'untiered'} {label} CV+PP (batch "
+            f"{batch_size})", tr,
+            TIER_LAUNCHES if tiered else STEP_LAUNCHES["CV+PP"])
+        (ms_tier if tiered else ms_off).append(ms)
+    tr.graph_train = g
+    paths[f"tiered {label} CV+PP train epoch (batch {batch_size})"] = \
+        launches
+    per_step[f"tiered {label} CV+PP (batch {batch_size})"] = {
+        k: v / steps for k, v in launches.items()}
+    print(f"tier: {label} (batch {batch_size}): train epochs in turns, "
+          f"ms/step: tiered {ms_tier}, untiered {ms_off} ({steps} steps "
+          f"an epoch)")
+    n = ds.num_data
+    bm = torch.from_numpy(tr._batch_matrix(
+        tr.train_iter.data[:batches * batch_size], batch_size,
+        n)).to(tr.device)
+    hist = tr.state.histories[0][0]
+    tiny = dataclasses.replace(g, tier_frac=1e-6)
+    worst, counts = 0.0, []
+    for field in bm:
+        want = A.full_neighborhood_mean(hist, off, field)
+        got = A.full_neighborhood_mean(hist, g, field)
+        worst = max(worst, _agree(f"tiered {label}", got, want,
+                                  *KERNEL_TOL))
+        counts.append(_tier_slots(g, field)[2:])
+    # the forced overflow: a field of the graph's big rows only, with
+    # the smallest tail capacity
+    deg = g.deg[:n]
+    if isinstance(g, FlatGraph):
+        deg = torch.clamp(deg, max=min(g.edge_cap_per_row, g.max_degree))
+    big = torch.nonzero(deg > g.tier_w).flatten().to(torch.int32)
+    over_field = big.repeat(-(-batch_size // big.shape[0]))[:batch_size]
+    n_big, cap_tiny = _tier_slots(tiny, over_field)[2:]
+    if n_big <= cap_tiny:
+        fail("tier: the forced overflow did not overflow")
+    worst = max(worst, _agree(
+        f"tiered {label}, forced overflow",
+        A.full_neighborhood_mean(hist, tiny, over_field),
+        A.full_neighborhood_mean(hist, off, over_field), *KERNEL_TOL))
+    print(f"tier: {label} (batch {batch_size}): {_graph_line(tr)}; "
+          f"launches {launches} in a tiered epoch; on "
+          f"{len(bm)} real fields of {batch_size} rows (big rows, "
+          f"capacity) {counts}; a forced overflow ({n_big} big rows, "
+          f"capacity {cap_tiny}) too: max abs err against the untiered "
+          f"call {worst:.3e}")
+    fields = list(bm)
+    t_tier, t_off = [], []
+    for order in range(2):          # tiered, untiered, untiered, tiered
+        for graph, times in ((g, t_tier), (off, t_off))[::1 - 2 * order]:
+            times.append(_wall_ms(
+                lambda i, graph=graph: A.full_neighborhood_mean(
+                    hist, graph, fields[i % len(fields)])))
+    print(f"tier: {label}: host clock with synchronise, ms per call "
+          f"(in turns): tiered {t_tier}, untiered {t_off}")
+    slots = [_tier_slots(g, fld) for fld in fields]
+    results["hbm_gather_aggregate"].setdefault("tier_wall_ms", {})[
+        label] = {"tiered": t_tier, "untiered": t_off}
+    width = g.pad_degree if not isinstance(g, FlatGraph) \
+        else min(g.edge_cap_per_row, g.max_degree)
+    untiered = [_edgelist_slots(g, fld, width) if isinstance(
+        g, FlatGraph) else graph_rows(g, fld)[:2] for fld in fields]
+    k1, k2 = slots[0][0][0].shape[1], slots[0][1][0].shape[1]
+    _fullterm_case(results, f"tier main, {label}, bf16 history "
+                   f"{list(hist.shape)} F={batch_size} K={k1} (real "
+                   f"fields)", hist, [s[0] for s in slots], floor_ms)
+    _fullterm_case(results, f"tier tail, {label}, bf16 history "
+                   f"{list(hist.shape)} F={slots[0][3]} K={k2} (real "
+                   f"fields)", hist, [s[1] for s in slots], floor_ms)
+    _fullterm_case(results, f"untiered, {label}, bf16 history "
+                   f"{list(hist.shape)} F={batch_size} K={width} (real "
+                   f"fields)", hist, untiered, floor_ms)
+    return tr.graph_full, hist
+
+
+def _tier_sweep(label: str, g, hist, results: dict,
+                sizes=TIER_SWEEP_ROWS) -> None:
+    """The full term on the full graph ``g`` over fields of ``sizes`` rows
+    (prefixes of a seeded permutation of every node, the largest tiling
+    it: what an exhaustive pass over the nodes gathers), tiered against
+    untiered: equal within ``KERNEL_TOL``, and timed in turns on the host
+    clock with synchronise (the tier reads its big-row count on the host,
+    so its calls cannot be queued behind a spin).  Where the tier is faster at
+    every size from some size on, that size is where ``TIER_MIN_ROWS``
+    belongs; printed beside the gate, not checked."""
+    n = g.num_nodes
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(n).astype(
+        np.int32)).to(hist.device)
+    off = dataclasses.replace(g, tier_w=-1)
+    gate = A.TIER_MIN_ROWS
+    A.TIER_MIN_ROWS = 0              # every swept field tiers
+    rows = {}
+    try:
+        for f in sizes:
+            field = perm.repeat(-(-f // n))[:f]
+            big = _tier_slots(g, field)[2:]
+            _agree(f"tier sweep, {label}, F={f}",
+                   A.full_neighborhood_mean(hist, g, field),
+                   A.full_neighborhood_mean(hist, off, field), *KERNEL_TOL)
+            wall = {"tiered": [], "untiered": []}
+            for order in range(2):      # tiered, untiered, untiered, tiered
+                for key, graph in (("tiered", g),
+                                   ("untiered", off))[::1 - 2 * order]:
+                    wall[key].append(_wall_ms(
+                        lambda i, graph=graph: A.full_neighborhood_mean(
+                            hist, graph, field), calls=8))
+            rows[f] = {"wall_ms": wall, "big_rows_capacity": list(big)}
+            print(f"tier sweep: {label} full graph, F={f} (big rows, "
+                  f"capacity {big}): host clock with synchronise, ms a call "
+                  f"(in turns) tiered {wall['tiered']}, untiered "
+                  f"{wall['untiered']}", flush=True)
+    finally:
+        A.TIER_MIN_ROWS = gate
+    wins = [f for f in sizes
+            if max(rows[f]["wall_ms"]["tiered"])
+            < min(rows[f]["wall_ms"]["untiered"])]
+    tier_from = next((f for f in sizes
+                      if all(f2 in wins for f2 in sizes if f2 >= f)), None)
+    print(f"tier sweep: {label}: the tier is faster in both turns at F in "
+          f"{wins}, at every swept size from {tier_from}; the gate "
+          f"TIER_MIN_ROWS is {gate}")
+    results["hbm_gather_aggregate"].setdefault("tier_sweep", {})[label] = \
+        rows
+
+
+def phase_lazy(ds, results: dict, device: str = "cuda", cfg_kw=SLICE_CFG,
+               batch_sizes=LAZY_BATCHES, batches: int = 4):
+    """``--lazy_fullterm`` at the Reddit-shaped recipe, beside the per-step
+    (eager) term at the same batch: for each batch size a warm-up and a
+    counted epoch of each (lazy: a step launches the CV kernel and the
+    backward and no full term, an epoch one full-term call per history
+    table, the a-bar table, built inside the timed epoch).  The a-bar build
+    is also timed alone, its rows held against the per-step term on
+    ``batches`` real fields, and the a-bar kernel call (F = every row)
+    against its plain version.  Every Trainer takes the graphs
+    ``cap_adj_degree`` gives at the recipe's pad degree (capped once here;
+    the cap is seeded).  Returns ({path: launches}, {estimator: launches a
+    step})."""
+    cuda = torch.device(device).type == "cuda"
+    pad = cfg_kw["pad_degree"]
+    t0 = time.perf_counter()
+    capped = dataclasses.replace(
+        ds, train_adj=cap_adj_degree(ds.train_adj, pad, cfg_kw["seed"]),
+        full_adj=cap_adj_degree(ds.full_adj, pad, cfg_kw["seed"]))
+    print(f"lazy: both graphs capped at degree {pad} in "
+          f"{time.perf_counter() - t0:.2f} s (host)")
+    kw = {**cfg_kw, "pad_degree": -1}
+    paths, per_step, ms = {}, {}, {}
+    floor_ms = _device_ms(lambda i: K.empty_launch(device))
+    for b in batch_sizes:
+        for lazy in (False, True):
+            label = f"{'lazy ' if lazy else ''}CV+PP (batch {b})"
+            tr = Trainer(Config(**{**kw, "batch_size": b,
+                                   "lazy_fullterm": lazy}), capped,
+                         device=device)
+            g, n = tr.graph_train, capped.num_data
+            tr.train_epoch()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            if lazy:
+                each, once = LAZY_LAUNCHES["lazy CV+PP"]
+            else:
+                each, once = (TIER_LAUNCHES if A._tiers(
+                    g.tier_w, g.pad_degree, b) else STEP_LAUNCHES["CV+PP"]
+                    ), None
+            launches, steps, ms[label], loss = _counted_epoch(label, tr,
+                                                              each, once)
+            paths[f"{label} train epoch (Reddit)"] = launches
+            per_step[f"{label} (Reddit)"] = {k: v / steps
+                                             for k, v in launches.items()}
+            print(f"lazy: {label}: {steps} steps, {ms[label]:.3f} ms/step, "
+                  f"epoch {ms[label] * steps / 1e3:.3f} s; last loss "
+                  f"{loss:.5f}; peak device memory {_peak_gib(device):.3f} "
+                  f"GiB; launches {launches}")
+            if not lazy:
+                continue
+            hist = tr.state.histories[0][0]
+            snap, abar = St.lazy_anchor(tr.train_spec, tr.state.histories, g,
+                                        n)
+            worst = 0.0
+            bm = torch.from_numpy(tr._batch_matrix(
+                tr.train_iter.data[:batches * b], b, n)).to(tr.device)
+            for ids in bm:
+                pack = schedule(tr.gen, g, ids, tr.train_degrees, True,
+                                dedup=tr.cfg.field_dedup)
+                field = pack.fields[1]
+                worst = max(worst, _agree(
+                    "the a-bar table", abar[0][0].index_select(
+                        0, field.long()),
+                    A.full_neighborhood_mean(snap[0][0], g, field),
+                    *KERNEL_TOL))
+            print(f"lazy: {label}: a-bar rows of {len(bm)} real fields "
+                  f"against the per-step term: max abs err {worst:.3e}")
+            build = _device_ms(lambda i: A.full_abar(hist, g, n), calls=8)
+            anchor = _device_ms(lambda i: St.lazy_anchor(
+                tr.train_spec, tr.state.histories, g, n), calls=8)
+            print(f"lazy: {label}: a-bar build (one kernel call over "
+                  f"{g.nbr.shape[0]} rows x {g.pad_degree} slots) "
+                  f"{build:.4f} ms, the epoch's anchor (snapshot copy + "
+                  f"a-bar) {anchor:.4f} ms, device time; {steps} steps of "
+                  f"the epoch")
+            results["hbm_gather_aggregate"].setdefault(
+                "lazy_anchor_ms", {})[f"batch {b}"] = {
+                "abar_build_ms": build, "anchor_ms": anchor}
+            if b == batch_sizes[0]:
+                _fullterm_case(results, f"a-bar table, bf16 history "
+                               f"{list(hist.shape)} F={g.nbr.shape[0]} "
+                               f"K={g.pad_degree} (every row of the train "
+                               f"graph)", hist, [(g.nbr, g.w)], floor_ms)
+            del snap, abar
+        print(f"lazy: batch {b}: lazy against eager ms/step "
+              f"{ms[f'lazy CV+PP (batch {b})']:.3f} / "
+              f"{ms[f'CV+PP (batch {b})']:.3f} = "
+              f"{ms[f'lazy CV+PP (batch {b})'] / ms[f'CV+PP (batch {b})']:.3f}"
+              f"x")
+        del tr
+    return paths, per_step
+
+
+def phase_lazy_converge(ds, device: str = "cuda", cfg_kw=CONVERGE_CFG,
+                        max_epochs: int = CONVERGE_EPOCHS,
+                        target: float = CONVERGE_F1):
+    """Lazy CV+PP on the convergence phase's SBM until its val micro-F1
+    reaches ``target`` (fails if not in ``max_epochs``; JAX's on the CPU:
+    ``LAZY_REFERENCE``), its second epoch counted; then lazy CVD+PP and
+    det-dropout+PP for one counted epoch each (finite losses), with
+    det-dropout's j = 1 a-bar table held against the squared-weights term.
+    Returns ({path: launches}, {estimator: launches a step})."""
+    paths, per_step = {}, {}
+
+    def counted(label, tr):
+        launches, steps, ms, loss = _counted_epoch(
+            label, tr, *LAZY_LAUNCHES[label])
+        paths[f"{label} train epoch (SBM)"] = launches
+        per_step[f"{label} (SBM)"] = {k: v / steps
+                                      for k, v in launches.items()}
+        return ms, loss
+
+    tr = Trainer(Config(**{**cfg_kw, "lazy_fullterm": True}), ds,
+                 device=device)
+    curve, ms = [], None
+    for epoch in range(max_epochs):
+        if epoch == 1:
+            ms, _ = counted("lazy CV+PP", tr)
+        else:
+            tr.train_epoch()
+        curve.append(tr.evaluate(ds.val_d)[2])
+        if epoch and curve[-1] >= target:
+            break
+    hit = next((i + 1 for i, f in enumerate(curve) if f >= target), None)
+    print(f"lazy: lazy CV+PP on the SBM: {ms:.3f} ms/step (epoch 2); val "
+          f"micro-F1 by epoch {', '.join(f'{f:.4f}' for f in curve)}; "
+          f"reached {target} at epoch {hit} (the JAX package on the CPU: "
+          f"epoch {LAZY_REFERENCE['first_epoch']}, best "
+          f"{LAZY_REFERENCE['best']} in 15)")
+    if hit is None:
+        fail(f"lazy CV+PP val micro-F1 {max(curve):.4f} < {target} in "
+             f"{max_epochs} epochs")
+    del tr
+    for label, over in (("lazy CVD+PP", {"cvd": True, "test_cvd": True}),
+                        ("lazy det-dropout+PP", {"det_dropout": True})):
+        tr = Trainer(Config(**{**cfg_kw, **over, "lazy_fullterm": True}), ds,
+                     device=device)
+        ms, loss = counted(label, tr)
+        msg = ""
+        if over.get("det_dropout"):
+            g, n = tr.graph_train, ds.num_data
+            snap, abar = St.lazy_anchor(tr.train_spec, tr.state.histories,
+                                        g, n)
+            field = torch.from_numpy(ds.train_d[:cfg_kw["batch_size"]].astype(
+                np.int32)).to(tr.device)
+            err = _agree("det-dropout's squared a-bar table",
+                         abar[0][1].index_select(0, field.long()),
+                         A.full_neighborhood_mean(snap[0][1], g, field,
+                                                  square=True), *KERNEL_TOL)
+            msg = (f"; its j = 1 a-bar table against the squared-weights "
+                   f"term: max abs err {err:.3e}")
+        print(f"lazy: {label} on the SBM: one epoch, {ms:.3f} ms/step, last "
+              f"loss {loss:.5f}{msg}")
+        del tr
+    return paths, per_step
+
+
+def phase_ema(tr: Trainer, alpha: float = EMA_ALPHA):
+    """``ema_aggregate`` on a real scheduled batch of ``tr`` (the trained
+    CV+PP trainer of the SBM: its sampled slots and trained history, seeded
+    activations) against its plain computation; fails unless it launched
+    one ``fanout_aggregate`` and nothing else.  Returns its launches."""
+    n, bs = tr.ds.num_data, tr.cfg.batch_size
+    ids = torch.from_numpy(tr._batch_matrix(tr.train_iter.data[:bs], bs,
+                                            n)[0]).to(tr.device)
+    pack = schedule(tr.gen, tr.graph_train, ids, tr.train_degrees, True,
+                    dedup=tr.cfg.field_dedup)
+    ls, field_in = pack.layers[0], pack.fields[0]
+    hist = tr.state.histories[0]
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (field_in.shape[0], hist[0].shape[1]), dtype=np.float32)).to(
+            tr.device)
+    _sync(tr.device)
+    K.reset_launches()
+    out, (new_h,) = A.ema_aggregate(x, ls, field_in, hist, alpha,
+                                    tr.cfg.normalization)
+    _sync(tr.device)
+    launches = dict(K.LAUNCHES)
+    f = ls.slot_pos.shape[0]
+    z = (K.fanout_aggregate_ref(x, ls.slot_pos, ls.slot_w) * alpha
+         + hist[0].index_select(0, field_in[:f].long()) * (1 - alpha))
+    want_out = torch.cat([x[:f], z], dim=1) \
+        if tr.cfg.normalization != "gcn" else z
+    err = max(_agree("ema_aggregate", out, want_out, *KERNEL_TOL),
+              _agree("ema_aggregate's history", new_h[:f], z, *KERNEL_TOL))
+    if not torch.equal(new_h[f:], hist[0].index_select(
+            0, field_in[f:].long()).float()):
+        fail("ema_aggregate rewrote history rows outside the output field")
+    print(f"ema: ema_aggregate (alpha {alpha}) on a real SBM batch (C="
+          f"{field_in.shape[0]} F={f} K={ls.slot_pos.shape[1]}, bf16 "
+          f"history): max abs err {err:.3e} against its plain computation; "
+          f"launches {launches}")
+    check_launches("ema_aggregate", launches, {"fanout_aggregate": 1})
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
@@ -2218,13 +3009,23 @@ def main() -> None:
     phase_activation_stats(tr)
     served, per_request, art, art_per_request = phase_slice(tr)
     del tr
+    lazy_paths, lazy_steps = phase_lazy(ds, kernels)
     is_paths = phase_importance(ds, kernels)
     del ds
     exact, sbm, cv_tr, cv_curve = phase_converge(kernels)
     estimator_paths, per_step = phase_estimators(sbm, cv_tr, cv_curve,
                                                  results=kernels)
     phase_mlp(sbm)
+    ema = phase_ema(cv_tr)
+    converge_paths, converge_steps = phase_lazy_converge(sbm)
     del sbm, cv_tr
+    uncapped, edge_paths, edge_steps, edge_request = phase_edgelist(kernels)
+    tier_paths, tier_steps = phase_tier(uncapped, kernels)
+    del uncapped
+    fullterm_paths = {**lazy_paths, **converge_paths, **edge_paths,
+                      **tier_paths, "ema_aggregate (SBM batch)": ema}
+    per_step.update({**lazy_steps, **converge_steps, **edge_steps,
+                     **tier_steps})
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         pubmed_paths, pubmed_steps, pubmed_request = phase_pubmed(
             os.path.join(tmp, "pubmed"), kernels)
@@ -2239,7 +3040,7 @@ def main() -> None:
     paths = {"train epoch": launches, "served requests": served,
              "served requests (artifact)": art,
              "Exact evaluation": exact, **is_paths, **estimator_paths,
-             **pubmed_paths, **ppi_paths}
+             **pubmed_paths, **ppi_paths, **fullterm_paths}
     total = {name: sum(p[name] for p in paths.values()) for name in kernels}
     idle = [name for name, count in total.items() if count == 0]
     if idle:
@@ -2247,7 +3048,7 @@ def main() -> None:
     requests = {"Reddit-shaped": per_request,
                 "Reddit-shaped, artifact": art_per_request,
                 "PubMed CV+PP, artifact": pubmed_request,
-                "PPI CV+PP, artifact": ppi_request}
+                "PPI CV+PP, artifact": ppi_request, **edge_request}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name], "launches": total[name],
@@ -2262,7 +3063,10 @@ def main() -> None:
          "launches_per_request_by_path": {
              path: counts.get(name, 0) for path, counts in requests.items()},
          "is_batches": res.get("is_batches", {}),
-         "sparse_layer_batches": res.get("sparse_layer_batches", {})}
+         "sparse_layer_batches": res.get("sparse_layer_batches", {}),
+         **{key: res[key] for key in ("fullterm_cases", "tier_wall_ms",
+                                      "tier_sweep", "lazy_anchor_ms")
+            if key in res}}
         for name, res in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

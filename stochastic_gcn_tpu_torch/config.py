@@ -9,7 +9,8 @@ the two definitions against each other.
 
 Many options configure parts that are not ported yet (the trainer refuses
 them, training/loop.py::_refuse_unported) or name JAX-only mechanisms
-(``sched_prepass``, ``scan_unroll``, ``use_pallas``: accepted, no effect).
+(``sched_prepass``, ``scan_unroll``, ``use_pallas``: accepted, no effect;
+``use_pallas`` with ``--graph_format edgelist`` raises, as in JAX).
 They stay so that one command line drives both packages.
 """
 

@@ -1,17 +1,21 @@
 """Device-resident graph containers.
 
-Port of stochastic_gcn_tpu/data/graph.py for the padded layout: the whole
-graph lives on the device as static-shape ``[N+1, Dcap]`` rows (row ``N`` is
-an empty sentinel row), filled on the host with numpy.  Sparse features
-live there the same way, as ``[N+1, nnz_cap]`` (column, value) slots
+Port of stochastic_gcn_tpu/data/graph.py for one device.  The whole graph
+lives on the device in one of two layouts, filled on the host with numpy:
+static-shape ``[N+1, Dcap]`` rows (:class:`PaddedGraph`; row ``N`` is an
+empty sentinel row), or block-aligned flat CSR (:class:`FlatGraph`, the
+edge-list layout for power-law graphs, O(E) storage).  :func:`graph_rows`
+gives either one's ``[F, Dcap]`` rows of a field.  Sparse features live on
+the device the same way, as ``[N+1, nnz_cap]`` (column, value) slots
 (:class:`PaddedSparseFeatures`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from dataclasses import dataclass
-from typing import Optional
+from typing import ClassVar, Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -27,8 +31,8 @@ class PaddedGraph:
       w:    [N+1, Dcap] float32 normalized edge weights; empty slots hold 0.
       deg:  [N+1] int32 true (possibly capped) degree per row; deg[N] = 0.
       tier_w, tier_frac: the two-tier split :func:`choose_tier` picked
-        (-1 = off).  Kept for the record: the port runs the full-width
-        kernel, which gives the same (exact) value.
+        (-1 = off) for the CV full-neighbourhood term
+        (models/aggregators.py::tiered_full_contract).
     """
     nbr: torch.Tensor
     w: torch.Tensor
@@ -108,12 +112,225 @@ def pad_csr(adj: sp.csr_matrix, pad_degree: int = -1, tier: bool = False,
                        tier_w=tw, tier_frac=tf)
 
 
-def graph_rows(graph: PaddedGraph, field: torch.Tensor):
-    """The [F, Dcap] neighbor/weight rows and [F] degrees of a field (ids
-    <= N; sentinel rows are empty)."""
+@dataclass(frozen=True)
+class FlatGraph:
+    """Block-aligned flat-CSR adjacency, the edge-list layout: O(E) storage
+    where the padded layout pays O(N * max_degree), so hub-heavy graphs keep
+    exact neighbourhoods without padding every row to the hub's degree.
+
+    Every CSR row starts on a ``BLOCK``-slot boundary of the flat arrays,
+    which are kept as ``[NB, BLOCK]`` tables, so a row window is whole-block
+    row gathers plus a slice (:func:`flat_row_windows`).
+
+    Attributes:
+      bstart: [N+2] int32 block index of each row's start; row N, the
+              sentinel, is empty and followed by ``ceil(max_degree/BLOCK)``
+              blocks of padding, so no window reads past the tables.
+      idx:    [NB, BLOCK] int32 neighbour ids; gaps and the tail hold N.
+      w:      [NB, BLOCK] float32 edge weights; gaps and the tail hold 0.
+      deg:    [N+1] int32 row lengths; deg[N] = 0.
+      max_degree: the longest row (the sampler's row window).
+      edge_cap_per_row: the CV full-neighbourhood term's budget: each
+        output row reads its first ``edge_cap_per_row`` CSR entries.
+      parts: node-sharding partitions the tables are laid out for; 1 here
+        (:func:`flat_csr` raises for more).
+      tier_w, tier_frac: the two-tier split of the full term (-1 = off).
+      renorm: [N+1] float32 full-row mass over the budget's mass for rows
+        the budget truncates, 1 elsewhere (the reference's --max_degree
+        semantics: kept edges are renormalised).
+      truncated_frac: the share of edges the budget drops from the full
+        term (0.0 = lossless), rounded to 6 digits.
+    """
+    bstart: torch.Tensor
+    idx: torch.Tensor
+    w: torch.Tensor
+    deg: torch.Tensor
+    max_degree: int
+    edge_cap_per_row: int
+    parts: int = 1
+    tier_w: int = -1
+    tier_frac: float = 0.0
+    renorm: Optional[torch.Tensor] = None
+    truncated_frac: float = 0.0
+
+    BLOCK: ClassVar[int] = 8
+
+    @property
+    def num_nodes(self) -> int:
+        return self.bstart.shape[0] - 2
+
+    @property
+    def pad_degree(self) -> int:
+        # row-window width: a field row materialises at most this many slots
+        return self.max_degree
+
+
+AUTO_EDGE_COVERAGE = 0.999   # auto edge budget covers >= this edge fraction
+
+
+def flat_csr(adj: sp.csr_matrix, edge_mult: float = 0.0, parts: int = 1,
+             tier: bool = False, tier_w: int = 0,
+             device="cpu") -> FlatGraph:
+    """Convert a scipy CSR adjacency to a :class:`FlatGraph` on ``device``,
+    array for array and static for static the JAX package's.
+
+    ``edge_mult > 0`` sets ``edge_cap_per_row = ceil(edge_mult *
+    mean_degree)`` (at least 1, at most the max degree); ``edge_mult <= 0``
+    sizes it automatically: the smallest ``BLOCK`` multiple whose windows
+    cover ``AUTO_EDGE_COVERAGE`` of all edges.  Rows longer than the budget
+    keep their first ``edge_cap_per_row`` entries in the full term,
+    renormalised (``renorm``); a budget that drops more than 1% of the
+    edges warns.  ``parts > 1`` (node-sharded tables) is multi-device and
+    raises."""
+    if parts != 1:
+        raise NotImplementedError(
+            "flat_csr(parts > 1), node-sharded block tables, is "
+            "multi-device: not ported yet (ROADMAP.md, queue 1)")
+    adj = adj.tocsr()
+    n = adj.shape[0]
+    deg = np.diff(adj.indptr).astype(np.int32)
+    max_deg = max(int(deg.max()) if deg.size else 1, 1)
+    mean_deg = float(deg.mean()) if deg.size else 1.0
+    B = FlatGraph.BLOCK
+    if edge_mult > 0:
+        cap_row = int(min(max_deg,
+                          max(1, int(np.ceil(edge_mult * mean_deg)))))
+    else:
+        # auto: the smallest BLOCK multiple c with
+        # sum(min(deg, c)) >= coverage * sum(deg)
+        total_e = int(deg.sum())
+        if total_e == 0:
+            cap_row = 1
+        else:
+            ds_sorted = np.sort(deg.astype(np.int64))
+            csum = np.concatenate([[0], np.cumsum(ds_sorted)])
+            cands = np.arange(B, max_deg + B, B, dtype=np.int64)
+            pos = np.searchsorted(ds_sorted, cands, side="right")
+            kept = csum[pos] + cands * (n - pos)
+            ok = kept >= AUTO_EDGE_COVERAGE * total_e
+            cap_row = int(min(max_deg, cands[np.argmax(ok)] if ok.any()
+                              else max_deg))
+
+    over = deg > cap_row
+    trunc_frac = 0.0
+    if over.any():
+        lost = int((deg[over] - cap_row).sum())
+        total = int(deg.sum())
+        trunc_frac = round(lost / max(total, 1), 6)
+        if lost > 0.01 * total:
+            warnings.warn(
+                f"flat_csr: edge_cap_per_row={cap_row} truncates "
+                f"{int(over.sum())} rows (degree > cap), dropping "
+                f"{lost}/{total} edges ({100.0 * lost / max(total, 1):.2f}%)"
+                " from the CV full-neighborhood term (kept edges are "
+                "renormalized to preserve row mass); raise "
+                "--fadj_edge_mult (or 0 = auto) for exact neighborhoods.",
+                stacklevel=2)
+
+    # row i owns blocks [bstart[i], bstart[i+1]); after the last row, the
+    # sentinel row N's ceil(max_degree / B) blocks of padding
+    nb_row = -(-deg // B)
+    wpad = max(-(-max_deg // B), 1)
+    cum = np.zeros(n + 1, np.int64)
+    cum[1:] = np.cumsum(nb_row, dtype=np.int64)
+    total_blocks = int(cum[n]) + wpad
+    bstart = np.zeros(n + 2, np.int64)
+    bstart[:n + 1] = cum
+    bstart[n + 1] = bstart[n]
+    deg_out = np.zeros(n + 1, np.int32)
+    deg_out[:n] = deg
+    idx = np.full(total_blocks * B, n, np.int32)
+    w = np.zeros(total_blocks * B, np.float32)
+    # each entry's position within its CSR row (reused by the renorm)
+    off = (np.arange(len(adj.indices), dtype=np.int64)
+           - np.repeat(adj.indptr[:n].astype(np.int64), deg))
+    dst = np.repeat(bstart[:n] * B, deg) + off
+    idx[dst] = adj.indices.astype(np.int32)
+    w[dst] = adj.data.astype(np.float32)
+    renorm = np.ones(n + 1, np.float32)
+    if over.any():
+        row_ids = np.repeat(np.arange(n, dtype=np.int64), deg)
+        wdat = adj.data.astype(np.float64)
+        full_mass = np.bincount(row_ids, weights=wdat, minlength=n)
+        keep = off < cap_row
+        kept_mass = np.bincount(row_ids[keep], weights=wdat[keep],
+                                minlength=n)
+        tr_rows = over & (kept_mass[:n] > 0)
+        renorm[:n][tr_rows] = (full_mass[tr_rows]
+                               / kept_mass[tr_rows]).astype(np.float32)
+    tw, tf = (-1, 0.0)
+    if tier:
+        width = min(cap_row, max_deg)
+        tw, tf = choose_tier(np.minimum(deg, width), width, force_w=tier_w)
+        # tier boundaries are block-aligned and leave a real tail window
+        if tw > 0 and (tw % B != 0 or tw > width - B):
+            tw, tf = -1, 0.0
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+    return FlatGraph(bstart=dev(bstart.astype(np.int32)),
+                     idx=dev(idx.reshape(-1, B)), w=dev(w.reshape(-1, B)),
+                     deg=dev(deg_out), max_degree=max_deg,
+                     edge_cap_per_row=cap_row, parts=1, tier_w=tw,
+                     tier_frac=tf, renorm=dev(renorm),
+                     truncated_frac=trunc_frac)
+
+
+def flat_row_windows(graph: FlatGraph, field: torch.Tensor, width: int,
+                     start: int = 0):
+    """``[F, width]`` neighbour / weight windows of a field's rows: slots
+    ``[start, start + width)`` of each row's CSR range (``start`` a
+    ``BLOCK`` multiple, as the two-tier term's tail passes it), and the
+    rows' ``[F]`` degrees.  A row's blocks are contiguous, so its window
+    is one run of the flat arrays from ``bstart * BLOCK + start``, taken
+    element by element (``index_select`` of whole 32-byte blocks took
+    ~14x as long: 0.45 against 0.033 ms an array for a 16,384-row chunk
+    of the a-bar build on an NVIDIA H100 80GB HBM3 at 700 W,
+    chip_smoke.py); a window may run into the next row's blocks, and
+    slots at or past the row's degree are masked to the sentinel id N and
+    weight 0, as the padded layout holds them."""
+    n = graph.num_nodes
+    B = graph.idx.shape[1]
+    if start % B:
+        raise ValueError(f"window start {start} is not a multiple of {B}")
+    ids = field.to(torch.int64)
+    dev = graph.idx.device
+    first = graph.bstart.index_select(0, ids).to(torch.int64) * B + start
+    deg = graph.deg.index_select(0, ids)
+    at = first[:, None] + torch.arange(width, device=dev)[None, :]
+    valid = (start + torch.arange(width, dtype=torch.int32, device=dev)
+             )[None, :] < deg[:, None]
+    return (torch.where(valid, torch.take(graph.idx, at), n),
+            torch.where(valid, torch.take(graph.w, at), 0.0), deg)
+
+
+def graph_rows(graph, field: torch.Tensor):
+    """The ``[F, Dcap]`` neighbour / weight rows and ``[F]`` degrees of a
+    field (ids <= N; sentinel rows are empty), from either layout: the one
+    dispatch point between them."""
+    if isinstance(graph, FlatGraph):
+        return flat_row_windows(graph, field, graph.pad_degree)
     ids = field.to(torch.int64)
     return (graph.nbr.index_select(0, ids), graph.w.index_select(0, ids),
             graph.deg.index_select(0, ids))
+
+
+def graph_slots(graph, field: torch.Tensor, sel: torch.Tensor):
+    """The neighbour and weight at slot ``sel[f]`` of each field row (``[F]``
+    each), without the rows: what the degree-1 sampler draws.  ``sel`` is
+    below the row's degree, or 0 for an empty row, which reads the sentinel
+    id N and weight 0 in either layout."""
+    ids = field.to(torch.int64)
+    sel = sel.to(torch.int64)
+    if isinstance(graph, FlatGraph):
+        at = graph.bstart.index_select(0, ids).to(torch.int64) \
+            * graph.idx.shape[1] + sel
+        live = graph.deg.index_select(0, ids) > 0
+        return (torch.where(live, graph.idx.reshape(-1).index_select(0, at),
+                            graph.num_nodes),
+                torch.where(live, graph.w.reshape(-1).index_select(0, at),
+                            0.0))
+    return graph.nbr[ids, sel], graph.w[ids, sel]
 
 
 def dense_rows(x, num_nodes: Optional[int] = None, dtype=torch.float32,

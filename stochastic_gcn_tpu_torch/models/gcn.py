@@ -256,7 +256,7 @@ def _tap(taps, label: str, h) -> None:
 
 def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
             histories, features, gen: torch.Generator,
-            keep_prob: float, train: bool, taps=None):
+            keep_prob: float, train: bool, taps=None, lazy=None):
     """Run the layer stack.
 
     Returns (logits [B, output_dim], new_histories) where new_histories[l]
@@ -267,7 +267,9 @@ def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
     JAX package.  ``features`` is a dense ``[N+1, d]`` table or
     :class:`PaddedSparseFeatures`; when no layer takes sparse input (no
     preprocessing: an aggregator comes first) the sliced rows are
-    densified."""
+    densified.  ``lazy``: the epoch-frozen CV anchor of ``--lazy_fullterm``,
+    ``(snapshot histories, a-bar tables)`` with the per-layer structure of
+    ``histories``; None runs the per-step full term."""
     kp = keep_prob if train else 1.0
     h = _slice_inputs(features, pack.fields[0], graph.num_nodes)
     if spec.reverse_input_dropout and train:
@@ -295,7 +297,9 @@ def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
             if spec.cv:
                 h, new_histories[l] = agg.vr_aggregate(
                     h, ls, pack.fields[l], pack.fields[l + 1], graph,
-                    histories[l], spec.cvd, spec.normalization)
+                    histories[l], spec.cvd, spec.normalization,
+                    lazy_l=None if lazy is None
+                    else (lazy[0][l], lazy[1][l]))
             else:
                 h = agg.plain_aggregate(h, ls, spec.normalization)
         _tap(taps, f"{i}:{type(s).__name__}", h)

@@ -1,7 +1,9 @@
 """On-device receptive-field scheduler (uniform sampling).
 
 Port of stochastic_gcn_tpu/sampler/scheduler.py.  The layer-by-layer
-expansion runs on the device over the :class:`PaddedGraph`:
+expansion runs on the device over either graph layout (``graph_rows``;
+the edge-list layout draws what the padded one draws from the same
+adjacency):
 
 * uniform fanout sampling without replacement — one uniform per row at
   degree 1, top-k of iid uniforms over the padded row otherwise; edge
@@ -35,7 +37,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..data.graph import PaddedGraph, graph_rows
+from ..data.graph import FlatGraph, graph_rows, graph_slots
 
 _NOT_PORTED = "not ported yet: see ROADMAP.md, queue 1"
 
@@ -109,36 +111,38 @@ def effective_dedup(dedup: bool, batch_size: int, degrees: Sequence[int],
     return False
 
 
-def expand_uniform(gen: torch.Generator, graph: PaddedGraph,
-                   field_out: torch.Tensor, degree: int, need_aw: bool):
+def expand_uniform(gen: torch.Generator, graph, field_out: torch.Tensor,
+                   degree: int, need_aw: bool):
     """Sample <= ``degree`` neighbors/node uniformly without replacement.
 
     Returns (nbr_id [F,k] int32, slot_w [F,k], slot_aw or None, scales [F]).
-    """
+    At degree 1 only the drawn slot of each row is read, not the row."""
     dcap = graph.pad_degree
-    rows_nbr, rows_w, deg = graph_rows(graph, field_out)   # [F, Dcap]
     f = field_out.shape[0]
     k = min(degree, dcap)
-    dev = rows_nbr.device
+    dev = field_out.device
 
-    if k >= dcap:
-        nbr_id, base_w = rows_nbr, rows_w
+    if k == 1 and dcap > 1:
+        # a single draw without replacement is a uniform pick over the
+        # deg valid slots: one uniform per row
+        deg = graph.deg.index_select(0, field_out.to(torch.int64))
+        u = torch.rand(f, generator=gen, device=dev)
+        sel = torch.minimum((u * deg.float()).to(torch.int32),
+                            torch.clamp(deg - 1, min=0))
+        nbr_id, base_w = (t[:, None] for t in graph_slots(graph, field_out,
+                                                           sel))
     else:
-        if k == 1:
-            # a single draw without replacement is a uniform pick over the
-            # deg valid slots: one uniform per row
-            u = torch.rand(f, generator=gen, device=dev)
-            sel = torch.minimum((u * deg.float()).to(torch.int32),
-                                torch.clamp(deg - 1, min=0))[:, None]
+        rows_nbr, rows_w, deg = graph_rows(graph, field_out)   # [F, Dcap]
+        if k >= dcap:
+            nbr_id, base_w = rows_nbr, rows_w
         else:
             u = torch.rand((f, dcap), generator=gen, device=dev)
-            valid = (torch.arange(dcap, dtype=torch.int32, device=dev)[None, :]
-                     < deg[:, None])
+            valid = (torch.arange(dcap, dtype=torch.int32,
+                                  device=dev)[None, :] < deg[:, None])
             u = torch.where(valid, u, -1.0)
             sel = torch.topk(u, k, dim=1).indices   # [F, k] distinct slots
-        sel = sel.to(torch.int64)
-        nbr_id = torch.take_along_dim(rows_nbr, sel, dim=1)
-        base_w = torch.take_along_dim(rows_w, sel, dim=1)
+            nbr_id = torch.take_along_dim(rows_nbr, sel, dim=1)
+            base_w = torch.take_along_dim(rows_w, sel, dim=1)
 
     adj_size = deg.clamp(min=1, max=k).float()
     scale = torch.where(deg == 0, 1.0, deg.float() / adj_size)
@@ -147,12 +151,14 @@ def expand_uniform(gen: torch.Generator, graph: PaddedGraph,
     return nbr_id, slot_w, slot_aw, torch.rsqrt(scale)
 
 
-def compute_importance(graph: PaddedGraph) -> torch.Tensor:
+def compute_importance(graph) -> torch.Tensor:
     """Per-node importance ``1e-6 + sum of squared in-edge weights``
-    (``[N+1]`` float32; the sentinel row holds ``1e-6``)."""
+    (``[N+1]`` float32; the sentinel row holds ``1e-6``), from either
+    layout's slot tables (padding slots weigh 0)."""
     n1 = graph.num_nodes + 1
+    ids = graph.idx if isinstance(graph, FlatGraph) else graph.nbr
     imp = torch.zeros(n1, dtype=torch.float32, device=graph.w.device)
-    imp.index_add_(0, graph.nbr.reshape(-1).to(torch.int64),
+    imp.index_add_(0, ids.reshape(-1).to(torch.int64),
                    graph.w.square().reshape(-1))
     imp = imp + 1e-6
     imp[n1 - 1] = 1e-6
@@ -181,7 +187,7 @@ class ISSelection:
     n_samples: torch.Tensor   # f32 scalar, the number of members drawn
 
 
-def is_select(gen: torch.Generator, graph: PaddedGraph,
+def is_select(gen: torch.Generator, graph,
               field_out: torch.Tensor, degree: int,
               importance: torch.Tensor, approx_topk: bool = True,
               recall_target: float = 0.95) -> ISSelection:
@@ -329,7 +335,7 @@ def compact_field(field_out: torch.Tensor, new_ids: torch.Tensor,
     return field_in, pos_table
 
 
-def schedule(gen: torch.Generator, graph: PaddedGraph,
+def schedule(gen: torch.Generator, graph,
              batch_ids: torch.Tensor, degrees: Sequence[int], cv: bool,
              need_aw: bool = False, importance=None, owner_blocks: int = 0,
              dedup: bool = True, is_approx_topk: bool = True,

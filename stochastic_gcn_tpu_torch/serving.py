@@ -11,7 +11,9 @@ An artifact is a directory of two files, in the JAX package's layout where
 a torch artifact can keep it:
 
 * ``state.npz``: the eval params (the Polyak average when one is kept), the
-  converged eval histories, the eval graph, the test features (dense, or
+  converged eval histories, the eval graph (``graph/nbr``, ``w``, ``deg``
+  padded; ``graph/bstart``, ``idx``, ``w``, ``deg``, ``renorm`` edge-list),
+  the test features (dense, or
   ``idx`` / ``val`` when padded-sparse), the labels and the importance
   table, named as ``manifest["names"]`` lists them; ``bfloat16`` arrays
   are stored as their ``uint16`` bit view under the ``"bf16:"`` prefix, as
@@ -23,8 +25,9 @@ a torch artifact can keep it:
   ``torch_version`` in place of ``jax_version``; the sampling ``seed``, the
   requested ``platforms``, and what the model is rebuilt from: the serving
   ``config`` (every ``Config`` field), the raw ``feature_dim``, whether the
-  first layer takes ``sparse_input``, the features' sparse width and the
-  eval graph's tier split.
+  first layer takes ``sparse_input``, the features' sparse width, and the
+  eval graph's layout (``graph_format``) and statics (``graph_statics``:
+  the tier split; an edge-list graph's degree, budget and truncation).
 
 The one intended difference: the JAX artifact also holds ``module.shlo``,
 the serialised eval program, which any JAX runtime can call without the
@@ -59,7 +62,7 @@ import numpy as np
 import torch
 
 from .config import from_fields
-from .data.graph import PaddedGraph, PaddedSparseFeatures
+from .data.graph import FlatGraph, PaddedGraph, PaddedSparseFeatures
 from .models import gcn as M
 from .training import step as S
 
@@ -77,7 +80,8 @@ def _serving_tensors(trainer) -> dict:
         for j, h in enumerate(hl):
             out[f"histories/{l}/{j}"] = h
     g = trainer.graph_full
-    out.update({"graph/nbr": g.nbr, "graph/w": g.w, "graph/deg": g.deg})
+    out.update({f"graph/{name}": getattr(g, name)
+                for name in _GRAPH_FIELDS[type(g)][0]})
     feats = trainer.test_features
     if isinstance(feats, PaddedSparseFeatures):
         out.update({"features/idx": feats.idx, "features/val": feats.val})
@@ -86,6 +90,17 @@ def _serving_tensors(trainer) -> dict:
     out["labels"] = trainer.labels
     out["importance"] = trainer.importance_test
     return out
+
+
+# per graph layout: its tensor fields, stored as graph/<name>, and its
+# static fields, stored in the manifest's graph_statics
+_GRAPH_FIELDS = {
+    PaddedGraph: (("nbr", "w", "deg"), ("tier_w", "tier_frac")),
+    FlatGraph: (("bstart", "idx", "w", "deg", "renorm"),
+                ("max_degree", "edge_cap_per_row", "tier_w", "tier_frac",
+                 "truncated_frac")),
+}
+_LAYOUTS = {"padded": PaddedGraph, "edgelist": FlatGraph}
 
 
 def _to_numpy(t: torch.Tensor):
@@ -157,7 +172,10 @@ def export_predictor(trainer, path: str, refresh: bool = True,
                     for s in trainer.test_spec.specs)),
                 "sparse_dim": int(feats.dim)
                 if isinstance(feats, PaddedSparseFeatures) else None,
-                "tier_w": int(g.tier_w), "tier_frac": float(g.tier_frac),
+                "graph_format": ("edgelist" if isinstance(g, FlatGraph)
+                                 else "padded"),
+                "graph_statics": {k: getattr(g, k)
+                                  for k in _GRAPH_FIELDS[type(g)][1]},
                 "config": dataclasses.asdict(cfg)}
     with open(os.path.join(path, _MANIFEST), "w") as f:
         json.dump(manifest, f, indent=1)
@@ -210,10 +228,10 @@ class Predictor:
             tuple(state[f"histories/{l}/{j}"]
                   for j in range(spec.n_history_per_layer))
             for l in range(len(spec.history_dims) if spec.cv else 0))
-        self._graph = PaddedGraph(nbr=state["graph/nbr"], w=state["graph/w"],
-                                  deg=state["graph/deg"],
-                                  tier_w=m["tier_w"],
-                                  tier_frac=m["tier_frac"])
+        layout = _LAYOUTS[m["graph_format"]]
+        self._graph = layout(**{name: state[f"graph/{name}"]
+                                for name in _GRAPH_FIELDS[layout][0]},
+                             **m["graph_statics"])
         self._features = PaddedSparseFeatures(
             idx=state["features/idx"], val=state["features/val"],
             dim=m["sparse_dim"]) if "features/idx" in state \

@@ -1,14 +1,16 @@
 """Trainer: training, evaluation, serving and checkpoints on one device.
 
-Port of stochastic_gcn_tpu/training/loop.py for the single-device padded
-graph: the constructor puts the train and eval graphs, features, labels,
-the importance tables, the train state (params, Adam state, bf16 train
-histories) and the eval histories on an explicit device.  ``train_epoch``
+Port of stochastic_gcn_tpu/training/loop.py for one device, on the padded
+or the edge-list graph (``--graph_format edgelist``): the constructor puts
+the train and eval graphs, features, labels, the importance tables, the
+train state (params, Adam state, bf16 train histories) and the eval
+histories on an explicit device.  ``train_epoch``
 / ``sgd_train`` / ``evaluate`` / ``predict`` / ``test`` / ``run_tests`` /
 ``activation_stats`` / ``gradient_variance`` / ``save`` / ``load`` follow
 the JAX Trainer, for every estimator the flags select (NS, CV, CVD,
 det-dropout, Exact, importance sampling; with or without preprocessing;
-Polyak-averaged evaluation weights); checkpoints use the JAX file layout,
+Polyak-averaged evaluation weights; the two-tier and the epoch-frozen
+(``--lazy_fullterm``) full term); checkpoints use the JAX file layout,
 so either package resumes the other's.
 """
 
@@ -23,7 +25,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..data.graph import Dataset, dense_rows, pad_csr, pad_sparse_features
+from ..data.graph import (Dataset, dense_rows, flat_csr, pad_csr,
+                          pad_sparse_features)
 from ..data.preprocess import cap_adj_degree
 from ..models import gcn as M
 from ..sampler.scheduler import MinibatchIterator, compute_importance
@@ -68,12 +71,10 @@ def _refuse_unported(cfg) -> None:
     unported = {
         "--dp/--tp > 1 (multi-device)": cfg.dp > 1 or cfg.tp > 1,
         "--partition_nodes": cfg.partition_nodes != "none",
-        "--graph_format edgelist": cfg.graph_format != "padded",
         # the superseded per-epoch importance row table is not ported; the
         # slots come from is_slots' per-node gathers
         "--is_row_table with importance sampling":
             cfg.is_row_table and (cfg.importance or cfg.test_importance),
-        "--lazy_fullterm": cfg.lazy_fullterm,
         "--ckpt_async": cfg.ckpt_async,
     }
     asked = [k for k, v in unported.items() if v]
@@ -108,11 +109,21 @@ class Trainer:
         if cfg.pad_degree != -1:
             train_adj = cap_adj_degree(train_adj, cfg.pad_degree, cfg.seed)
             full_adj = cap_adj_degree(full_adj, cfg.pad_degree, cfg.seed)
-        # each graph padded to its own true (post-cap) max degree
-        self.graph_train = pad_csr(train_adj, -1, tier=cfg.fadj_tier,
-                                   tier_w=cfg.fadj_tier_w, device=device)
-        self.graph_full = pad_csr(full_adj, -1, tier=cfg.fadj_tier,
-                                  tier_w=cfg.fadj_tier_w, device=device)
+        if cfg.graph_format == "edgelist":
+            # flat CSR: O(E) storage, row windows per field (power-law
+            # graphs)
+            if cfg.use_pallas:
+                raise ValueError("--use_pallas requires the padded graph "
+                                 "format")
+            self.graph_train, self.graph_full = (
+                flat_csr(adj, cfg.fadj_edge_mult, tier=cfg.fadj_tier,
+                         tier_w=cfg.fadj_tier_w, device=device)
+                for adj in (train_adj, full_adj))
+        else:
+            # each graph padded to its own true (post-cap) max degree
+            self.graph_train, self.graph_full = (
+                pad_csr(adj, -1, tier=cfg.fadj_tier, tier_w=cfg.fadj_tier_w,
+                        device=device) for adj in (train_adj, full_adj))
 
         # params are shaped by the TRAIN model (shared weights)
         in_dim, out_dim = ds.feature_dim, ds.num_classes
@@ -178,6 +189,14 @@ class Trainer:
     @property
     def params(self) -> dict:
         return self.state.params
+
+    @property
+    def truncated_edges_frac(self) -> float:
+        """The share of full-neighbourhood edges the edge-list budget drops
+        (the larger of the train and eval graphs'; 0.0 on padded graphs,
+        which are lossless)."""
+        return max(getattr(self.graph_train, "truncated_frac", 0.0),
+                   getattr(self.graph_full, "truncated_frac", 0.0))
 
     def _eval_params(self) -> dict:
         """The weights evaluation and serving use: the Polyak / EMA average

@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..data.graph import FlatGraph
+from ..models import aggregators as A
 from ..models import gcn as M
 from ..ops.gather import row_gather
 from ..sampler.scheduler import BatchFields, schedule
@@ -163,8 +165,13 @@ def _batch_stats(pack: BatchFields, graph, num_nodes: int, cv: bool):
     adj_sizes = torch.stack([(ls.slot_w != 0).sum() for ls in pack.layers])
     field_sizes = torch.stack([(f < num_nodes).sum() for f in pack.fields])
     if cv:
+        deg = graph.deg
+        if isinstance(graph, FlatGraph):
+            # the edge-list full term reads at most edge_cap_per_row edges
+            # a row: count what is gathered
+            deg = torch.clamp(deg, max=graph.edge_cap_per_row)
         fadj_sizes = torch.stack(
-            [graph.deg.index_select(0, f.to(torch.int64)).sum()
+            [deg.index_select(0, f.to(torch.int64)).sum()
              for f in pack.fields[1:]])
     else:
         fadj_sizes = torch.zeros((len(pack.layers),), dtype=torch.int64,
@@ -197,9 +204,10 @@ def _schedule(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...], graph,
 def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                      num_nodes: int):
     """``step(state, graph, features, labels, batch_ids, gen, pack=None,
-    importance=None) -> (state, metrics)``: schedule (unless a prebuilt
-    ``pack`` is given; ``importance`` is the ``[N+1]`` table that
-    ``cfg.importance`` samples by), forward, loss, backward, Adam, then the
+    importance=None, lazy=None) -> (state, metrics)``: schedule (unless a
+    prebuilt ``pack`` is given; ``importance`` is the ``[N+1]`` table that
+    ``cfg.importance`` samples by), forward (``lazy``: the epoch's frozen
+    CV anchor, :func:`lazy_anchor`), loss, backward, Adam, then the
     history scatter of the detached new rows.  ``state`` is updated in
     place and returned; the metrics (loss, accuracy, amt_data,
     field/adj/fadj sizes, ``is_dropped``) stay on the device.
@@ -210,7 +218,8 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
     tx = make_optimizer(cfg)
 
     def _step(state: TrainState, graph, features, labels, batch_ids, gen,
-              pack: Optional[BatchFields] = None, importance=None):
+              pack: Optional[BatchFields] = None, importance=None,
+              lazy=None):
         if pack is None:
             pack = _schedule(cfg, spec, degrees, graph, batch_ids, gen,
                              importance, train_mode=True)
@@ -223,7 +232,8 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                       for n, t in p.items()}
                   for l, p in state.params.items()}
         logits, new_h = M.forward(params, spec, pack, graph, state.histories,
-                                  features, gen, cfg.keep_prob, train=True)
+                                  features, gen, cfg.keep_prob, train=True,
+                                  lazy=lazy)
         loss, acc = M.loss_and_metrics(params, spec, logits, y, valid,
                                        cfg.weight_decay)
         flat = torch.autograd.grad(loss, [params[l][n] for l, n in keys])
@@ -256,6 +266,20 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
     return _step
 
 
+@torch.no_grad()
+def lazy_anchor(spec: M.ModelSpec, histories, graph, num_nodes: int):
+    """The epoch-frozen CV anchor of ``--lazy_fullterm``: ``(snapshot,
+    a-bar tables)``, a copy of every history table (the train step
+    scatters into the live tables in place, which the snapshot must not
+    see) and ``A_full . snapshot`` over all nodes (``full_abar``; the
+    squared weights for det-dropout's variance table, j = 1)."""
+    snap = tuple(tuple(h.clone() for h in hl) for hl in histories)
+    abar = tuple(tuple(A.full_abar(h, graph, num_nodes,
+                                   square=spec.det_dropout and j == 1)
+                       for j, h in enumerate(hl)) for hl in snap)
+    return snap, abar
+
+
 def build_train_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                       num_nodes: int):
     """Whole-epoch runner: ``epoch(state, graph, features, labels,
@@ -264,15 +288,23 @@ def build_train_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
     LAST step's loss and accuracy (the reference's window-1 Averager), the
     per-step ``amt_steps`` (the Trainer sums them on the host in int64),
     and the summed ``amt_data``, field/adj/fadj sizes and ``is_dropped``;
-    all on the device."""
+    all on the device.
+
+    With ``cfg.lazy_fullterm`` and a CV model the epoch first takes the
+    frozen anchor (:func:`lazy_anchor`), inside the epoch as in the JAX
+    package, so the epoch's time includes the a-bar build; every step
+    reads it, and the scatters keep updating the live histories that the
+    next epoch's snapshot takes."""
     _step = build_train_step(cfg, spec, degrees, num_nodes)
 
     def _epoch(state: TrainState, graph, features, labels, batch_matrix,
                gen, importance=None):
+        lazy = lazy_anchor(spec, state.histories, graph, num_nodes) \
+            if cfg.lazy_fullterm and spec.cv else None
         ms = []
         for batch_ids in batch_matrix:
             state, m = _step(state, graph, features, labels, batch_ids, gen,
-                             importance=importance)
+                             importance=importance, lazy=lazy)
             ms.append(m)
         amts = torch.stack([m["amt_data"] for m in ms])
         return state, {

@@ -943,3 +943,112 @@ def test_predictor_on_card_equals_trainer_predict(cuda, tmp_path):
     np.testing.assert_array_equal(pred.predict(ids[::-1]), got[::-1])
     cpu = serving.load_predictor(path, device="cpu").predict(ids)
     np.testing.assert_allclose(got, cpu, rtol=0, atol=1e-5)
+
+
+def _fullterm_graphs(dev):
+    """A padded graph and an edge list of one 300-node graph with rows of
+    up to ~40 neighbours, both with a forced tier split at 8 slots."""
+    from stochastic_gcn_tpu_torch.data.graph import flat_csr, pad_csr
+    ds = synthetic_dataset(num_nodes=300, feature_dim=8, num_classes=4,
+                           avg_degree=16, normalization="graphsage", seed=2)
+    return ds, {"padded": pad_csr(ds.full_adj, -1, tier=True, tier_w=8,
+                                  device=dev),
+                "edgelist": flat_csr(ds.full_adj, 1.5, tier=True, tier_w=8,
+                                     device=dev)}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout", ["padded", "edgelist"])
+@pytest.mark.parametrize("tier", [False, True])
+@pytest.mark.parametrize("square", [False, True])
+def test_fullterm_forms_on_card_match_cpu(cuda, monkeypatch, layout, tier,
+                                          square):
+    """Padded rows, edge-list windows (a truncating budget: renormalised
+    weights) and the two-tier split of either, on the card against the
+    plain versions on the CPU; the tier launches the full-term kernel twice
+    (main and tail), the untiered term once."""
+    from stochastic_gcn_tpu_torch.models import aggregators as A
+    monkeypatch.setattr(A, "TIER_MIN_ROWS", 0 if tier else 1 << 30)
+    ds, cpu_graphs = _fullterm_graphs("cpu")
+    _, card_graphs = _fullterm_graphs(cuda)
+    n = ds.num_data
+    rng = np.random.default_rng(5)
+    hist = rng.normal(size=(n + 8, 16)).astype(np.float32)
+    field = np.r_[rng.integers(0, n, 200), [n, n]].astype(np.int32)
+    want = A.full_neighborhood_mean(torch.from_numpy(hist),
+                                    cpu_graphs[layout],
+                                    torch.from_numpy(field), square=square)
+    K.reset_launches()
+    got = A.full_neighborhood_mean(torch.from_numpy(hist).to(cuda),
+                                   card_graphs[layout],
+                                   torch.from_numpy(field).to(cuda),
+                                   square=square)
+    assert K.LAUNCHES["hbm_gather_aggregate"] == (2 if tier else 1)
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout", ["padded", "edgelist"])
+def test_full_abar_on_card_matches_cpu(cuda, monkeypatch, layout):
+    """The a-bar table on the card against the CPU's: one kernel call over
+    the padded graph's rows, one per chunk of the edge list's."""
+    from stochastic_gcn_tpu_torch.models import aggregators as A
+    monkeypatch.setattr(A, "ABAR_CHUNK", 64)
+    ds, cpu_graphs = _fullterm_graphs("cpu")
+    _, card_graphs = _fullterm_graphs(cuda)
+    n = ds.num_data
+    hist = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(n + 5, 16)).astype(np.float32)).to(torch.bfloat16)
+    want = A.full_abar(hist, cpu_graphs[layout], n)
+    K.reset_launches()
+    got = A.full_abar(hist.to(cuda), card_graphs[layout], n)
+    assert K.LAUNCHES["hbm_gather_aggregate"] == \
+        (1 if layout == "padded" else -(-(n + 1) // 64))
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+    assert (got[n:] == 0).all()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("over, per_step, per_epoch", [
+    (dict(graph_format="edgelist"),
+     {"cv_fanout_aggregate": 1, "hbm_gather_aggregate": 1,
+      "fanout_aggregate_backward": 1}, {}),
+    (dict(lazy_fullterm=True),
+     {"cv_fanout_aggregate": 1, "fanout_aggregate_backward": 1},
+     {"hbm_gather_aggregate": 1}),
+    (dict(lazy_fullterm=True, graph_format="edgelist"),
+     {"cv_fanout_aggregate": 1, "fanout_aggregate_backward": 1},
+     {"hbm_gather_aggregate": 1})])
+def test_fullterm_train_steps_on_card_match_cpu(cuda, over, per_step,
+                                                per_epoch):
+    """10 CV+PP train steps on the edge list and under the frozen anchor,
+    exhaustive degree and no dropout, on the card and on the CPU from the
+    same weights: the launches (the lazy epoch's one a-bar call and no
+    per-step full term) and the weights after."""
+    ds = synthetic_dataset(num_nodes=240, feature_dim=16, num_classes=5,
+                           normalization="graphsage", seed=0)
+    cfg = Config(**{**dict(dataset="synthetic", batch_size=16, degree=10000,
+                           test_degree=10000, cv=True, test_cv=True,
+                           hidden1=16, normalization="graphsage",
+                           layer_norm=True, num_fc_layers=2, dropout=0.0,
+                           pad_degree=-1, seed=1, test_batch_size=24),
+                    **over})
+    it = MinibatchIterator(ds.train_d, 3)
+    it.shuffle()
+    bm = Trainer._batch_matrix(it.data, cfg.batch_size, ds.num_data)[:10]
+    out = {}
+    for dev in ("cpu", cuda):
+        tr = Trainer(cfg, ds, device=dev)
+        K.reset_launches()
+        tr.state, m = tr._train_epoch(
+            tr.state, tr.graph_train, tr.train_features, tr.labels,
+            torch.from_numpy(bm).to(dev), tr.gen)
+        out[str(dev)] = (tr, float(m["loss"]), dict(K.LAUNCHES))
+    cpu, gpu = out["cpu"], out[str(cuda)]
+    want = {k: per_step.get(k, 0) * len(bm) + per_epoch.get(k, 0)
+            for k in K.LAUNCHES}
+    assert gpu[2] == want
+    assert abs(gpu[1] - cpu[1]) <= 1e-4
+    for l, k in St.param_keys(cpu[0].params):
+        torch.testing.assert_close(gpu[0].params[l][k].cpu(),
+                                   cpu[0].params[l][k], rtol=0, atol=1e-4)

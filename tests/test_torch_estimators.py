@@ -508,9 +508,11 @@ def test_full_neighborhood_mean_square_matches_jax(graphs):
                                          jnp.asarray(field), square=square)
         got = A.full_neighborhood_mean(T(hist), tg, T(field), square=square)
         np.testing.assert_allclose(N(got), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError, match="lazy"):
-        A.vr_aggregate(T(hist), None, None, None, tg, (T(hist),), False,
-                       "gcn", lazy_l=((), ()))
+    # under --lazy_fullterm the term is a row gather of the a-bar table
+    lazy = ((T(hist),), (A.full_abar(T(hist), tg, ds.num_data),))
+    np.testing.assert_allclose(
+        N(A._full_term((T(hist),), lazy, 0, tg, T(field))),
+        N(A.full_neighborhood_mean(T(hist), tg, T(field))), **TOL)
 
 
 # ------------------------------ one train step ----------------------------

@@ -152,7 +152,7 @@ def test_cuda_trainer_without_cuda_raises(trained):
 def test_unported_options_raise(trained):
     cfg, ds, _, _ = trained
     for over in ({"dp": 2},
-                 {"partition_nodes": "bfs"}, {"graph_format": "edgelist"}):
+                 {"partition_nodes": "bfs"}, {"ckpt_async": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(port_cfg(cfg.replace(**over)), ds, device="cpu")
 

@@ -706,9 +706,8 @@ def test_cli_train_end_to_end(tmp_path, capsys):
 
 @pytest.mark.parametrize("over", [
     {"importance": True, "is_row_table": True}, {"partition_nodes": "bfs"},
-    {"tp": 2}, {"graph_format": "edgelist"}, {"lazy_fullterm": True},
-    {"ckpt_async": True}, {"test_importance": True, "is_row_table": True},
-    {"dp": 2}])
+    {"tp": 2}, {"ckpt_async": True},
+    {"test_importance": True, "is_row_table": True}, {"dp": 2}])
 def test_unported_training_options_raise(tmp_path, over):
     cfg = _flags(tmp_path)
     ds = Ld.load_data(port_cfg(cfg))
