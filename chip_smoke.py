@@ -2983,13 +2983,335 @@ def phase_ema(tr: Trainer, alpha: float = EMA_ALPHA):
     return launches
 
 
-def main() -> None:
+# ----------------------------- data parallelism ----------------------------
+
+DP_HALO = dict(rows_per_rank=4096, d=128, k=64, n_req=8192)
+DP_FIRST_EPOCH_RTOL = 1e-4   # dp against one process, same seed, no dropout
+# over the epoch's first steps: then the atomics' order, the ranks' sum
+# order and the bf16 history make any two runs drift apart (at world 4 the
+# sums differ from step 1 and reached 4.4e-4 by step 32; PERF.md, PR 9)
+DP_HELD_STEPS = 8
+DP_PREDICT_ATOL = 1e-5       # a dp checkpoint served by one process
+DP_PREDICT_IDS = 2048
+
+
+def _dp_log(*args) -> None:
+    if torch.distributed.get_rank() == 0:
+        print(*args, flush=True)
+
+
+def _dp_kernels(tr: Trainer, seed: int = 2) -> dict:
+    """The four kernels on the inputs the data-parallel path gives them on
+    this rank, from one real scheduled batch of ``tr``'s recipe: the CV
+    kernel and the two fanout kernels on the gathered ``[R, d]`` buffer of
+    the layer's input rows (``_HaloReader``: remapped slots, the buffer's
+    history rows behind an identity field), the full term on this rank's
+    history block with the all-gathered neighbour rows, the slots other
+    ranks own made dead.  Each is held against its plain version; rank 0
+    times them as phase 3 does.  Returns ``{kernel: result}``."""
+    from stochastic_gcn_tpu_torch.parallel.mesh import all_gather_rows
+    mesh, n = tr.mesh, tr.ds.num_data
+    timing = mesh.rank == 0 and tr.device.type == "cuda"
+    bs = tr.cfg.batch_size
+    ids = torch.from_numpy(tr._batch_matrix(
+        tr.train_iter.data[:bs], bs, n)[0]).to(tr.device)
+    pack = schedule(tr.gen, tr.graph_train, ids, tr.train_degrees, True,
+                    dedup=tr.cfg.field_dedup, round_multiple=mesh.size)
+    ls, field_in, field_out = pack.layers[0], pack.fields[0], pack.fields[1]
+    v = A._HaloReader(ls, field_in.shape[0], mesh, field_in, field_out, n)
+    hist = tr.state.histories[0][0]
+    d = hist.shape[1]
+    rng = np.random.default_rng(seed + mesh.rank)
+    x = v.rows(torch.from_numpy(rng.standard_normal(
+        (field_in.shape[0] // mesh.size, d), dtype=np.float32)).to(
+            tr.device))
+    hbar = v.hist_rows(hist)
+    r, (f, k) = x.shape[0], v.pos.shape
+    fnbr, fw, _ = graph_rows(tr.graph_train, v.field_out)
+    nbr_all = all_gather_rows(fnbr, mesh).long() - mesh.rank * hist.shape[0]
+    w_all = all_gather_rows(fw, mesh)
+    mine = (nbr_all >= 0) & (nbr_all < hist.shape[0])
+    full_idx = torch.where(mine, nbr_all, hist.shape[0]).to(
+        torch.int32).contiguous()
+    full_w = torch.where(mine, w_all, 0.0).contiguous()
+    base = A.full_neighborhood_mean(hist, tr.graph_train, v.field_out,
+                                    mesh=mesh)
+    g = torch.from_numpy(rng.standard_normal((f, d), dtype=np.float32)).to(
+        tr.device)
+    kernel, ref, replaced = _cv_calls(r)
+    out = {}
+    out["cv_fanout_aggregate"] = (
+        f"dp buffer: {str(hbar.dtype)[6:]} history rows [{r}, {d}] C={r} "
+        f"F={f} K={k}",
+        _compare("dp cv fanout", kernel, ref, hbar,
+                 [(v.pos, v.w, x, v.iota, base)], timing, kind="cv", rows=r,
+                 sentinel=r, library=NO_LIBRARY_CV, replaced=replaced))
+    out["fanout_aggregate"] = (
+        f"dp buffer: f32 C={r} F={f} K={k}",
+        _compare("dp fanout", K.fanout_aggregate, K.fanout_aggregate_ref, x,
+                 [(v.pos, v.w)], timing, library=_library_gather))
+    out["fanout_aggregate_backward"] = (
+        f"dp buffer: C={r} F={f} K={k} d={d}",
+        _compare("dp backward",
+                 lambda g_, p, w: K.fanout_aggregate_backward(g_, p, w, r),
+                 lambda g_, p, w: K.fanout_aggregate_backward_ref(g_, p, w,
+                                                                  r),
+                 g, [(v.pos, v.w)], timing, kind="backward", rows=r,
+                 library=_library_backward(r)))
+    out["hbm_gather_aggregate"] = (
+        f"dp owner side: {str(hist.dtype)[6:]} history block "
+        f"{list(hist.shape)} F={full_idx.shape[0]} K={full_idx.shape[1]}",
+        _compare("dp full term", K.hbm_gather_aggregate,
+                 K.hbm_gather_aggregate_ref, hist, [(full_idx, full_w)],
+                 timing, library=_library_gather))
+    return out
+
+
+def _epoch_losses(tr: Trainer) -> list:
+    """One epoch of ``tr``'s own shuffled batches, as ``train_epoch`` runs
+    it, returning every step's loss (``train_epoch`` keeps the last)."""
+    tr.train_iter.shuffle()
+    bm = torch.from_numpy(tr._batch_matrix(
+        tr.train_iter.data, tr.cfg.batch_size, tr.ds.num_data)).to(tr.device)
+    step = St.build_train_step(tr.cfg, tr.train_spec, tr.train_degrees,
+                               tr.ds.num_data, tr.mesh)
+    losses = []
+    for ids in bm:
+        tr.state, m = step(tr.state, tr.graph_train, tr.train_features,
+                           tr.labels, ids, tr.gen,
+                           importance=tr.importance_train)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def _dp_first_epoch(ds, device: str, cfg_kw: dict) -> None:
+    """The first epoch of CV+PP on ``ds`` with dedup-compacted fields and
+    no dropout, data-parallel, against two one-process runs of the same
+    seed on rank 0's card, step by step.  The fanout backward's atomics add
+    repeated positions in an order that depends on the layout (the dp path
+    runs it on a gathered buffer), so the runs part at the float32 rounding
+    of a sum after a few steps, and the bf16 history makes that grow to
+    ~1e-2 by the end of the epoch; the losses are held to
+    ``DP_FIRST_EPOCH_RTOL`` over the first ``DP_HELD_STEPS`` steps, and the
+    whole epoch's largest differences are printed, the one-process runs'
+    own beside them."""
+    cfg = Config(**{**cfg_kw, "field_dedup": True, "dropout": 0.0,
+                    "dp": torch.distributed.get_world_size()})
+    tr = Trainer(cfg, ds, device=device)
+    got = np.array(_epoch_losses(tr))
+    f1 = tr.evaluate(ds.val_d)[2]
+    del tr
+    if torch.distributed.get_rank() == 0:
+        one, ones = [], []
+        for _ in range(2):
+            t = Trainer(cfg.replace(dp=1), ds, device=device,
+                        distributed=False)
+            one.append(np.array(_epoch_losses(t)))
+            ones.append(t.evaluate(ds.val_d)[2])
+            del t
+        spread = np.abs(one[1] - one[0]) / np.abs(one[0])
+        dev = np.abs(got - one[0]) / np.abs(one[0])
+        held = min(DP_HELD_STEPS, len(got))
+        parted = [int(np.argmax(x > 0)) if (x > 0).any() else None
+                  for x in (dev, spread)]
+        growth = {s: float(f"{dev[:s].max():.3e}")
+                  for s in (1, 2, 4, 8, 16, 32, 64) if s <= len(dev)}
+        _dp_log(f"dp: first epoch, dp against one process, largest relative "
+                f"difference over the first n steps: {growth}")
+        _dp_log(f"dp: first epoch (dedup fields, no dropout), {len(got)} "
+                f"steps: dp against one process at most {dev[:held].max():.3e}"
+                f" over the first {held} steps (rtol {DP_FIRST_EPOCH_RTOL}), "
+                f"{dev.max():.3e} over the epoch (first differing step "
+                f"{parted[0]}); one process against itself "
+                f"{spread.max():.3e} (first differing step {parted[1]}); "
+                f"last loss {got[-1]:.6f} against {one[0][-1]:.6f} and "
+                f"{one[1][-1]:.6f}, val micro-F1 {f1:.4f} against "
+                f"{ones[0]:.4f} and {ones[1]:.4f}")
+        if not dev[:held].max() <= DP_FIRST_EPOCH_RTOL:
+            fail(f"dp first epoch {got[:held]} differs from one process "
+                 f"{one[0][:held]}")
+    torch.distributed.barrier()
+
+
+def _dp_converge(ds, out_dir: str, device: str, cfg_kw: dict,
+                 target: float) -> list:
+    """CV+PP at the recipe on ``ds`` until the val micro-F1 reaches the
+    band, at most ``CONVERGE_EPOCHS`` epochs; then the checkpoint: saved by
+    the data-parallel Trainer, loaded by one process on rank 0's card,
+    whose predictions must equal the data-parallel ones."""
+    world = torch.distributed.get_world_size()
+    ckpt = os.path.join(out_dir, "ckpt")
+    cfg = Config(**{**cfg_kw, "dp": world, "ckpt_dir": ckpt})
+    tr = Trainer(cfg, ds, device=device)
+    curve, t0 = [], time.perf_counter()
+    for _ in range(CONVERGE_EPOCHS):
+        tr.train_epoch()
+        curve.append(tr.evaluate(ds.val_d)[2])
+        if curve[-1] >= target:
+            break
+    secs = time.perf_counter() - t0
+    _dp_log(f"dp: converge, val micro-F1 by epoch "
+            f"{', '.join(f'{f:.4f}' for f in curve)} ({secs:.2f} s with "
+            f"evaluation)")
+    if max(curve) < target:
+        fail(f"dp CV+PP val micro-F1 {max(curve):.4f} < {target} in "
+             f"{CONVERGE_EPOCHS} epochs")
+    ids = ds.test_d[:DP_PREDICT_IDS]
+    got = tr.predict(ids)
+    tr.save()
+    del tr
+    if torch.distributed.get_rank() == 0:
+        one = Trainer(cfg.replace(dp=1), ds, device=device, distributed=False)
+        one.load(load_history=True)
+        want = one.predict(ids)
+        err = float(np.abs(got - want).max())
+        _dp_log(f"dp: checkpoint of the dp={world} run served by one "
+                f"process: {len(ids)} test ids, max abs err {err:.3e}")
+        if not err <= DP_PREDICT_ATOL:
+            fail(f"a dp checkpoint served by one process differs by {err}")
+    torch.distributed.barrier()
+    return curve
+
+
+def _dp_rank(out_dir: str, device: str, sbm_kw: dict, reddit_kw: dict,
+             slice_cfg: dict, converge_cfg: dict, target: float) -> None:
+    """One rank of the dp phase (``phase_dp``), on ``cuda:rank``."""
+    from stochastic_gcn_tpu_torch.parallel import checks
+    from stochastic_gcn_tpu_torch.parallel import mesh as PM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = torch.distributed.get_rank()
+    world = torch.distributed.get_world_size()
+    res = {"halo": checks.halo_primitives(**DP_HALO)}
+    _dp_log(f"dp: halo primitives against whole-table gathers and scatters "
+            f"on the card (f32 and bf16, duplicate, sentinel and parked ids, "
+            f"the gather's gradient, the owner-routed full term): max abs "
+            f"err {res['halo']}")
+
+    sbm = community_sbm_dataset(**sbm_kw)
+    _dp_first_epoch(sbm, device, converge_cfg)
+    res["curve"] = _dp_converge(sbm, out_dir, device, converge_cfg, target)
+    del sbm
+
+    ds = reddit_like(**reddit_kw)
+    cfg = Config(**{**slice_cfg, "dp": world})
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, ds, device=device)
+    setup = time.perf_counter() - t0
+    tr.train_epoch()                                   # warm-up
+    _sync(device)
+    K.reset_launches()
+    PM.reset_wire()
+    if tr.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    amt0 = tr.amt_data
+    t0 = time.perf_counter()
+    loss, _, _, steps = tr.train_epoch()
+    _sync(device)
+    secs = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    wire = dict(PM.WIRE)
+    hist_bytes = sum(h.numel() * h.element_size()
+                     for hl in (*tr.state.histories, *tr.eval_histories)
+                     for h in hl)
+    res.update(steps=steps, secs=secs, loss=loss, setup_s=setup,
+               batch=cfg.batch_size,
+               edges=tr.amt_data - amt0, launches=launches, wire=wire,
+               peak_gib=_peak_gib(device),
+               hist_bytes=hist_bytes)
+    check_launches(f"a dp={world} CV+PP train epoch on rank {rank}",
+                   launches, {name: per * steps for name, per in
+                              STEP_LAUNCHES["CV+PP"].items()})
+    if not np.isfinite(loss):
+        fail(f"dp: non-finite training loss {loss}")
+    res["kernels"] = _dp_kernels(tr)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_dp(results: dict, device: str = "cuda", world: int = 0,
+             sbm_kw=SBM_KW, reddit_kw=None, slice_cfg=SLICE_CFG,
+             converge_cfg=CONVERGE_CFG, target: float = CONVERGE_F1) -> dict:
+    """Data parallelism: one NCCL rank per card of this machine (rank r on
+    ``cuda:r``), each running ``_dp_rank``: (a) the halo primitives against
+    whole-table gathers and scatters on the card; (b) on the SBM, one
+    epoch of CV+PP with dedup-compacted fields and no dropout against one
+    process of the same seed (``DP_FIRST_EPOCH_RTOL``), then CV+PP at the
+    recipe to the 0.90 band within ``CONVERGE_EPOCHS`` epochs, and (d) its
+    checkpoint served by one process (``DP_PREDICT_ATOL``); (c) the
+    Reddit-shaped recipe at global batch 512: a warm-up epoch, then a
+    timed epoch with the counters reset just before it (ms/step, sampled
+    edges/s, peak memory, history bytes and collective bytes per step per
+    rank, launches checked exactly per rank), and the four kernels on the
+    inputs this path gives them, against their plain versions and timed
+    on rank 0.  Any rank's failure fails the run.  Returns rank 0's launch
+    counts of the timed epoch; folds the kernels' dp cases into
+    ``results``."""
+    from stochastic_gcn_tpu_torch.parallel import launch
+    world = world or torch.cuda.device_count()
+    print(f"dp: world {world}", flush=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        launch.spawn(_dp_rank, world,
+                     (tmp, device, sbm_kw, reddit_kw or {}, slice_cfg,
+                      converge_cfg, target), device, store_dir=tmp)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for r, res in enumerate(ranks):
+        steps = res["steps"]
+        wire = sum(res["wire"].values())
+        print(f"dp: rank {r} of {world}, Reddit-shaped CV+PP at global batch "
+              f"{res['batch']}: Trainer set-up {res['setup_s']:.2f}"
+              f" s; timed epoch {steps} steps in {res['secs']:.3f} s -> "
+              f"{1e3 * res['secs'] / steps:.3f} ms/step, "
+              f"{res['edges'] / res['secs']:.0f} sampled edges/s (global); "
+              f"last loss {res['loss']:.5f}; "
+              f"peak device memory {res['peak_gib']:.3f} GiB; history bytes "
+              f"{res['hist_bytes']} (train and eval blocks); collective "
+              f"bytes per step {wire / steps:.0f} "
+              f"{ {k: v / steps for k, v in res['wire'].items()} }; "
+              f"launches per step "
+              f"{ {k: v / steps for k, v in res['launches'].items()} }")
+    rank0 = ranks[0]
+    for name, (case, res) in rank0["kernels"].items():
+        worst = max(rk["kernels"][name][1]["max_abs_err"] for rk in ranks)
+        res["max_abs_err"] = worst
+        _report(results, name, case, res)
+        results[name]["dp_case"] = {
+            "case": case, **{key: res.get(key) for key in
+                             ("max_abs_err", *MAIN_KEYS, "library")}}
+        results[name]["dp_launches_per_step_per_rank"] = \
+            rank0["launches"][name] / rank0["steps"]
+    print(f"dp: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return rank0["launches"]
+
+
+def main(argv=None) -> None:
+    import argparse
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--phase", choices=("all", "dp"), default="all",
+                   help="dp: the card, build and dp phases alone (one rank "
+                        "per card of the machine)")
+    only = p.parse_args(argv).phase
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_card()
     phase_build()
+    if only == "dp":
+        kernels = {name: {} for name in REPLACES}
+        phase_dp(kernels)
+        print(json.dumps({"dp_kernels": {
+            name: res["dp_case"] for name, res in kernels.items()}}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     kernels = phase_kernels()
     t0 = time.perf_counter()
     ds = reddit_like()
@@ -3031,6 +3353,7 @@ def main() -> None:
             os.path.join(tmp, "pubmed"), kernels)
         ppi_paths, ppi_step, ppi_request = phase_ppi(
             os.path.join(tmp, "ppi"))
+    dp_epoch = phase_dp(kernels)
     per_step["CV+PP"] = {name: count / steps
                          for name, count in launches.items()}
     per_step.update(pubmed_steps)
@@ -3040,7 +3363,8 @@ def main() -> None:
     paths = {"train epoch": launches, "served requests": served,
              "served requests (artifact)": art,
              "Exact evaluation": exact, **is_paths, **estimator_paths,
-             **pubmed_paths, **ppi_paths, **fullterm_paths}
+             **pubmed_paths, **ppi_paths, **fullterm_paths,
+             f"dp={torch.cuda.device_count()} train epoch (rank 0)": dp_epoch}
     total = {name: sum(p[name] for p in paths.values()) for name in kernels}
     idle = [name for name, count in total.items() if count == 0]
     if idle:
@@ -3065,7 +3389,9 @@ def main() -> None:
          "is_batches": res.get("is_batches", {}),
          "sparse_layer_batches": res.get("sparse_layer_batches", {}),
          **{key: res[key] for key in ("fullterm_cases", "tier_wall_ms",
-                                      "tier_sweep", "lazy_anchor_ms")
+                                      "tier_sweep", "lazy_anchor_ms",
+                                      "dp_case",
+                                      "dp_launches_per_step_per_rank")
             if key in res}}
         for name, res in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,11 @@ def main(argv=None):
 
     from ..config import parse_flags
     cfg = parse_flags(rest)
+    from ..parallel import distributed, launch
+    if launch.dispatch(cfg, own.device, "stochastic_gcn_tpu_torch.cli.export",
+                       argv):
+        return None
+    log = distributed.main_log()
 
     from ..data.loaders import load_data
     from ..serving import export_predictor
@@ -52,8 +57,8 @@ def main(argv=None):
     t0 = time.time()
     path = export_predictor(trainer, own.out, platforms=plats,
                             scan_batches=own.scan_batches)
-    print(f"Serving artifact written to: {path}  "
-          f"time= {time.time() - t0:.5f}")
+    log(f"Serving artifact written to: {path}  "
+        f"time= {time.time() - t0:.5f}")
     return path
 
 

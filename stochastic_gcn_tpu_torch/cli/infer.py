@@ -62,6 +62,11 @@ def main(argv=None):
 
     from ..config import parse_flags
     cfg = parse_flags(rest)
+    from ..parallel import distributed, launch
+    if launch.dispatch(cfg, own.device, "stochastic_gcn_tpu_torch.cli.infer",
+                       argv):
+        return None
+    log = distributed.main_log()
 
     from ..data.loaders import load_data
     from ..training.loop import Trainer
@@ -86,14 +91,14 @@ def main(argv=None):
             acc = float((pred == labels).mean())
         else:
             acc = float((pred == np.argmax(labels, axis=1)).mean())
-        print(f"Inference results: nodes= {len(ids)} accuracy= {acc:.5f} "
-              f"mi F1={micro:.5f} ma F1={macro:.5f}  time= {dur:.5f}")
+        log(f"Inference results: nodes= {len(ids)} accuracy= {acc:.5f} "
+            f"mi F1={micro:.5f} ma F1={macro:.5f}  time= {dur:.5f}")
     else:
-        print(f"Inference results: nodes= {len(ids)}  time= {dur:.5f}")
+        log(f"Inference results: nodes= {len(ids)}  time= {dur:.5f}")
 
-    if own.out:
+    if own.out and distributed.is_main():
         np.savez(own.out, ids=ids.astype(np.int64), probs=probs, pred=pred)
-        print(f"Predictions saved in file: {own.out}")
+        log(f"Predictions saved in file: {own.out}")
     return probs
 
 

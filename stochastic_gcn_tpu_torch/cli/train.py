@@ -30,14 +30,19 @@ def main(argv=None):
 
     from ..config import parse_flags
     cfg = parse_flags(rest)
+    from ..parallel import distributed, launch
+    if launch.dispatch(cfg, own.device, "stochastic_gcn_tpu_torch.cli.train",
+                       argv):
+        return None
+    log = distributed.main_log()
     np.random.seed(cfg.seed)
 
     from ..data.loaders import load_data
     from ..training.loop import Trainer
     ds = load_data(cfg)
-    print("Features shape = {}, training edges = {}, testing edges = {}"
-          .format(ds.feats.shape, ds.train_adj.nnz, ds.full_adj.nnz))
-    print("{} training data, {} validation data, {} testing data.".format(
+    log("Features shape = {}, training edges = {}, testing edges = {}"
+        .format(ds.feats.shape, ds.train_adj.nnz, ds.full_adj.nnz))
+    log("{} training data, {} validation data, {} testing data.".format(
         len(ds.train_d), len(ds.val_d), len(ds.test_d)))
 
     if cfg.model == "mlp":
@@ -46,12 +51,12 @@ def main(argv=None):
         for epoch in range(cfg.epochs):
             loss, acc = trainer.train_epoch()
             vloss, vacc, micro, macro = trainer.evaluate(ds.val_d)
-            print(f"Epoch: {epoch + 1:04d} train_loss= {loss:.5f} "
-                  f"train_acc= {acc:.5f} val_loss= {vloss:.5f} "
-                  f"val_acc= {vacc:.5f} mi F1={micro:.5f} ma F1={macro:.5f}")
+            log(f"Epoch: {epoch + 1:04d} train_loss= {loss:.5f} "
+                f"train_acc= {acc:.5f} val_loss= {vloss:.5f} "
+                f"val_acc= {vacc:.5f} mi F1={micro:.5f} ma F1={macro:.5f}")
         tloss, tacc, micro, macro = trainer.evaluate(ds.test_d)
-        print(f"Test set results: cost= {tloss:.5f} accuracy= {tacc:.5f} "
-              f"mi F1={micro:.5f} ma F1={macro:.5f}  time= 0.00000")
+        log(f"Test set results: cost= {tloss:.5f} accuracy= {tacc:.5f} "
+            f"mi F1={micro:.5f} ma F1={macro:.5f}  time= 0.00000")
         return trainer
 
     trainer = Trainer(cfg, ds, device=own.device)

@@ -33,16 +33,25 @@ class PaddedGraph:
       tier_w, tier_frac: the two-tier split :func:`choose_tier` picked
         (-1 = off) for the CV full-neighbourhood term
         (models/aggregators.py::tiered_full_contract).
+      mesh: the data-parallel mesh of a row-sharded graph
+        (:func:`shard_graph_rows`), whose ``nbr`` and ``w`` hold this rank's
+        block of the row-padded tables (``deg`` stays whole); None for a
+        whole graph.
     """
     nbr: torch.Tensor
     w: torch.Tensor
     deg: torch.Tensor
     tier_w: int = -1
     tier_frac: float = 0.0
+    mesh: Optional[object] = None
 
     @property
     def num_nodes(self) -> int:
-        return self.nbr.shape[0] - 1
+        return self.deg.shape[0] - 1
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
 
     @property
     def pad_degree(self) -> int:
@@ -307,21 +316,35 @@ def flat_row_windows(graph: FlatGraph, field: torch.Tensor, width: int,
 def graph_rows(graph, field: torch.Tensor):
     """The ``[F, Dcap]`` neighbour / weight rows and ``[F]`` degrees of a
     field (ids <= N; sentinel rows are empty), from either layout: the one
-    dispatch point between them."""
+    dispatch point between them.  Of a row-sharded graph the rows come
+    from their owner ranks (parallel/halo.py), row N included, so
+    sentinel ids read the same empty row as on one device."""
     if isinstance(graph, FlatGraph):
         return flat_row_windows(graph, field, graph.pad_degree)
     ids = field.to(torch.int64)
-    return (graph.nbr.index_select(0, ids), graph.w.index_select(0, ids),
-            graph.deg.index_select(0, ids))
+    deg = graph.deg.index_select(0, ids)
+    if graph.sharded:
+        from ..parallel.halo import row_gather2
+        return (*row_gather2(graph.nbr, graph.w, field, graph.mesh), deg)
+    return graph.nbr.index_select(0, ids), graph.w.index_select(0, ids), deg
 
 
 def graph_slots(graph, field: torch.Tensor, sel: torch.Tensor):
     """The neighbour and weight at slot ``sel[f]`` of each field row (``[F]``
     each), without the rows: what the degree-1 sampler draws.  ``sel`` is
     below the row's degree, or 0 for an empty row, which reads the sentinel
-    id N and weight 0 in either layout."""
+    id N and weight 0 in either layout.  Of a row-sharded graph each slot
+    comes from its row's owner, as one element of the tables viewed as
+    ``[rows * Dcap, 1]``."""
     ids = field.to(torch.int64)
     sel = sel.to(torch.int64)
+    if isinstance(graph, PaddedGraph) and graph.sharded:
+        from ..parallel.halo import row_gather2
+        k = graph.pad_degree
+        nbr, w = row_gather2(graph.nbr.reshape(-1, 1),
+                             graph.w.reshape(-1, 1), ids * k + sel,
+                             graph.mesh)
+        return nbr.reshape(-1), w.reshape(-1)
     if isinstance(graph, FlatGraph):
         at = graph.bstart.index_select(0, ids).to(torch.int64) \
             * graph.idx.shape[1] + sel
@@ -331,6 +354,56 @@ def graph_slots(graph, field: torch.Tensor, sel: torch.Tensor):
                 torch.where(live, graph.w.reshape(-1).index_select(0, at),
                             0.0))
     return graph.nbr[ids, sel], graph.w[ids, sel]
+
+
+def pad_table_rows(x: torch.Tensor, multiple: int, fill=0) -> torch.Tensor:
+    """``x`` ([R, ...]) with rows holding ``fill`` appended so R divides
+    ``multiple``: a node table that tiles over a mesh.  The padding rows
+    are never addressed (node ids <= N < R)."""
+    r = x.shape[0]
+    extra = -(-r // multiple) * multiple - r
+    if extra == 0:
+        return x
+    return torch.cat([x, x.new_full((extra, *x.shape[1:]), fill)])
+
+
+def pad_features_rows(features, multiple: int):
+    """Row-pad a feature table (dense, or padded-sparse with sentinel
+    column ids ``dim`` and zero values in the new rows) for a mesh."""
+    if isinstance(features, PaddedSparseFeatures):
+        return features.replace(
+            idx=pad_table_rows(features.idx, multiple, features.dim),
+            val=pad_table_rows(features.val, multiple))
+    return pad_table_rows(features, multiple)
+
+
+def pad_graph_rows(graph: PaddedGraph, multiple: int) -> PaddedGraph:
+    """Row-pad a whole PaddedGraph's ``nbr`` / ``w`` for a mesh (the new
+    rows are empty: sentinel ids, zero weights); ``deg`` stays ``[N+1]``,
+    and with it the node count."""
+    n = graph.num_nodes
+    return dataclasses.replace(
+        graph, nbr=pad_table_rows(graph.nbr, multiple, n),
+        w=pad_table_rows(graph.w, multiple))
+
+
+def shard_graph_rows(graph: PaddedGraph, mesh, rows: int) -> PaddedGraph:
+    """This rank's block of a whole PaddedGraph padded to ``rows`` rows
+    (``parallel.mesh.shard_rows``): ``nbr`` and ``w`` row-sharded over
+    ``mesh``, ``deg`` whole."""
+    padded = pad_graph_rows(graph, rows)
+    return dataclasses.replace(padded, nbr=mesh.local(padded.nbr).clone(),
+                               w=mesh.local(padded.w).clone(), mesh=mesh)
+
+
+def shard_table_rows(features, mesh, rows: int):
+    """This rank's block, a tensor of its own, of a whole node table (dense,
+    or padded-sparse features) padded to ``rows`` rows."""
+    padded = pad_features_rows(features, rows)
+    if isinstance(padded, PaddedSparseFeatures):
+        return padded.replace(idx=mesh.local(padded.idx).clone(),
+                              val=mesh.local(padded.val).clone())
+    return mesh.local(padded).clone()
 
 
 def dense_rows(x, num_nodes: Optional[int] = None, dtype=torch.float32,

@@ -20,6 +20,16 @@ All three branches of the control-variate aggregator run on these kernels:
 plain CV, CVD (a noisy stream ``h`` and a clean stream ``mu``) and the
 det-dropout moments ``(mu, var)``, whose variance takes the squared and the
 cross edge weights.
+
+Under data parallelism (``mesh``, parallel/mesh.py) a rank holds a row
+block of every field's activations and of the history, and computes its
+block of the output field.  A :class:`_HaloReader` gathers the input rows
+its slots and its self rows name into a local buffer (owner-routed and
+differentiable, parallel/halo.py), with the history rows of their node ids
+beside them, and remaps the slot positions into that buffer; the same
+kernels then run on the buffer.  The full term contracts each rank's own
+history rows (:func:`full_neighborhood_mean_halo`).  Under a mesh the full
+term is always the per-step, untiered one (the JAX package's choice).
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from ..data.graph import FlatGraph, flat_row_windows, graph_rows
 from ..ops.cuda_spmm import (FanoutAggregate, cv_fanout_aggregate,
                              hbm_gather_aggregate)
 from ..ops.gather import row_gather
+from ..parallel import halo
 from ..sampler.scheduler import LayerSample
 
 # The two-tier full term engages only at fields of at least this many rows
@@ -80,14 +91,41 @@ def _tiers(tier_w: int, width: int, rows: int) -> bool:
     return 0 < tier_w <= width - 8 and rows >= TIER_MIN_ROWS
 
 
+def full_neighborhood_mean_halo(hist: torch.Tensor, fnbr: torch.Tensor,
+                                fw: torch.Tensor, mesh) -> torch.Tensor:
+    """``A_full . h_bar`` over a row-sharded history (``hist``: this rank's
+    block) for this rank's ``[F/P, Dcap]`` neighbour rows: the ranks
+    all-gather the rows, each contracts the slots whose history rows it
+    owns with ``hbm_gather_aggregate`` over its own block (the other slots
+    point past the block, which the kernel reads as dead), and a
+    reduce-scatter sums the ``[F, d]`` float32 partials into each rank's
+    block (parallel/halo.py::owner_routed)."""
+    def contract(local, loc, mine, w_all):
+        idx = torch.where(mine, loc, local.shape[0]).to(torch.int32)
+        return hbm_gather_aggregate(local, idx,
+                                    torch.where(mine, w_all, 0.0))
+    return halo.owner_routed(hist, fnbr, (fw,), contract, mesh)
+
+
 def full_neighborhood_mean(hist: torch.Tensor, graph,
                            field_out: torch.Tensor,
-                           square: bool = False) -> torch.Tensor:
+                           square: bool = False, mesh=None) -> torch.Tensor:
     """``(A_full . h_bar)[field_out]``, float32: padded full-row contraction,
     or on a :class:`FlatGraph` the edge-list windows.  ``square=True`` uses
     squared edge weights (the det-dropout variance term).  A graph with a
     tier split (``--fadj_tier``) runs it on fields of ``TIER_MIN_ROWS`` rows
-    or more: the same value, two narrower kernel calls."""
+    or more: the same value, two narrower kernel calls.  With a ``mesh``,
+    ``hist`` is this rank's history block and ``field_out`` its block of
+    the field: the owner-routed contraction of the same rows."""
+    if mesh is not None:
+        if isinstance(graph, FlatGraph):
+            width = min(graph.edge_cap_per_row, graph.max_degree)
+            fnbr, fw, _ = flat_row_windows(graph, field_out, width)
+            fw = _apply_renorm(fw, graph, field_out)
+        else:
+            fnbr, fw, _ = graph_rows(graph, field_out)
+        return full_neighborhood_mean_halo(
+            hist, fnbr, fw.square() if square else fw, mesh)
     if isinstance(graph, FlatGraph):
         return full_neighborhood_mean_edgelist(hist, graph, field_out,
                                                square=square)
@@ -279,13 +317,103 @@ def _anchor(history, lazy_l, j: int) -> torch.Tensor:
 
 
 def _full_term(history, lazy_l, j: int, graph, field_out: torch.Tensor,
-               square: bool = False) -> torch.Tensor:
+               square: bool = False, mesh=None) -> torch.Tensor:
     """``(A_full . h_bar)[field_out]``: the per-step contraction, or a row
     gather of the a-bar table under ``--lazy_fullterm``."""
     if lazy_l is None:
         return full_neighborhood_mean(history[j], graph, field_out,
-                                      square=square)
+                                      square=square, mesh=mesh)
     return lazy_l[1][j].index_select(0, field_out.to(torch.int64))
+
+
+class _LocalReader:
+    """How an aggregator reads its input field on one device: the whole
+    field is here, the slots are the schedule's, the output rows are the
+    ``[:F_out]`` prefix of the input field and the history rows are those
+    of the field's node ids."""
+
+    def __init__(self, ls: LayerSample, field_in, field_out, n: int):
+        self.pos, self.w, self.aw = ls.slot_pos, ls.slot_w, ls.slot_aw
+        self.scales, self.field_in, self.field_out = ls.scales, field_in, \
+            field_out
+        self.n, self.n_out = n, ls.slot_pos.shape[0]
+
+    def rows(self, x):
+        return x
+
+    def self_rows(self, x):
+        return x[:self.n_out]
+
+    def hist_rows(self, table):
+        return history_gather(table, self.field_in, self.n)
+
+    def cv(self, x, table, base):
+        return cv_fanout_aggregate(x, table, self.field_in, self.n, self.pos,
+                                   self.w, base)
+
+
+class _HaloReader:
+    """How an aggregator reads its input field on one rank of a mesh: the
+    rank holds a row block of the input field's activations and computes
+    its block of the output field.  The input rows its slots and self rows
+    name (each once: the live slots' positions and the output rows'
+    prefix positions, sorted) are gathered into an ``[R, d]`` buffer
+    through one :class:`~..parallel.halo.Route`, and the slot positions are
+    remapped into it (dead slots park at ``R``), so the hand-written
+    kernels run on the buffer unchanged.  The history rows of the buffer's
+    node ids come from their owners into a buffer of the same rows, read
+    by the CV kernel through an identity field of sentinel ``R``."""
+
+    def __init__(self, ls: LayerSample, f_in: int, mesh, field_in=None,
+                 field_out=None, n: int = -1):
+        lo, m = mesh.block(ls.slot_pos.shape[0])
+        dev = ls.slot_pos.device
+        pos = ls.slot_pos.narrow(0, lo, m)
+        w = ls.slot_w.narrow(0, lo, m)
+        live = (w != 0) & (pos >= 0) & (pos < f_in)
+        own = torch.arange(lo, lo + m, device=dev)
+        need = torch.unique(torch.cat([pos[live].to(torch.int64), own]))
+        r = need.shape[0]
+        self.pos = torch.where(
+            live, torch.searchsorted(need, pos.to(torch.int64)),
+            r).to(torch.int32)
+        self.self_idx = torch.searchsorted(need, own)
+        self.w = w
+        self.aw = None if ls.slot_aw is None else ls.slot_aw.narrow(0, lo, m)
+        self.scales = ls.scales.narrow(0, lo, m)
+        self.field_in = field_in
+        self.route = halo.Route(need, f_in, mesh)
+        self.n, self.mesh, self.need = n, mesh, need
+        if field_in is not None:
+            self.field_out = field_out.narrow(0, lo, m)
+            self.iota = torch.arange(r, dtype=torch.int32, device=dev)
+            self._hist_route = None
+
+    def rows(self, x):
+        return halo.fetch(x, self.route)
+
+    def self_rows(self, x):
+        return x.index_select(0, self.self_idx)
+
+    def hist_rows(self, table):
+        # the buffer rows' history rows, from their owners: one route for
+        # every history table of the layer (they share the row layout)
+        if self._hist_route is None:
+            self._hist_route = halo.Route(
+                self.field_in.index_select(0, self.need),
+                table.shape[0] * self.mesh.size, self.mesh, self.n)
+        return halo.fetch(table, self._hist_route)
+
+    def cv(self, x, table, base):
+        return cv_fanout_aggregate(x, self.hist_rows(table), self.iota,
+                                   self.iota.shape[0], self.pos, self.w,
+                                   base)
+
+
+def _reader(ls, field_in, field_out, n, mesh):
+    if mesh is None:
+        return _LocalReader(ls, field_in, field_out, n)
+    return _HaloReader(ls, field_in.shape[0], mesh, field_in, field_out, n)
 
 
 def ema_aggregate(inputs: torch.Tensor, ls: LayerSample,
@@ -322,28 +450,31 @@ def _self_concat(normalization: str, self_part: torch.Tensor,
     return torch.cat((self_part, nbr_part), dim=1)
 
 
-def _concat_pair(normalization: str, a, b, ls: LayerSample, a_nbr, b_nbr):
-    """The self concat of :func:`_self_concat` for both tensors of a pair."""
-    return (_self_concat(normalization, _self_rows(a, ls), a_nbr),
-            _self_concat(normalization, _self_rows(b, ls), b_nbr))
-
-
-def plain_aggregate(inputs, ls: LayerSample, normalization: str):
+def plain_aggregate(inputs, ls: LayerSample, normalization: str,
+                    mesh=None):
     """PlainAggregator: Z = A_samp . H, with the self concat under graphsage
     normalization; a ``(mu, var)`` pair takes the squared weights for the
-    variance."""
+    variance.  With a ``mesh`` the inputs are this rank's row block of the
+    input field and the result its block of the output field."""
+    if mesh is None:
+        v = _LocalReader(ls, None, None, -1)
+    else:
+        first = inputs[0] if isinstance(inputs, tuple) else inputs
+        v = _HaloReader(ls, first.shape[0] * mesh.size, mesh)
     if isinstance(inputs, tuple):
-        mu, var = inputs
-        mu_n = fanout_gather(mu, ls.slot_pos, ls.slot_w)
-        var_n = fanout_gather(var, ls.slot_pos, ls.slot_w.square())
-        return _concat_pair(normalization, mu, var, ls, mu_n, var_n)
-    nbr = fanout_gather(inputs, ls.slot_pos, ls.slot_w)
-    return _self_concat(normalization, _self_rows(inputs, ls), nbr)
+        mu, var = (v.rows(t) for t in inputs)
+        mu_n = fanout_gather(mu, v.pos, v.w)
+        var_n = fanout_gather(var, v.pos, v.w.square())
+        return (_self_concat(normalization, v.self_rows(mu), mu_n),
+                _self_concat(normalization, v.self_rows(var), var_n))
+    x = v.rows(inputs)
+    nbr = fanout_gather(x, v.pos, v.w)
+    return _self_concat(normalization, v.self_rows(x), nbr)
 
 
 def vr_aggregate(inputs, ls: LayerSample, field_in: torch.Tensor,
                  field_out: torch.Tensor, graph, history, cvd: bool,
-                 normalization: str, lazy_l=None):
+                 normalization: str, lazy_l=None, mesh=None):
     """VRAggregator.  Returns (outputs, new_history) where new_history
     holds the rows to scatter back at ``field_in``.  Three branches, as in
     the JAX package:
@@ -366,39 +497,45 @@ def vr_aggregate(inputs, ls: LayerSample, field_in: torch.Tensor,
 
     ``lazy_l``: the epoch-frozen anchor of ``--lazy_fullterm``, ``(snapshot
     history tuple, a-bar table tuple)``: every h_bar is the snapshot's and
-    every full term a row gather of a-bar (:func:`full_abar`)."""
-    n = graph.num_nodes
+    every full term a row gather of a-bar (:func:`full_abar`).  ``mesh``:
+    the inputs and the history are this rank's row blocks (the module
+    docstring); the new history rows are the input block."""
+    v = _reader(ls, field_in, field_out, graph.num_nodes, mesh)
+
+    def full(j, square=False):
+        return _full_term(history, lazy_l, j, graph, v.field_out, square,
+                          mesh)
 
     def cv_term(x):
-        base = _full_term(history, lazy_l, 0, graph, field_out)
-        return cv_fanout_aggregate(x, _anchor(history, lazy_l, 0), field_in,
-                                   n, ls.slot_pos, ls.slot_w, base)
+        return v.cv(x, _anchor(history, lazy_l, 0), full(0))
 
     if cvd:
         h, mu = inputs
-        mu_n = cv_term(mu)
-        h_n = fanout_gather(h - mu, ls.slot_pos, ls.slot_w) \
-            * ls.scales[:, None] + mu_n
-        return _concat_pair(normalization, h, mu, ls, h_n, mu_n), (mu,)
+        h_b, mu_b = v.rows(h), v.rows(mu)
+        mu_n = cv_term(mu_b)
+        h_n = fanout_gather(h_b - mu_b, v.pos, v.w) \
+            * v.scales[:, None] + mu_n
+        return (_self_concat(normalization, v.self_rows(h_b), h_n),
+                _self_concat(normalization, v.self_rows(mu_b), mu_n)), (mu,)
 
     if isinstance(inputs, tuple):
         mu, var = inputs
+        mu_b, var_b = v.rows(mu), v.rows(var)
         # the root in the history's own type, widened by the subtraction:
         # where the JAX model takes it
-        sigma_bar = torch.sqrt(history_gather(_anchor(history, lazy_l, 1),
-                                              field_in, n))
-        delta_sigma = torch.sqrt(var) - sigma_bar
-        mu_n = cv_term(mu)
-        var_n = (fanout_gather(delta_sigma.square(), ls.slot_pos,
-                               ls.slot_w.square())
-                 + _full_term(history, lazy_l, 1, graph, field_out,
-                              square=True)
-                 + 2.0 * fanout_gather(delta_sigma * sigma_bar, ls.slot_pos,
-                                       ls.slot_aw))
+        sigma_bar = torch.sqrt(v.hist_rows(_anchor(history, lazy_l, 1)))
+        delta_sigma = torch.sqrt(var_b) - sigma_bar
+        mu_n = cv_term(mu_b)
+        var_n = (fanout_gather(delta_sigma.square(), v.pos, v.w.square())
+                 + full(1, square=True)
+                 + 2.0 * fanout_gather(delta_sigma * sigma_bar, v.pos,
+                                       v.aw))
         var_n = torch.relu(var_n) + 1e-10
-        return _concat_pair(normalization, mu, var, ls, mu_n, var_n), \
+        return (_self_concat(normalization, v.self_rows(mu_b), mu_n),
+                _self_concat(normalization, v.self_rows(var_b), var_n)), \
             (mu, var)
 
-    a_neighbour = cv_term(inputs)
-    return (_self_concat(normalization, _self_rows(inputs, ls), a_neighbour),
-            (inputs,))
+    x = v.rows(inputs)
+    a_neighbour = cv_term(x)
+    return _self_concat(normalization, v.self_rows(x), a_neighbour), \
+        (inputs,)

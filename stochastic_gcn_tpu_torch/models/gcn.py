@@ -19,6 +19,9 @@ import torch
 from ..data.graph import PaddedSparseFeatures
 from ..ops import layers as L
 from ..ops.gather import row_gather
+from ..parallel.halo import row_gather as halo_row_gather
+from ..parallel.halo import row_gather2
+from ..parallel.mesh import all_reduce_sum
 from ..sampler.scheduler import BatchFields
 from . import aggregators as agg
 
@@ -202,13 +205,16 @@ def weight_decay_param_names(spec: ModelSpec) -> Tuple[str, Tuple[str, ...]]:
 
 
 def init_histories(spec: ModelSpec, num_nodes: int, row_multiple: int = 8,
-                   dtype=torch.float32, device="cpu"):
+                   dtype=torch.float32, device="cpu", mesh=None):
     """Zero history buffers: per agg layer, 1 (2 for det_dropout) arrays of
     shape [R, d], R = N+1 rounded up to ``row_multiple``; rows past the
-    sentinel are never addressed."""
+    sentinel are never addressed.  With a ``mesh`` (``row_multiple`` a
+    multiple of its size) this rank's ``[R / P, d]`` block of each."""
     if not spec.cv:
         return tuple()
     rows = -(-(num_nodes + 1) // row_multiple) * row_multiple
+    if mesh is not None:
+        rows = mesh.block(rows)[1]
     return tuple(
         tuple(torch.zeros((rows, d), dtype=dtype, device=device)
               for _ in range(spec.n_history_per_layer))
@@ -217,10 +223,18 @@ def init_histories(spec: ModelSpec, num_nodes: int, row_multiple: int = 8,
 
 # ----------------------------- forward ------------------------------------
 
-def _slice_inputs(features, field0: torch.Tensor, num_nodes: int = -1):
+def _slice_inputs(features, field0: torch.Tensor, num_nodes: int = -1,
+                  mesh=None):
     """The layer-0 field's feature rows; sentinel ids read zero rows.  Of
     padded-sparse features the ``(idx, val)`` rows: an id at or above the
-    sentinel reads row N, whose slots are ``(dim, 0)``."""
+    sentinel reads row N, whose slots are ``(dim, 0)``.  Row-sharded
+    features (``mesh.shard_graph``) are read from their owners, row N of
+    padded-sparse ones included."""
+    if mesh is not None and mesh.shard_graph:
+        if isinstance(features, PaddedSparseFeatures):
+            idx, val = row_gather2(features.idx, features.val, field0, mesh)
+            return features.replace(idx=idx, val=val)
+        return halo_row_gather(features, field0, mesh, num_nodes)
     if isinstance(features, PaddedSparseFeatures):
         ids = field0.to(torch.int64).clamp(max=features.idx.shape[0] - 1)
         return features.replace(idx=features.idx.index_select(0, ids),
@@ -240,23 +254,33 @@ def _densify(h: PaddedSparseFeatures) -> torch.Tensor:
     return dense.index_put_((r, safe), h.val.float(), accumulate=True)
 
 
-def _tap(taps, label: str, h) -> None:
+def _tap(taps, label: str, h, mesh=None) -> None:
     """Append ``(label, mean, population std, absmax)`` of ``h`` in float32
     (of the mean stream of a CVD ``(mu, var)`` pair, of the stored values
     of padded-sparse features) to ``taps``, a list the caller owns; None
-    taps nothing."""
+    taps nothing.  With a ``mesh`` ``h`` is a row block and the moments
+    are those of the whole tensor (sums over the ranks)."""
     if taps is None:
         return
     if isinstance(h, PaddedSparseFeatures):
         h = h.val
     x = (h[0] if isinstance(h, tuple) else h).detach().float()
-    taps.append((label, x.mean(), torch.std(x, correction=0),
-                 x.abs().max()))
+    if mesh is None:
+        taps.append((label, x.mean(), torch.std(x, correction=0),
+                     x.abs().max()))
+        return
+    tot = all_reduce_sum(torch.stack([x.sum(), x.new_tensor(x.numel())]),
+                         mesh)
+    mean = tot[0] / tot[1]
+    var = all_reduce_sum((x - mean).square().sum(), mesh) / tot[1]
+    top = x.abs().max()
+    torch.distributed.all_reduce(top, op=torch.distributed.ReduceOp.MAX)
+    taps.append((label, mean, torch.sqrt(var), top))
 
 
 def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
             histories, features, gen: torch.Generator,
-            keep_prob: float, train: bool, taps=None, lazy=None):
+            keep_prob: float, train: bool, taps=None, lazy=None, mesh=None):
     """Run the layer stack.
 
     Returns (logits [B, output_dim], new_histories) where new_histories[l]
@@ -269,26 +293,40 @@ def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
     preprocessing: an aggregator comes first) the sliced rows are
     densified.  ``lazy``: the epoch-frozen CV anchor of ``--lazy_fullterm``,
     ``(snapshot histories, a-bar tables)`` with the per-layer structure of
-    ``histories``; None runs the per-step full term."""
+    ``histories``; None runs the per-step full term.
+
+    ``mesh``: data parallelism.  The pack is the global schedule; this rank
+    computes its row block of every field (parallel/mesh.py), with its
+    history blocks, and returns its block of the logits and of each new
+    history.  Dropout takes this rank's rows of the global draw."""
     kp = keep_prob if train else 1.0
-    h = _slice_inputs(features, pack.fields[0], graph.num_nodes)
+
+    def rows_of(field):
+        # this rank's ids of a field, and its (rows, lo) dropout block
+        if mesh is None:
+            return field, None
+        lo, m = mesh.block(field.shape[0])
+        return field.narrow(0, lo, m), (field.shape[0], lo)
+
+    field0, block = rows_of(pack.fields[0])
+    h = _slice_inputs(features, field0, graph.num_nodes, mesh)
     if spec.reverse_input_dropout and train:
-        h = L.dropout(gen, h, kp)
+        h = L._dropout(gen, h, kp, block)
     if isinstance(h, PaddedSparseFeatures) and not any(
             isinstance(s, _PARAM_SPECS) and s.sparse_inputs
             for s in spec.specs):
         h = _densify(h)
-    _tap(taps, "input", h)
+    _tap(taps, "input", h, mesh)
     new_histories = [None] * spec.num_agg_layers
     for i, s in enumerate(spec.specs):
         if isinstance(s, DropoutSpec):
-            h = L.dropout_layer(gen, h, kp, spec.cvd)
+            h = L.dropout_layer(gen, h, kp, spec.cvd, block)
         elif isinstance(s, DenseSpec):
             h = L.dense(params[s.name], h, L.relu if s.relu else L.identity,
                         s.norm)
         elif isinstance(s, AugDenseSpec):
             h = L.aug_dropout_dense(params[s.name], gen, h, kp, L.relu,
-                                    s.norm)
+                                    s.norm, block)
         elif isinstance(s, DetFCSpec):
             h = L.det_dropout_fc(params[s.name], h, kp, s.norm)
         elif isinstance(s, AggSpec):
@@ -299,10 +337,11 @@ def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
                     h, ls, pack.fields[l], pack.fields[l + 1], graph,
                     histories[l], spec.cvd, spec.normalization,
                     lazy_l=None if lazy is None
-                    else (lazy[0][l], lazy[1][l]))
+                    else (lazy[0][l], lazy[1][l]), mesh=mesh)
             else:
-                h = agg.plain_aggregate(h, ls, spec.normalization)
-        _tap(taps, f"{i}:{type(s).__name__}", h)
+                h = agg.plain_aggregate(h, ls, spec.normalization, mesh)
+            block = rows_of(pack.fields[l + 1])[1]
+        _tap(taps, f"{i}:{type(s).__name__}", h, mesh)
     return h, tuple(new_histories)
 
 
@@ -310,23 +349,25 @@ def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
 
 def loss_and_metrics(params: dict, spec: ModelSpec, logits: torch.Tensor,
                      labels: torch.Tensor, valid_mask: torch.Tensor,
-                     weight_decay: float):
+                     weight_decay: float, nvalid=None):
     """Masked loss and accuracy over real (non-sentinel) batch rows, plus
     L2 weight decay (sum(w^2)/2) over the first parametric layer's
-    registered vars."""
+    registered vars.  ``nvalid``: the divisor (the valid rows of the
+    whole batch when the rows here are one rank's block of it)."""
     first, names = weight_decay_param_names(spec)
     wd = sum(params[first][n].square().sum() / 2.0 for n in names)
     return masked_loss_and_accuracy(weight_decay * wd, logits, labels,
-                                    valid_mask, spec.multitask)
+                                    valid_mask, spec.multitask, nvalid)
 
 
 def masked_loss_and_accuracy(penalty, logits: torch.Tensor,
                              labels: torch.Tensor, valid_mask: torch.Tensor,
-                             multitask: bool):
+                             multitask: bool, nvalid=None):
     """``penalty`` plus the mean cross-entropy over the valid rows (sigmoid
     per class when ``multitask``, softmax otherwise), and the accuracy
-    over them."""
-    nvalid = torch.clamp(valid_mask.sum(), min=1.0)
+    over them; ``nvalid`` overrides the count of valid rows."""
+    nvalid = torch.clamp(valid_mask.sum() if nvalid is None else nvalid,
+                         min=1.0)
     if multitask:
         ce = (torch.relu(logits) - logits * labels
               + torch.log1p(torch.exp(-logits.abs()))).mean(dim=1)

@@ -81,6 +81,10 @@ class MLPTrainer:
     on a machine without CUDA raises."""
 
     def __init__(self, cfg, ds, device="cuda"):
+        if cfg.dp > 1:
+            raise NotImplementedError(
+                "--model mlp with --dp > 1: the NeighbourMLP runs on one "
+                "device")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("MLPTrainer(device='cuda') but CUDA is not "

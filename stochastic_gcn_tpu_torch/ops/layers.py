@@ -62,16 +62,38 @@ def layer_norm(x: torch.Tensor, offset: torch.Tensor, scale: torch.Tensor,
     return (x - mean) * torch.rsqrt(var + eps) * scale + offset
 
 
-def dropout(gen: torch.Generator, x, keep_prob: float):
+def rows_draw(draw, shape, block=None) -> torch.Tensor:
+    """``draw(shape)``, or for a row block ``block = (rows, lo)`` of a
+    ``rows``-row tensor (a rank's rows under data parallelism) the draw of
+    the whole ``(rows, *shape[1:])`` tensor narrowed to rows ``[lo, lo +
+    shape[0])``: every rank takes its rows of the one global draw, so the
+    random stream stays in step across ranks and equals one device's."""
+    if block is None:
+        return draw(shape)
+    rows, lo = block
+    return draw((rows, *shape[1:])).narrow(0, lo, shape[0])
+
+
+def dropout(gen: torch.Generator, x, keep_prob: float, block=None):
     """Inverted dropout; the identity at ``keep_prob >= 1``.  Padded-sparse
     ``x`` keeps its columns and drops stored values, as the reference's
-    sparse_dropout over the nonzeros (gcn/layers.py:23-28)."""
+    sparse_dropout over the nonzeros (gcn/layers.py:23-28).  ``block``:
+    ``x`` is a row block of a larger tensor (:func:`rows_draw`)."""
     if keep_prob >= 1.0:
         return x
     if isinstance(x, PaddedSparseFeatures):
-        return x.replace(val=dropout(gen, x.val, keep_prob))
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+        return x.replace(val=dropout(gen, x.val, keep_prob, block))
+    keep = rows_draw(lambda s: torch.rand(s, generator=gen, device=x.device),
+                     x.shape, block) < keep_prob
     return torch.where(keep, x, 0.0) * (1.0 / keep_prob)
+
+
+def _dropout(gen, x, keep_prob: float, block):
+    # the module's dropout as it is bound at call time, given a block only
+    # when there is one
+    if block is None:
+        return dropout(gen, x, keep_prob)
+    return dropout(gen, x, keep_prob, block)
 
 
 def init_dense(gen: torch.Generator, input_dim: int, output_dim: int,
@@ -96,11 +118,11 @@ def init_aug_dense(gen: torch.Generator, input_dim: int, output_dim: int,
 
 
 def aug_dropout_dense(params: dict, gen: torch.Generator, inputs,
-                      keep_prob: float, act, norm: bool):
+                      keep_prob: float, act, norm: bool, block=None):
     """``(act(norm(dropout(x) @ W)), act(norm(mu @ W)).detach())`` for
     ``inputs = (x, mu)``, or ``x = mu = inputs`` for a single tensor."""
     x, mu = inputs if isinstance(inputs, tuple) else (inputs, inputs)
-    x = matmul(dropout(gen, x, keep_prob), params["weights"])
+    x = matmul(_dropout(gen, x, keep_prob, block), params["weights"])
     mu = matmul(mu, params["weights"])
     if norm:
         x = layer_norm(x, params["offset"], params["scale"], eps=1e-9)
@@ -165,18 +187,23 @@ def det_dropout_fc(params: dict, inputs, keep_prob: float, norm: bool):
     return mu_out, var_out
 
 
-def dropout_layer(gen: torch.Generator, inputs, keep_prob: float, cvd: bool):
+def dropout_layer(gen: torch.Generator, inputs, keep_prob: float, cvd: bool,
+                  block=None):
     """Dropout over the estimator's input: the noisy stream of a CVD pair
     ``(h, mu)``; a Gaussian sample ``mu + eps * sqrt(var + 1e-10)`` of a
-    moment pair ``(mu, var)``; or a plain tensor."""
+    moment pair ``(mu, var)``; or a plain tensor.  ``block``: the inputs
+    are a row block of larger tensors (:func:`rows_draw`)."""
     if cvd and isinstance(inputs, tuple):
-        return dropout(gen, inputs[0], keep_prob)
+        return _dropout(gen, inputs[0], keep_prob, block)
     if isinstance(inputs, tuple):
         mu, var = inputs
-        eps = torch.randn(var.shape, generator=gen, device=var.device,
-                          dtype=var.dtype)
-        return dropout(gen, mu + eps * torch.sqrt(var + 1e-10), keep_prob)
-    return dropout(gen, inputs, keep_prob)
+        eps = rows_draw(lambda s: torch.randn(s, generator=gen,
+                                              device=var.device,
+                                              dtype=var.dtype),
+                        var.shape, block)
+        return _dropout(gen, mu + eps * torch.sqrt(var + 1e-10), keep_prob,
+                        block)
+    return _dropout(gen, inputs, keep_prob, block)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

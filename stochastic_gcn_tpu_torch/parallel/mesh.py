@@ -1,0 +1,154 @@
+"""The data-parallel mesh: which tensors a rank holds whole, which a row
+block of, and the collectives over them.
+
+Port of stochastic_gcn_tpu/parallel/mesh.py for a 1-D ``('data',)`` mesh of
+processes, one per device (:mod:`.distributed`).  The JAX package states
+its layout as shardings (``state_shardings``, ``data_shardings``,
+``history_shardings``); here it is what each rank keeps:
+
+* whole, the same on every rank: the params, the Adam state, the step
+  counter, the Polyak average, the ``[N+1]`` degree and importance
+  vectors, the epoch's batch-id matrix and every schedule (each rank draws
+  the same global schedule from the same seeded generator);
+* a row block: every history table (train and eval), always; and with
+  ``shard_graph`` (the default, ``--shard_graph``) the padded graph's
+  neighbour and weight rows, the feature table (dense or padded-sparse)
+  and the labels.  Node tables are padded to :func:`shard_rows` rows, so
+  rank ``q`` owns rows ``[q * n_loc, (q + 1) * n_loc)``, ``n_loc =
+  shard_rows(N, P) // P``; with ``--noshard_graph`` the graph, features
+  and labels are whole;
+* the activations of a field of ``F`` rows (a multiple of ``P``, from the
+  scheduler's ``round_multiple``): rank ``q`` computes rows
+  ``[q * F / P, (q + 1) * F / P)`` of every field, GSPMD's ``P('data')``.
+
+Rows held elsewhere come through the owner-routed transports of
+:mod:`.halo`.  Every collective goes through the wrappers here, which add
+the bytes this rank puts on the wire to :data:`WIRE` (the collective bytes
+per step that chip_smoke.py reports): an all-to-all counts the rows it
+sends to other ranks, an all-gather ``(P - 1)`` copies of the local block,
+a reduce-scatter and an all-reduce the ring algorithm's ``(P - 1) / P``
+and ``2 (P - 1) / P`` of the tensor.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+# bytes this rank sent to other ranks since the last reset_wire(), by
+# collective
+WIRE = {"all_to_all": 0, "all_gather": 0, "reduce_scatter": 0,
+        "all_reduce": 0}
+
+
+def reset_wire() -> None:
+    for k in WIRE:
+        WIRE[k] = 0
+
+
+_all_gather = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A 1-D data-parallel mesh: ``size`` ranks of the default process
+    group, this process being ``rank``.  ``shard_graph``: the graph,
+    features and labels are row-sharded (the histories always are)."""
+    rank: int
+    size: int
+    shard_graph: bool = True
+
+    def block(self, rows: int) -> tuple:
+        """``(lo, n)``: this rank's rows of a ``rows``-row table or field
+        (``rows`` a multiple of ``size``)."""
+        if rows % self.size:
+            raise ValueError(f"{rows} rows do not tile over {self.size} "
+                             "ranks")
+        n = rows // self.size
+        return self.rank * n, n
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's row block of a whole tensor (a view)."""
+        lo, n = self.block(t.shape[0])
+        return t.narrow(0, lo, n)
+
+
+def make_mesh(shard_graph: bool = True) -> Mesh:
+    """The mesh of the default process group (see :mod:`.distributed`)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialised process group")
+    return Mesh(rank=dist.get_rank(), size=dist.get_world_size(),
+                shard_graph=shard_graph)
+
+
+def row_multiple(dp: int) -> int:
+    """The row multiple of node tables at data-parallel width ``dp``: the
+    least common multiple of 8 and ``dp``, which is the JAX package's
+    ``max(8, dp)`` for every power of two, and keeps the blocks equal at
+    any other width."""
+    return 8 * dp // math.gcd(8, dp)
+
+
+def shard_rows(num_nodes: int, dp: int) -> int:
+    """Rows of the row-sharded node tables: ``[N+1]`` padded to a multiple
+    of :func:`row_multiple` (models/gcn.py::init_histories), the layout
+    that defines ownership: node v is owned by rank ``v // (rows / dp)``."""
+    m = row_multiple(dp)
+    return -(-(num_nodes + 1) // m) * m
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Sum ``t`` over the ranks, in place; returns it."""
+    dist.all_reduce(t)
+    WIRE["all_reduce"] += 2 * _nbytes(t) * (mesh.size - 1) // mesh.size
+    return t
+
+
+def all_gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The ranks' blocks ``t`` ([n, ...] each, one shape) stacked in rank
+    order: ``[size * n, ...]``."""
+    t = t.contiguous()
+    out = t.new_empty((mesh.size * t.shape[0], *t.shape[1:]))
+    _all_gather(out, t)
+    WIRE["all_gather"] += _nbytes(t) * (mesh.size - 1)
+    return out
+
+
+def reduce_scatter_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Sum ``t`` ([size * n, ...], the same shape on every rank) over the
+    ranks and keep this rank's block of ``n`` rows."""
+    t = t.contiguous()
+    out = t.new_empty((t.shape[0] // mesh.size, *t.shape[1:]))
+    _reduce_scatter(out, t)
+    WIRE["reduce_scatter"] += _nbytes(t) * (mesh.size - 1) // mesh.size
+    return out
+
+
+def all_to_all(t: torch.Tensor, send: list, recv: list,
+               mesh: Mesh) -> torch.Tensor:
+    """Send rows ``t`` ([sum(send), ...], grouped by destination rank) with
+    ``send[r]`` rows to rank ``r``; returns the ``sum(recv)`` rows received,
+    grouped by source rank."""
+    t = t.contiguous()
+    out = t.new_empty((sum(recv), *t.shape[1:]))
+    dist.all_to_all_single(out, t, recv, send)
+    row = _nbytes(t[:1]) if t.shape[0] else 0
+    WIRE["all_to_all"] += row * (sum(send) - send[mesh.rank])
+    return out
+
+
+def whole(local: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The whole table of a row-sharded one (every rank gets it); the
+    tensor itself without a mesh."""
+    return local if mesh is None else all_gather_rows(local, mesh)

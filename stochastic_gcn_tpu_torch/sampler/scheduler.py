@@ -25,8 +25,14 @@ adjacency):
 * sentinel padding: absent slots/nodes use id ``N`` with weight 0.
 
 Every shape is static and nothing waits for the device, so a schedule can
-be captured with the step around it.  Owner-aligned layouts are not ported
-yet: the scheduler raises where the JAX one would take them.
+be captured with the step around it (on one device: a row-sharded graph's
+rows come through owner-routed exchanges, whose split sizes are read on
+the host).  Owner-aligned layouts are not ported yet: the scheduler raises
+where the JAX one would take them.
+
+Under data parallelism every rank draws the same global schedule from the
+same seeded generator (a row-sharded graph routes its own reads;
+``round_multiple`` rounds the fields to a multiple of the ranks).
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..data.graph import FlatGraph, graph_rows, graph_slots
+from ..data.graph import FlatGraph, PaddedGraph, graph_rows, graph_slots
 
 _NOT_PORTED = "not ported yet: see ROADMAP.md, queue 1"
 
@@ -165,6 +171,20 @@ def compute_importance(graph) -> torch.Tensor:
     return imp
 
 
+def importance_row_table(graph, importance: torch.Tensor):
+    """``importance[graph.nbr]``: the ``[N+1, Dcap]`` per-slot importance of
+    a padded graph (this rank's block of it for a row-sharded graph),
+    built once an epoch for ``--is_row_table``, whose schedule then reads
+    the slots' importance as a row gather of the field's rows
+    (:func:`expand_importance`) instead of the per-node multiplier of
+    :func:`is_slots`.  The two give the same slots.  None on the edge-list
+    layout, which has no slot table (as in the JAX package)."""
+    if not isinstance(graph, PaddedGraph):
+        return None
+    return importance.index_select(0, graph.nbr.reshape(-1).to(
+        torch.int64)).reshape(graph.nbr.shape)
+
+
 def _gumbel(gen: torch.Generator, n: int, device) -> torch.Tensor:
     """``n`` standard Gumbel draws, ``-log(-log(U))`` with ``U`` clamped
     below at float32's smallest normal, as ``jax.random.gumbel`` draws
@@ -250,6 +270,30 @@ def is_slots(sel: ISSelection, importance: torch.Tensor,
     inv = inv_col.index_select(0, ids).reshape(sel.rows_nbr.shape)
     pos = pos_table.index_select(0, ids).reshape(sel.rows_nbr.shape)
     slot_w = torch.where((inv > 0.0) & sel.valid, sel.rows_w * inv, 0.0)
+    slot_pos = torch.where(slot_w != 0.0, pos, PARKED_POS)
+    return slot_pos, slot_w
+
+
+def expand_importance(sel: ISSelection, graph, field_out: torch.Tensor,
+                      importance_rows: torch.Tensor, pos_table: torch.Tensor):
+    """The slots of a selection from the ``--is_row_table`` table
+    (:func:`importance_row_table`): each slot's importance is a row of the
+    table at its field row (from the row's owner when the table is
+    row-sharded), and an edge into a selected node keeps ``w * total_imp /
+    (importance * max(n, 1))``, the multiplier :func:`is_slots` takes per
+    node, computed per slot.  Every other slot weighs 0 and is parked.
+    Returns (slot_pos int32, slot_w float32)."""
+    if graph.sharded:
+        from ..parallel.halo import row_gather
+        imp_nbr = row_gather(importance_rows, field_out, graph.mesh)
+    else:
+        imp_nbr = importance_rows.index_select(0, field_out.to(torch.int64))
+    ids = sel.rows_nbr.reshape(-1).to(torch.int64)
+    tgt = sel.selected.index_select(0, ids).reshape(sel.rows_nbr.shape) \
+        & sel.valid
+    inv = sel.total_imp / (imp_nbr * torch.clamp(sel.n_samples, min=1.0))
+    slot_w = torch.where(tgt, sel.rows_w * inv, 0.0)
+    pos = pos_table.index_select(0, ids).reshape(sel.rows_nbr.shape)
     slot_pos = torch.where(slot_w != 0.0, pos, PARKED_POS)
     return slot_pos, slot_w
 
@@ -340,7 +384,8 @@ def schedule(gen: torch.Generator, graph,
              need_aw: bool = False, importance=None, owner_blocks: int = 0,
              dedup: bool = True, is_approx_topk: bool = True,
              is_recall_target: float = 0.95,
-             is_slot_cap: int = 0) -> BatchFields:
+             is_slot_cap: int = 0, round_multiple: int = 1,
+             importance_rows: Optional[torch.Tensor] = None) -> BatchFields:
     """Build the receptive field of one minibatch: expand top-down with
     ``degrees[L-1], ..., degrees[0]`` and return everything input side
     first.  ``batch_ids`` is [batch_size] int32, sentinel (``N``)-padded,
@@ -351,7 +396,9 @@ def schedule(gen: torch.Generator, graph,
     or a layer that samples more than ``2N`` slots).  ``importance`` (the
     ``[N+1]`` table of :func:`compute_importance`) selects importance
     sampling; ``is_slot_cap`` caps its slots per row (-1: 8 at batch >=
-    2048, else 0, no cap)."""
+    2048, else 0, no cap); ``importance_rows`` (:func:`importance_row_table`)
+    gives its slots' importance by field row.  ``round_multiple`` rounds
+    every field capacity up (the data-parallel width)."""
     n = graph.num_nodes
     degrees = list(degrees)
     num_layers = len(degrees)
@@ -365,7 +412,8 @@ def schedule(gen: torch.Generator, graph,
     dedup = effective_dedup(dedup, batch_ids.shape[0], degrees, n,
                             graph.pad_degree, importance=use_is)
     caps = field_capacities(batch_ids.shape[0], degrees, n, graph.pad_degree,
-                            importance=use_is, dedup=dedup)
+                            importance=use_is, round_multiple=round_multiple,
+                            dedup=dedup)
 
     field = batch_ids.to(torch.int32)
     fields = [field]
@@ -380,8 +428,13 @@ def schedule(gen: torch.Generator, graph,
                             recall_target=is_recall_target)
             scales = torch.ones(field.shape[0], dtype=torch.float32,
                                 device=field.device)
+            field_out = field
             field, pos_table = compact_field(field, sel.sel_ids, n, cap)
-            slot_pos, slot_w = is_slots(sel, importance, pos_table)
+            if importance_rows is not None:
+                slot_pos, slot_w = expand_importance(
+                    sel, graph, field_out, importance_rows, pos_table)
+            else:
+                slot_pos, slot_w = is_slots(sel, importance, pos_table)
             if is_slot_cap:
                 slot_pos, slot_w, drop = is_slot_compact(slot_pos, slot_w,
                                                          is_slot_cap)

@@ -64,6 +64,7 @@ import torch
 from .config import from_fields
 from .data.graph import FlatGraph, PaddedGraph, PaddedSparseFeatures
 from .models import gcn as M
+from .parallel.mesh import whole
 from .training import step as S
 
 _STATE = "state.npz"
@@ -72,22 +73,34 @@ _BF16 = "bf16:"          # npz has no bfloat16: the uint16 bit view
 
 
 def _serving_tensors(trainer) -> dict:
-    """The tensors a Predictor serves from, by artifact name."""
+    """The tensors a Predictor serves from, by artifact name: whole tables
+    (a data-parallel trainer's row blocks gathered from every rank, the
+    node tables cut back to their ``N+1`` rows)."""
+    mesh = getattr(trainer, "mesh", None)
+    n1 = trainer.ds.num_data + 1
+
+    def node_table(t):
+        if mesh is None or not mesh.shard_graph:
+            return t
+        return whole(t, mesh)[:n1]
+
     out = {f"params/{layer}/{name}": t
            for layer, p in trainer._eval_params().items()
            for name, t in p.items()}
     for l, hl in enumerate(trainer.eval_histories):
         for j, h in enumerate(hl):
-            out[f"histories/{l}/{j}"] = h
+            out[f"histories/{l}/{j}"] = whole(h, mesh)
     g = trainer.graph_full
-    out.update({f"graph/{name}": getattr(g, name)
+    out.update({f"graph/{name}": getattr(g, name) if name == "deg"
+                else node_table(getattr(g, name))
                 for name in _GRAPH_FIELDS[type(g)][0]})
     feats = trainer.test_features
     if isinstance(feats, PaddedSparseFeatures):
-        out.update({"features/idx": feats.idx, "features/val": feats.val})
+        out.update({"features/idx": node_table(feats.idx),
+                    "features/val": node_table(feats.val)})
     else:
-        out["features"] = feats
-    out["labels"] = trainer.labels
+        out["features"] = node_table(feats)
+    out["labels"] = node_table(trainer.labels)
     out["importance"] = trainer.importance_test
     return out
 
@@ -143,9 +156,23 @@ def export_predictor(trainer, path: str, refresh: bool = True,
     if refresh and cfg.test_cv:
         trainer.predict(np.zeros((1,), np.int64), refresh=True)
 
+    tensors = _serving_tensors(trainer)
+    mesh = getattr(trainer, "mesh", None)
+    if mesh is not None:
+        # every rank took part in the gathers; rank 0 writes
+        if mesh.rank == 0:
+            _write_artifact(trainer, path, tensors, platforms, scan_batches)
+        torch.distributed.barrier()
+        return path
+    return _write_artifact(trainer, path, tensors, platforms, scan_batches)
+
+
+def _write_artifact(trainer, path, tensors, platforms, scan_batches) -> str:
+    cfg = trainer.cfg
+    n = trainer.ds.num_data
     arrays = {}
     names = []
-    for name, t in _serving_tensors(trainer).items():
+    for name, t in tensors.items():
         prefix, a = _to_numpy(t)
         arrays[prefix + name] = a
         names.append(name)

@@ -1,21 +1,33 @@
-"""Trainer: training, evaluation, serving and checkpoints on one device.
+"""Trainer: training, evaluation, serving and checkpoints.
 
-Port of stochastic_gcn_tpu/training/loop.py for one device, on the padded
-or the edge-list graph (``--graph_format edgelist``): the constructor puts
-the train and eval graphs, features, labels, the importance tables, the
-train state (params, Adam state, bf16 train histories) and the eval
-histories on an explicit device.  ``train_epoch``
-/ ``sgd_train`` / ``evaluate`` / ``predict`` / ``test`` / ``run_tests`` /
-``activation_stats`` / ``gradient_variance`` / ``save`` / ``load`` follow
-the JAX Trainer, for every estimator the flags select (NS, CV, CVD,
-det-dropout, Exact, importance sampling; with or without preprocessing;
-Polyak-averaged evaluation weights; the two-tier and the epoch-frozen
-(``--lazy_fullterm``) full term); checkpoints use the JAX file layout,
-so either package resumes the other's.
+Port of stochastic_gcn_tpu/training/loop.py, on the padded or the
+edge-list graph (``--graph_format edgelist``): the constructor puts the
+train and eval graphs, features, labels, the importance tables, the train
+state (params, Adam state, bf16 train histories) and the eval histories
+on an explicit device.  ``train_epoch`` / ``sgd_train`` / ``evaluate`` /
+``predict`` / ``test`` / ``run_tests`` / ``activation_stats`` /
+``gradient_variance`` / ``save`` / ``load`` follow the JAX Trainer, for
+every estimator the flags select (NS, CV, CVD, det-dropout, Exact,
+importance sampling with or without ``--is_row_table``; with or without
+preprocessing; Polyak-averaged evaluation weights; the two-tier and the
+epoch-frozen (``--lazy_fullterm``) full term); checkpoints use the JAX file
+layout, so either package resumes the other's.
+
+``--dp P > 1`` runs data-parallel over a process group of ``P`` ranks, one
+device each (parallel/): every rank builds this Trainer from the same data
+and flags, holds its row block of the histories (and, under
+``--shard_graph``, of the graph, features and labels), and runs the same
+global schedule on its rows of every field.  Every public method returns
+the same values on every rank; logging and checkpoint files are rank 0's,
+and checkpoints hold the whole tables in the single-device layout, so a
+run of any width loads one of any other.  ``--partition_nodes rcm``
+relabels the nodes internally (every id a caller passes or gets stays in
+the caller's id space).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import signal
 import time
@@ -25,10 +37,14 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..data.graph import (Dataset, dense_rows, flat_csr, pad_csr,
-                          pad_sparse_features)
-from ..data.preprocess import cap_adj_degree
+from ..data.graph import (Dataset, FlatGraph, dense_rows, flat_csr, pad_csr,
+                          pad_sparse_features, shard_graph_rows,
+                          shard_table_rows)
+from ..data.preprocess import (cap_adj_degree, locality_permutation,
+                               relabel_dataset)
 from ..models import gcn as M
+from ..parallel import distributed as D
+from ..parallel.mesh import Mesh, make_mesh, row_multiple, shard_rows, whole
 from ..sampler.scheduler import MinibatchIterator, compute_importance
 from ..utils.metrics import Stat, f1_from_counts
 from . import step as S
@@ -68,13 +84,21 @@ def _refuse_unported(cfg) -> None:
         # as the JAX Trainer: importance sampling produces no cross-term
         # (slot_aw) weights
         raise ValueError("--det_dropout is incompatible with --importance")
+    if cfg.use_pallas and (cfg.dp > 1 or cfg.tp > 1):
+        raise ValueError("--use_pallas is single-chip only (--dp 1)")
+    if cfg.dp > 1 and (cfg.batch_size % cfg.dp
+                       or cfg.test_batch_size % cfg.dp):
+        raise ValueError("batch sizes must divide --dp")
     unported = {
-        "--dp/--tp > 1 (multi-device)": cfg.dp > 1 or cfg.tp > 1,
-        "--partition_nodes": cfg.partition_nodes != "none",
-        # the superseded per-epoch importance row table is not ported; the
-        # slots come from is_slots' per-node gathers
-        "--is_row_table with importance sampling":
-            cfg.is_row_table and (cfg.importance or cfg.test_importance),
+        "--tp > 1 (the 2-D mesh)": cfg.tp > 1,
+        "--owner_batching with --dp > 1": cfg.owner_batching and cfg.dp > 1,
+        "--dp_hosts > 1 (multi-host)": cfg.dp_hosts > 1,
+        "--coordinator / --num_processes > 1 (multi-host)":
+            bool(cfg.coordinator) or cfg.num_processes > 1,
+        "--graph_format edgelist with --dp > 1 --shard_graph "
+        "(node-sharded edge lists, flat_csr(parts > 1))":
+            cfg.graph_format == "edgelist" and cfg.dp > 1
+            and cfg.shard_graph,
         "--ckpt_async": cfg.ckpt_async,
     }
     asked = [k for k, v in unported.items() if v]
@@ -83,19 +107,57 @@ def _refuse_unported(cfg) -> None:
             f"not ported yet (ROADMAP.md, queue 1): {', '.join(asked)}")
 
 
+def _mesh_for(cfg, distributed: Optional[bool]) -> Optional[Mesh]:
+    """The Trainer's mesh: the default process group's when there is one
+    (``distributed=None``) or when asked for (``True``); its size must be
+    ``cfg.dp``.  None runs on one device, which ``cfg.dp > 1`` never
+    does."""
+    if distributed is None:
+        distributed = torch.distributed.is_initialized()
+    if not distributed:
+        if cfg.dp > 1:
+            raise ValueError(f"--dp {cfg.dp} needs a process group of "
+                             f"{cfg.dp} ranks (parallel/launch.py, or "
+                             "torchrun)")
+        return None
+    if D.process_count() != cfg.dp:
+        raise ValueError(f"--dp {cfg.dp} but the process group has "
+                         f"{D.process_count()} ranks")
+    return make_mesh(cfg.shard_graph)
+
+
 class Trainer:
     """Holds the train and eval state on ``device``; trains, evaluates and
     serves predictions.
 
     ``device="cuda"`` on a machine without CUDA raises; nothing falls back
-    to the CPU."""
+    to the CPU.  ``distributed``: run on the default process group's mesh
+    (None: whenever a group is initialised); under a mesh a CUDA device
+    is this process's current one."""
 
-    def __init__(self, cfg, ds: Dataset, device="cuda"):
+    def __init__(self, cfg, ds: Dataset, device="cuda",
+                 distributed: Optional[bool] = None):
         _refuse_unported(cfg)
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda') but CUDA is not "
                                "available")
+        self.mesh = mesh = _mesh_for(cfg, distributed)
+        if mesh is not None and device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.node_perm = self._id_to_internal = None
+        if cfg.partition_nodes != "none":
+            # a locality relabelling of the nodes, internal to the Trainer:
+            # the splits and every id a caller passes stay in the caller's
+            # id space (_to_internal maps them at entry)
+            self.node_perm = locality_permutation(ds.full_adj,
+                                                  cfg.partition_nodes)
+            self._id_to_internal = np.empty(ds.num_data, np.int32)
+            self._id_to_internal[self.node_perm] = np.arange(
+                ds.num_data, dtype=np.int32)
+            ds = dataclasses.replace(
+                relabel_dataset(ds, self.node_perm), train_d=ds.train_d,
+                val_d=ds.val_d, test_d=ds.test_d)
         self.cfg, self.ds, self.device = cfg, ds, device
         n = ds.num_data
 
@@ -158,11 +220,14 @@ class Trainer:
                     f"non-finite edge weights in the {nm} graph "
                     "(reference scheduler.cpp:114-115 guard)")
 
+        if mesh is not None and mesh.shard_graph:
+            self._shard_tables(mesh)
+
         # weights from a CPU generator, so every device starts from the
         # same values; sampling and dropout draw from a generator on the
-        # device
+        # device (under a mesh every rank draws the same stream)
         self.state = S.init_train_state(torch.Generator().manual_seed(
-            cfg.seed), cfg, self.train_spec, n, device)
+            cfg.seed), cfg, self.train_spec, n, device, mesh)
         self.gen = torch.Generator(device=device).manual_seed(cfg.seed)
         # incremental-refresh bookkeeping for predict(): bumped on every
         # weight change; eval histories are converged for exactly one value
@@ -171,20 +236,55 @@ class Trainer:
         # eval-side history is separate from the train side, as in the
         # reference (train.py:174)
         self.eval_histories = M.init_histories(
-            self.test_spec, n, 8, S.DTYPES[cfg.test_history_dtype], device)
+            self.test_spec, n, row_multiple(cfg.dp),
+            S.DTYPES[cfg.test_history_dtype], device, mesh)
         self._train_epoch = S.build_train_epoch(cfg, self.train_spec,
-                                                self.train_degrees, n)
+                                                self.train_degrees, n, mesh)
         self._eval_epoch = S.build_eval_epoch(cfg, self.test_spec,
-                                              self.test_degrees, n)
+                                              self.test_degrees, n,
+                                              mesh=mesh)
         self._predict_epoch = S.build_eval_epoch(
-            cfg, self.test_spec, self.test_degrees, n, with_preds=True)
-        self.train_iter = MinibatchIterator(ds.train_d, cfg.seed)
+            cfg, self.test_spec, self.test_degrees, n, with_preds=True,
+            mesh=mesh)
+        self.train_iter = MinibatchIterator(self._to_internal(ds.train_d),
+                                            cfg.seed)
         self.cost_val: list[float] = []
         self.amt_data = 0
         self.completed_epochs = 0     # checkpointed for --resume
         self.stop_requested = False   # preemption: finish epoch, save, exit
         self.epoch_stats: dict = {}
         self._prev_sig_handlers: list = []
+
+    def _shard_tables(self, mesh: Mesh) -> None:
+        """Keep this rank's row block of the padded graphs, the feature
+        tables and the labels (``--shard_graph``); the whole tables go.
+        Importance is computed from the whole graphs first."""
+        rows = shard_rows(self.ds.num_data, mesh.size)
+        if isinstance(self.graph_train, FlatGraph):
+            raise NotImplementedError(
+                "node-sharded edge lists (flat_csr(parts > 1)) are not "
+                "ported yet (ROADMAP.md, queue 1): use --noshard_graph")
+        self.graph_train, self.graph_full = (
+            shard_graph_rows(g, mesh, rows)
+            for g in (self.graph_train, self.graph_full))
+        self.train_features, self.test_features, self.labels = (
+            shard_table_rows(t, mesh, rows) for t in (
+                self.train_features, self.test_features, self.labels))
+
+    @property
+    def _main(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _log(self, log):
+        """``log`` on rank 0, nothing on the others."""
+        return log if self._main else D.quiet
+
+    def _to_internal(self, ids):
+        """Caller-space node ids in the internal (relabelled) id space;
+        the ids themselves without ``--partition_nodes``."""
+        if self._id_to_internal is None:
+            return ids
+        return self._id_to_internal[np.asarray(ids, np.int64)]
 
     @property
     def params(self) -> dict:
@@ -276,7 +376,7 @@ class Trainer:
         """Batched evaluation; with test_cv every pass refreshes the eval
         histories.  Returns (loss, accuracy, micro F1, macro F1, seconds)."""
         t0 = time.time()
-        data_ids = np.asarray(data_ids, np.int32)
+        data_ids = np.asarray(self._to_internal(data_ids), np.int32)
         out = self._run(self._eval_epoch, data_ids)
         nvalid = out["nvalid"].cpu().numpy()
         total_loss = float((out["losses"].cpu().numpy() * nvalid).sum()
@@ -306,7 +406,7 @@ class Trainer:
             for _ in range(cfg.num_layers):
                 self.evaluate(all_ids)
             self._hist_fresh_version = self._params_version
-        ids = np.asarray(data_ids, np.int32)
+        ids = np.asarray(self._to_internal(data_ids), np.int32)
         out = self._run(self._predict_epoch, ids)
         # the batch field of each step is that step's row of the batch
         # matrix, so the flattened predictions are in caller order
@@ -318,7 +418,7 @@ class Trainer:
         are evaluated too, so the histories keep converging."""
         res = self.evaluate(self.ds.test_d)
         test_cost, test_acc, micro, macro, dur = res
-        log(f"Test set results: cost= {test_cost:.5f} "
+        self._log(log)(f"Test set results: cost= {test_cost:.5f} "
             f"accuracy= {test_acc:.5f} mi F1={micro:.5f} ma F1={macro:.5f}  "
             f"time= {dur:.5f}")
         if self.cfg.test_cv:
@@ -350,16 +450,19 @@ class Trainer:
                 else self.ds.val_d[:cfg.test_batch_size]
         bsz = cfg.batch_size if train else cfg.test_batch_size
         batch = torch.from_numpy(self._batch_matrix(
-            np.asarray(data_ids)[:bsz], bsz, n)[0]).to(self.device)
+            self._to_internal(np.asarray(data_ids)[:bsz]), bsz,
+            n)[0]).to(self.device)
         if train:
             fn = S.make_activation_taps(cfg, self.train_spec,
-                                        self.train_degrees, n, True)
+                                        self.train_degrees, n, True,
+                                        self.mesh)
             out = fn(self.state.params, self.state.histories,
                      self.graph_train, self.train_features, self.labels,
                      batch, self.gen, self.importance_train)
         else:
             fn = S.make_activation_taps(cfg, self.test_spec,
-                                        self.test_degrees, n, False)
+                                        self.test_degrees, n, False,
+                                        self.mesh)
             out = fn(self._eval_params(), self.eval_histories,
                      self.graph_full, self.test_features, self.labels,
                      batch, self.gen, self.importance_test)
@@ -376,13 +479,16 @@ class Trainer:
         ``grad_bias``, ``pred_stdev``, ``grad_stdev``, ``full_pred_stdev``
         and ``full_grad_stdev``."""
         cfg, n = self.cfg, self.ds.num_data
+        log = self._log(log)
         batch = torch.from_numpy(self._batch_matrix(
-            self.ds.train_d[:cfg.batch_size], cfg.batch_size, n)[0]
-        ).to(self.device)
+            self._to_internal(self.ds.train_d[:cfg.batch_size]),
+            cfg.batch_size, n)[0]).to(self.device)
         full_fn = S.build_pred_and_grad(cfg, self.test_spec,
-                                        self.test_degrees, n, False)
+                                        self.test_degrees, n, False,
+                                        self.mesh)
         part_fn = S.build_pred_and_grad(cfg, self.train_spec,
-                                        self.train_degrees, n, True)
+                                        self.train_degrees, n, True,
+                                        self.mesh)
 
         def sample(fn, histories, graph, features, importance):
             preds, grads = Stat(), Stat()
@@ -453,6 +559,7 @@ class Trainer:
         save.  The preemption handlers are restored only after that save
         is on disk, so a SIGTERM during it still just sets the stop flag."""
         cfg = self.cfg
+        log = self._log(log)
         try:
             if cfg.load and not cfg.resume:
                 self.load()
@@ -494,8 +601,10 @@ class Trainer:
             if cfg.ckpt_every and (epoch + 1) % cfg.ckpt_every == 0:
                 self.save()
             # preemption notice (install_preemption_handler): leave the
-            # loop at the epoch boundary; sgd_train saves for --resume
-            if self.stop_requested:
+            # loop at the epoch boundary; sgd_train saves for --resume.
+            # Under a mesh every rank takes the branch any rank takes.
+            if D.allreduce_flag(self.stop_requested, self.device):
+                self.stop_requested = True
                 log(f"Preemption stop after epoch {epoch + 1}; "
                     "checkpointing for --resume...")
                 break
@@ -509,15 +618,52 @@ class Trainer:
                 break
 
     # ------------------------------------------------------------------
+    def _whole_histories(self, histories):
+        return tuple(tuple(whole(h, self.mesh) for h in hl)
+                     for hl in histories)
+
     def save(self):
         """Write the full state in the JAX layout to
-        ``<ckpt_dir>/model.ckpt.npz``, with the --resume loop counters."""
+        ``<ckpt_dir>/model.ckpt.npz``, with the --resume loop counters.
+        Under a mesh the history blocks are gathered into whole tables
+        (every rank takes part) and rank 0 writes them."""
         extra = {"completed_epochs": np.int64(self.completed_epochs),
                  "amt_data": np.int64(self.amt_data),
                  "cost_val": np.asarray(self.cost_val, np.float64)}
-        return save_checkpoint(self.cfg.ckpt_dir, self.state,
-                               self.eval_histories, self.cfg.seed,
-                               extra=extra, compress=self.cfg.ckpt_compress)
+        state = dataclasses.replace(
+            self.state, histories=self._whole_histories(self.state.histories))
+        eval_h = self._whole_histories(self.eval_histories)
+        path = None
+        if self._main:
+            path = save_checkpoint(self.cfg.ckpt_dir, state, eval_h,
+                                   self.cfg.seed, extra=extra,
+                                   compress=self.cfg.ckpt_compress)
+        if self.mesh is not None:
+            torch.distributed.barrier()
+        return path
+
+    def _load_sharded(self, load_history: bool) -> None:
+        """:meth:`load` under a mesh: the params and Adam state in place,
+        and the histories read whole, each rank keeping its block."""
+        p = self.mesh.size
+
+        def blank(histories):
+            if not load_history:
+                return histories
+            return tuple(tuple(h.new_zeros((h.shape[0] * p, *h.shape[1:]))
+                               for h in hl) for hl in histories)
+        state = dataclasses.replace(self.state,
+                                    histories=blank(self.state.histories))
+        eval_h = blank(self.eval_histories)
+        load_checkpoint(self.cfg.ckpt_dir, state, eval_h,
+                        load_history=load_history)
+        if load_history:
+            with torch.no_grad():
+                for mine, got in ((self.state.histories, state.histories),
+                                  (self.eval_histories, eval_h)):
+                    for hl, gl in zip(mine, got):
+                        for h, g in zip(hl, gl):
+                            h.copy_(self.mesh.local(g))
 
     def install_preemption_handler(self, signals=None):
         """Route SIGTERM (the eviction notice cluster managers send before
@@ -573,8 +719,11 @@ class Trainer:
         different streams."""
         if load_history is None:
             load_history = self.cfg.gradvar
-        load_checkpoint(self.cfg.ckpt_dir, self.state, self.eval_histories,
-                        load_history=load_history)
+        if self.mesh is None:
+            load_checkpoint(self.cfg.ckpt_dir, self.state,
+                            self.eval_histories, load_history=load_history)
+        else:
+            self._load_sharded(load_history)
         self._params_version += 1      # new weights: predict must refresh
         train_h = [h for hl in self.state.histories for h in hl]
         eval_h = [h for hl in self.eval_histories for h in hl]

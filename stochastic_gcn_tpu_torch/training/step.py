@@ -12,6 +12,15 @@ the Adam update.
 The JAX epoch's ``sched_prepass`` and ``scan_unroll`` are TPU dispatch
 knobs with no effect on the trajectory (the JAX test suite checks that it
 is bit-identical); the port's loop has no counterpart and ignores them.
+
+Data parallelism (``mesh``, parallel/mesh.py): every rank runs the same
+global schedule (``round_multiple=cfg.dp``) and computes its row block of
+every field; the loss is the local sum over the rank's valid batch rows
+divided by the whole batch's count (the weight decay on rank 0 only), so
+the gradients ``all_reduce``d (summed) over the ranks are those of the
+global loss, and every rank applies the same Adam update to its copy of
+the params.  Histories are row-sharded and written through the
+owner-routed scatter; the metrics every step returns are the global ones.
 """
 
 from __future__ import annotations
@@ -25,7 +34,9 @@ from ..data.graph import FlatGraph
 from ..models import aggregators as A
 from ..models import gcn as M
 from ..ops.gather import row_gather
-from ..sampler.scheduler import BatchFields, schedule
+from ..parallel import halo
+from ..parallel.mesh import all_gather_rows, all_reduce_sum, row_multiple
+from ..sampler.scheduler import BatchFields, importance_row_table, schedule
 from ..utils.metrics import device_f1_counts
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -109,25 +120,30 @@ def make_optimizer(cfg) -> Adam:
 
 
 def init_train_state(gen: torch.Generator, cfg, spec: M.ModelSpec,
-                     num_nodes: int, device="cpu") -> TrainState:
+                     num_nodes: int, device="cpu", mesh=None) -> TrainState:
     """Glorot params from ``gen`` (a CPU generator, so every device starts
     from the same values), zero Adam moments and zero histories of
-    ``cfg.history_dtype``, all on ``device``."""
+    ``cfg.history_dtype`` (rows padded to ``row_multiple(dp)``, 8 at dp 1;
+    this rank's block of them with a ``mesh``), all on ``device``."""
     params = {l: {n: t.to(device) for n, t in p.items()}
               for l, p in M.init_params(gen, spec).items()}
     avg = {l: {n: t.clone() for n, t in p.items()}
            for l, p in params.items()} if cfg.polyak_decay > 0 else None
     return TrainState(
         params=params, opt_state=make_optimizer(cfg).init(params),
-        histories=M.init_histories(spec, num_nodes, 8,
-                                   DTYPES[cfg.history_dtype], device),
+        histories=M.init_histories(spec, num_nodes, row_multiple(cfg.dp),
+                                   DTYPES[cfg.history_dtype], device, mesh),
         step=torch.zeros((), dtype=torch.int32, device=device),
         avg_params=avg)
 
 
-def scatter_histories(histories, new_histories, fields, num_nodes: int):
+def scatter_histories(histories, new_histories, fields, num_nodes: int,
+                      mesh=None):
     """history[field_l] <- new rows, for the input-side fields
     ``fields[:-1]``; updates the history tensors IN PLACE and returns them.
+    With a ``mesh`` the new rows are this rank's block of each field and
+    the histories its blocks: the rows go to their owners
+    (parallel/halo.py::row_scatter), sentinel writes skipped.
 
     Sentinel-padded field entries write into row N, which is safe: every
     read of row N is masked by a zero edge weight or a sentinel gather.
@@ -140,6 +156,11 @@ def scatter_histories(histories, new_histories, fields, num_nodes: int):
     for hist_l, new_l, field_l in zip(histories, new_histories, fields[:-1]):
         if new_l is None:
             continue
+        if mesh is not None:
+            ids = mesh.local(field_l)
+            for h, nh in zip(hist_l, new_l):
+                halo.row_scatter(h, ids, nh, mesh, sentinel=num_nodes)
+            continue
         ids = field_l.to(torch.int64)
         for h, nh in zip(hist_l, new_l):
             h.index_copy_(0, ids, nh.to(h.dtype))
@@ -147,10 +168,56 @@ def scatter_histories(histories, new_histories, fields, num_nodes: int):
 
 
 def _labels_gather(labels: torch.Tensor, batch_field: torch.Tensor,
-                   num_nodes: int) -> torch.Tensor:
+                   num_nodes: int, mesh=None) -> torch.Tensor:
     """labels[batch_field]; sentinel-padded slots read zero rows (their
-    loss/accuracy contributions are masked by ``valid``)."""
+    loss/accuracy contributions are masked by ``valid``).  Row-sharded
+    labels (``mesh.shard_graph``) are read from their owners."""
+    if mesh is not None and mesh.shard_graph:
+        return halo.row_gather(labels, batch_field, mesh, num_nodes)
     return row_gather(labels, batch_field, sentinel=num_nodes)
+
+
+class _Batch:
+    """The batch rows a step computes: every row on one device, this
+    rank's block under a mesh.  ``valid`` masks them; ``nvalid`` counts
+    the valid rows of the whole batch (the loss's divisor); ``y`` are
+    their labels."""
+
+    def __init__(self, pack: BatchFields, labels, num_nodes: int, mesh):
+        field = pack.fields[-1]
+        self.rows = field if mesh is None else mesh.local(field)
+        self.valid = (self.rows < num_nodes).float()
+        self.nvalid = None if mesh is None else (field < num_nodes).sum(
+        ).float()
+        self.y = _labels_gather(labels, self.rows, num_nodes, mesh)
+
+
+def _global(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over the ranks of a per-rank partial (itself without a
+    mesh)."""
+    return t if mesh is None else all_reduce_sum(t.clone(), mesh)
+
+
+def _rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole batch's rows of a per-rank row block (itself without a
+    mesh)."""
+    return t if mesh is None else all_gather_rows(t, mesh)
+
+
+def _weight_decay(cfg, mesh) -> float:
+    """The weight decay a rank adds to its loss: all of it on one device
+    and on rank 0, none on the other ranks, so the summed gradients count
+    it once."""
+    return cfg.weight_decay if mesh is None or mesh.rank == 0 else 0.0
+
+
+def _allreduce_grads(grads: list, mesh) -> list:
+    """Sum the gradients over the ranks in one collective."""
+    if mesh is None:
+        return grads
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), mesh)
+    return [c.view_as(g) for c, g in zip(
+        flat.split([g.numel() for g in grads]), grads)]
 
 
 def _batch_stats(pack: BatchFields, graph, num_nodes: int, cv: bool):
@@ -181,13 +248,15 @@ def _batch_stats(pack: BatchFields, graph, num_nodes: int, cv: bool):
 
 def _schedule(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...], graph,
               batch_ids: torch.Tensor, gen: torch.Generator, importance,
-              train_mode: bool) -> BatchFields:
+              train_mode: bool, importance_rows=None) -> BatchFields:
     """The schedule of every step: one place for the sampling semantics of
     training (``cfg.importance`` with ``cfg.is_slot_cap``) and of
     evaluation, prediction and the eval side of pred-and-grad
     (``cfg.test_importance``; the auto slot cap, -1, resolves to 0 there,
     so inference keeps every edge into a selected node).  ``importance``
-    is the ``[N+1]`` table, needed only when the mode samples by it."""
+    is the ``[N+1]`` table, needed only when the mode samples by it;
+    ``importance_rows`` the ``--is_row_table`` table of it.  Fields are
+    rounded to a multiple of ``cfg.dp``."""
     use_is = cfg.importance if train_mode else cfg.test_importance
     if use_is and importance is None:
         raise ValueError("importance sampling needs the importance table")
@@ -198,11 +267,20 @@ def _schedule(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...], graph,
                     is_approx_topk=cfg.is_approx_topk,
                     is_recall_target=cfg.is_recall_target,
                     is_slot_cap=(cfg.is_slot_cap if train_mode
-                                 else max(cfg.is_slot_cap, 0)))
+                                 else max(cfg.is_slot_cap, 0)),
+                    round_multiple=cfg.dp,
+                    importance_rows=importance_rows if use_is else None)
+
+
+def _row_table(cfg, graph, importance, use_is: bool):
+    """The epoch's ``--is_row_table`` table, or None."""
+    if use_is and cfg.is_row_table:
+        return importance_row_table(graph, importance)
+    return None
 
 
 def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
-                     num_nodes: int):
+                     num_nodes: int, mesh=None):
     """``step(state, graph, features, labels, batch_ids, gen, pack=None,
     importance=None, lazy=None) -> (state, metrics)``: schedule (unless a
     prebuilt ``pack`` is given; ``importance`` is the ``[N+1]`` table that
@@ -214,18 +292,21 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
 
     The params enter the forward as fresh ``requires_grad`` aliases and the
     gradients come from ``torch.autograd.grad``, so no ``.grad`` buffers
-    accumulate and the history never enters the autograd graph."""
+    accumulate and the history never enters the autograd graph.
+
+    ``mesh``: the data-parallel step (module docstring); ``importance_rows``
+    is the epoch's ``--is_row_table`` table."""
     tx = make_optimizer(cfg)
+    wd = _weight_decay(cfg, mesh)
 
     def _step(state: TrainState, graph, features, labels, batch_ids, gen,
               pack: Optional[BatchFields] = None, importance=None,
-              lazy=None):
+              lazy=None, importance_rows=None):
         if pack is None:
             pack = _schedule(cfg, spec, degrees, graph, batch_ids, gen,
-                             importance, train_mode=True)
-        batch_field = pack.fields[-1]
-        valid = (batch_field < num_nodes).float()
-        y = _labels_gather(labels, batch_field, num_nodes)
+                             importance, train_mode=True,
+                             importance_rows=importance_rows)
+        b = _Batch(pack, labels, num_nodes, mesh)
 
         keys = param_keys(state.params)
         params = {l: {n: t.detach().requires_grad_()
@@ -233,10 +314,11 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                   for l, p in state.params.items()}
         logits, new_h = M.forward(params, spec, pack, graph, state.histories,
                                   features, gen, cfg.keep_prob, train=True,
-                                  lazy=lazy)
-        loss, acc = M.loss_and_metrics(params, spec, logits, y, valid,
-                                       cfg.weight_decay)
-        flat = torch.autograd.grad(loss, [params[l][n] for l, n in keys])
+                                  lazy=lazy, mesh=mesh)
+        loss, acc = M.loss_and_metrics(params, spec, logits, b.y, b.valid,
+                                       wd, b.nvalid)
+        flat = _allreduce_grads(list(torch.autograd.grad(
+            loss, [params[l][n] for l, n in keys])), mesh)
         grads: dict = {}
         for (l, n), g in zip(keys, flat):
             grads.setdefault(l, {})[n] = g
@@ -252,13 +334,14 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
             new_h = tuple(None if hl is None else
                           tuple(h.detach() for h in hl) for hl in new_h)
             scatter_histories(state.histories, new_h, pack.fields,
-                              num_nodes)
+                              num_nodes, mesh)
             state.step += 1
         amt, field_sizes, adj_sizes, fadj_sizes = _batch_stats(
             pack, graph, num_nodes, spec.cv)
         is_dropped = pack.is_dropped if pack.is_dropped is not None \
             else torch.zeros((), dtype=torch.int32, device=amt.device)
-        return state, {"loss": loss.detach(), "accuracy": acc.detach(),
+        loss, acc = (_global(t.detach(), mesh) for t in (loss, acc))
+        return state, {"loss": loss, "accuracy": acc,
                        "amt_data": amt, "field_sizes": field_sizes,
                        "adj_sizes": adj_sizes, "fadj_sizes": fadj_sizes,
                        "is_dropped": is_dropped}
@@ -281,7 +364,7 @@ def lazy_anchor(spec: M.ModelSpec, histories, graph, num_nodes: int):
 
 
 def build_train_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
-                      num_nodes: int):
+                      num_nodes: int, mesh=None):
     """Whole-epoch runner: ``epoch(state, graph, features, labels,
     batch_matrix, gen, importance=None) -> (state, metrics)`` runs the
     train step over the rows of an ``[S, B]`` batch-id matrix.  Returns the
@@ -294,17 +377,22 @@ def build_train_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
     frozen anchor (:func:`lazy_anchor`), inside the epoch as in the JAX
     package, so the epoch's time includes the a-bar build; every step
     reads it, and the scatters keep updating the live histories that the
-    next epoch's snapshot takes."""
-    _step = build_train_step(cfg, spec, degrees, num_nodes)
+    next epoch's snapshot takes.  Under a ``mesh`` the full term stays the
+    per-step owner-routed one (as in the JAX package).  With importance
+    sampling and ``cfg.is_row_table`` the epoch first builds the row
+    table (:func:`~..sampler.scheduler.importance_row_table`)."""
+    _step = build_train_step(cfg, spec, degrees, num_nodes, mesh)
 
     def _epoch(state: TrainState, graph, features, labels, batch_matrix,
                gen, importance=None):
         lazy = lazy_anchor(spec, state.histories, graph, num_nodes) \
-            if cfg.lazy_fullterm and spec.cv else None
+            if cfg.lazy_fullterm and spec.cv and mesh is None else None
+        rows = _row_table(cfg, graph, importance, cfg.importance)
         ms = []
         for batch_ids in batch_matrix:
             state, m = _step(state, graph, features, labels, batch_ids, gen,
-                             importance=importance, lazy=lazy)
+                             importance=importance, lazy=lazy,
+                             importance_rows=rows)
             ms.append(m)
         amts = torch.stack([m["amt_data"] for m in ms])
         return state, {
@@ -318,36 +406,42 @@ def build_train_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
 
 
 def build_eval_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
-                     num_nodes: int, with_preds: bool = False):
+                     num_nodes: int, with_preds: bool = False, mesh=None):
     """Whole-evaluation runner over an [S, B] batch-id matrix:
     ``epoch(params, histories, graph, features, labels, batch_matrix, gen,
     importance=None) -> (histories, out)`` with per-batch
     losses/accuracies, summed per-class F1 counters and, ``with_preds``,
     the [S, B, C] class probabilities and their [S, B] batch fields.
-    Histories are refreshed in place."""
+    Histories are refreshed in place.  Under a ``mesh`` every output is
+    the whole batch's, the same on every rank."""
+    wd = _weight_decay(cfg, mesh)
 
     def _eval_one(params, histories, graph, features, labels, batch_ids,
-                  gen, importance):
+                  gen, importance, rows):
         pack = _schedule(cfg, spec, degrees, graph, batch_ids, gen,
-                         importance, train_mode=False)
-        batch_field = pack.fields[-1]
-        valid = (batch_field < num_nodes).float()
-        y = _labels_gather(labels, batch_field, num_nodes)
+                         importance, train_mode=False,
+                         importance_rows=rows)
+        b = _Batch(pack, labels, num_nodes, mesh)
         logits, new_h = M.forward(params, spec, pack, graph, histories,
-                                  features, gen, cfg.keep_prob, train=False)
-        loss, acc = M.loss_and_metrics(params, spec, logits, y, valid,
-                                       cfg.weight_decay)
-        tp, fp, fn = device_f1_counts(logits, y, valid, spec.multitask)
-        scatter_histories(histories, new_h, pack.fields, num_nodes)
-        out = (loss, acc, tp, fp, fn, valid.sum())
+                                  features, gen, cfg.keep_prob, train=False,
+                                  mesh=mesh)
+        loss, acc = M.loss_and_metrics(params, spec, logits, b.y, b.valid,
+                                       wd, b.nvalid)
+        tp, fp, fn = device_f1_counts(logits, b.y, b.valid, spec.multitask,
+                                      mesh)
+        scatter_histories(histories, new_h, pack.fields, num_nodes, mesh)
+        out = (_global(loss, mesh), _global(acc, mesh), tp, fp, fn,
+               (pack.fields[-1] < num_nodes).sum().float())
         if with_preds:
-            out = out + (M.predict(spec, logits), batch_field)
+            out = out + (_rows(M.predict(spec, logits), mesh),
+                         pack.fields[-1])
         return out
 
     def _epoch(params, histories, graph, features, labels, batch_matrix,
                gen, importance=None):
+        rows = _row_table(cfg, graph, importance, cfg.test_importance)
         ys = [_eval_one(params, histories, graph, features, labels, b, gen,
-                        importance)
+                        importance, rows)
               for b in batch_matrix]
         cols = [torch.stack(c) for c in zip(*ys)]
         losses, accs, tps, fps, fns, nvalid = cols[:6]
@@ -362,37 +456,37 @@ def build_eval_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
 
 
 def build_pred_and_grad(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
-                        num_nodes: int, train_mode: bool = False):
+                        num_nodes: int, train_mode: bool = False, mesh=None):
     """``run(params, histories, graph, features, labels, batch_ids, gen,
     importance=None) -> (predictions [B, C], d loss / d first-layer
     weights)``: the probe of the gradient-variance harness.  A fresh
     schedule (training's sampling semantics with ``train_mode``,
     evaluation's otherwise), dropout applied, no weight update and no
-    history scatter."""
+    history scatter.  Under a ``mesh`` both are the whole batch's."""
+    wd = _weight_decay(cfg, mesh)
 
     def _run(params, histories, graph, features, labels, batch_ids, gen,
              importance=None):
         pack = _schedule(cfg, spec, degrees, graph, batch_ids, gen,
                          importance, train_mode)
-        batch_field = pack.fields[-1]
-        valid = (batch_field < num_nodes).float()
-        y = _labels_gather(labels, batch_field, num_nodes)
+        b = _Batch(pack, labels, num_nodes, mesh)
         first = M.first_param_layer(spec)
         params = {l: {n: t.detach() for n, t in p.items()}
                   for l, p in params.items()}
         weights = params[first]["weights"].requires_grad_()
         logits, _ = M.forward(params, spec, pack, graph, histories, features,
-                              gen, cfg.keep_prob, train=True)
-        loss, _ = M.loss_and_metrics(params, spec, logits, y, valid,
-                                     cfg.weight_decay)
-        grad, = torch.autograd.grad(loss, [weights])
-        return M.predict(spec, logits.detach()), grad
+                              gen, cfg.keep_prob, train=True, mesh=mesh)
+        loss, _ = M.loss_and_metrics(params, spec, logits, b.y, b.valid,
+                                     wd, b.nvalid)
+        grad, = _allreduce_grads(list(torch.autograd.grad(loss, [weights])),
+                                 mesh)
+        return _rows(M.predict(spec, logits.detach()), mesh), grad
 
     return _run
 
 
 def make_activation_taps(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
-                         num_nodes: int, train_mode: bool):
+                         num_nodes: int, train_mode: bool, mesh=None):
     """``run(params, histories, graph, features, labels, batch_ids, gen,
     importance=None) -> {label: (mean, std, absmax)}``: the per-layer
     activation moments of one batch (the reference's layer activation
@@ -407,7 +501,7 @@ def make_activation_taps(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                          importance, train_mode)
         taps: list = []
         M.forward(params, spec, pack, graph, histories, features, gen,
-                  cfg.keep_prob, train=train_mode, taps=taps)
+                  cfg.keep_prob, train=train_mode, taps=taps, mesh=mesh)
         return {label: stats for label, *stats in taps}
 
     return _run

@@ -13,10 +13,11 @@ import torch
 
 
 def device_f1_counts(logits: torch.Tensor, labels: torch.Tensor,
-                     valid: torch.Tensor, multitask: bool):
+                     valid: torch.Tensor, multitask: bool, mesh=None):
     """Per-class (TP, FP, FN) int32 counters over the valid rows.
     Multitask thresholds sigmoid at 0.5 (== logits > 0); single-label
-    argmaxes."""
+    argmaxes.  With a ``mesh`` the rows are this rank's block of the batch
+    and the counters are summed over the ranks (one collective)."""
     m = (valid > 0)[:, None]
     if multitask:
         p = logits > 0
@@ -28,6 +29,9 @@ def device_f1_counts(logits: torch.Tensor, labels: torch.Tensor,
     tp = (p & t & m).sum(dim=0)
     fp = (p & ~t & m).sum(dim=0)
     fn = (~p & t & m).sum(dim=0)
+    if mesh is not None:
+        from ..parallel.mesh import all_reduce_sum
+        tp, fp, fn = all_reduce_sum(torch.stack([tp, fp, fn]), mesh)
     return tp.to(torch.int32), fp.to(torch.int32), fn.to(torch.int32)
 
 

@@ -95,12 +95,15 @@ def test_from_fields_round_trips_and_refuses_unknown_names():
 
 def test_the_port_imports_nothing_of_the_jax_package():
     """A fresh interpreter imports the port's package, every submodule of
-    it and ``chip_smoke``; no module of JAX or of the JAX package may have
-    been loaded by then."""
+    it (the data-parallel modules among them) and ``chip_smoke``; no module
+    of JAX or of the JAX package may have been loaded by then."""
     code = """
 import importlib, pkgutil, sys
 import stochastic_gcn_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+parallel = {"stochastic_gcn_tpu_torch.parallel." + m
+            for m in ("distributed", "mesh", "halo", "launch", "checks")}
+assert parallel <= set(names), sorted(parallel - set(names))
 for name in names:
     importlib.import_module(name)
 import chip_smoke

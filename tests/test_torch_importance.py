@@ -544,13 +544,20 @@ def test_sampled_ispp_accuracy_matches_jax(tmp_path):
                                   {"test_importance": True,
                                    "is_row_table": True}])
 def test_is_row_table_is_refused(tmp_path, over):
+    """``--is_row_table`` was refused with importance sampling until the
+    row table was ported: now it is taken, and its slots are the fused
+    path's, so an epoch and an evaluation equal those without it."""
     from stochastic_gcn_tpu_torch.config import parse_flags
     cfg = parse_flags(IS_FLAGS + ["--ckpt_dir", str(tmp_path)]).replace(
         importance=False, test_importance=False)
     ds = Ld.load_data(cfg)
     Trainer(cfg.replace(is_row_table=True), ds, device="cpu")  # alone: fine
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg.replace(**over), ds, device="cpu")
+    got, want = (Trainer(cfg.replace(**{**over, "is_row_table": rt}), ds,
+                         device="cpu") for rt in (True, False))
+    np.testing.assert_allclose(got.train_epoch()[0], want.train_epoch()[0],
+                               rtol=1e-6)
+    np.testing.assert_allclose(got.evaluate(ds.val_d)[:4],
+                               want.evaluate(ds.val_d)[:4], rtol=1e-6)
 
 
 # --------------------------- activation moments ----------------------------

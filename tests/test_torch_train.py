@@ -705,11 +705,17 @@ def test_cli_train_end_to_end(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("over", [
-    {"importance": True, "is_row_table": True}, {"partition_nodes": "bfs"},
+    {"owner_batching": True, "dp": 2}, {"dp_hosts": 2},
     {"tp": 2}, {"ckpt_async": True},
-    {"test_importance": True, "is_row_table": True}, {"dp": 2}])
+    {"coordinator": "localhost:1234"}, {"num_processes": 2},
+    {"graph_format": "edgelist", "dp": 2, "shard_graph": True}])
 def test_unported_training_options_raise(tmp_path, over):
+    """The options still to port (ROADMAP.md, queue 1) raise and name it;
+    ``--is_row_table``, ``--partition_nodes`` and ``--dp`` are ported."""
     cfg = _flags(tmp_path)
+    if over.get("dp", 1) > 1:
+        cfg = cfg.replace(batch_size=cfg.batch_size * 2,
+                          test_batch_size=cfg.test_batch_size * 2)
     ds = Ld.load_data(port_cfg(cfg))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(port_cfg(cfg.replace(**over)), ds, device="cpu")
