@@ -168,6 +168,24 @@ Phases, one or more lines each:
    and the main, tail and untiered kernel calls timed on the device; and
    the gate sweep: the full term on the full graph over fields of 4,096
    to 131,072 rows, tiered against untiered, on the host clock.
+10. dp — data parallelism, one NCCL rank per card (``python3 chip_smoke.py
+   --phase dp`` runs the card, build and dp phases alone; ``phase_dp``):
+   the halo primitives; the SBM's first dp epoch against one process, CV+PP
+   to 0.90 and its checkpoint served by one process; the Reddit-shaped
+   recipe timed per rank; the owner arm (the same recipe with
+   ``--owner_batching --partition_nodes rcm``: a timed epoch, the share of
+   the routed history reads and writes, and of the layer's input rows,
+   that the rank owns, and at world > 1 the share under each flag alone);
+   the edge-list arm (the uncapped SBM as a node-sharded edge list
+   against the row-sharded padded graph: graph bytes per rank, the first
+   ``DP_HELD_STEPS`` steps within ``DP_FIRST_EPOCH_RTOL``); each arm's
+   launches checked exactly per rank and the four kernels on its inputs
+   held against their plain versions and timed on rank 0; then the
+   coordinator arm: the ranks started as hosts through the multi-host
+   launch (two hosts of two ranks on four cards, one host of one rank on
+   one card) through a TCP store, which must agree.  At an even world the
+   ranks are declared as two hosts, and the collective bytes split into
+   those that stay on a host and those that cross.
 
 The line before the last is a JSON object describing the kernels (times in
 device ms per call on real batches of the path that launches the kernel,
@@ -2993,6 +3011,19 @@ DP_FIRST_EPOCH_RTOL = 1e-4   # dp against one process, same seed, no dropout
 DP_HELD_STEPS = 8
 DP_PREDICT_ATOL = 1e-5       # a dp checkpoint served by one process
 DP_PREDICT_IDS = 2048
+DP_WARMUP_STEPS = 16         # the owner arm's warm-up before its timed epoch
+DP_SHARE_STEPS = 16          # steps of each flag alone (world > 1)
+# owner blocks of the aligned step checked at world 1, where the Trainer's
+# own layout (owner_blocks = dp) is the classic one
+DP_ALIGNED_BLOCKS = 4
+DP_TIMED_TURNS = ("plain", "owner", "owner", "plain")
+OWNER_OVER = {"owner_batching": True, "partition_nodes": "rcm"}
+# the coordinator arm: a small graph, CV+PP, a checkpoint round trip
+COORD_FLAGS = ["--dataset", "synthetic:8192:64:8", "--cv", "--test_cv",
+               "--degree", "1", "--test_degree", "1", "--hidden1", "64",
+               "--batch_size", "256", "--test_batch_size", "1024",
+               "--epochs", "2", "--seed", "1"]
+COORD_TIMEOUT = 300
 
 
 def _dp_log(*args) -> None:
@@ -3000,23 +3031,27 @@ def _dp_log(*args) -> None:
         print(*args, flush=True)
 
 
-def _dp_kernels(tr: Trainer, seed: int = 2) -> dict:
+def _dp_kernels(tr: Trainer, tag: str = "", seed: int = 2) -> dict:
     """The four kernels on the inputs the data-parallel path gives them on
-    this rank, from one real scheduled batch of ``tr``'s recipe: the CV
-    kernel and the two fanout kernels on the gathered ``[R, d]`` buffer of
-    the layer's input rows (``_HaloReader``: remapped slots, the buffer's
-    history rows behind an identity field), the full term on this rank's
-    history block with the all-gathered neighbour rows, the slots other
-    ranks own made dead.  Each is held against its plain version; rank 0
-    times them as phase 3 does.  Returns ``{kernel: result}``."""
+    this rank, from one real scheduled batch of ``tr``'s recipe (its first
+    train batch, owner-grouped and owner-aligned under
+    ``--owner_batching``): the CV kernel and the two fanout kernels on the
+    gathered ``[R, d]`` buffer of the layer's input rows (``_HaloReader``:
+    remapped slots, the buffer's history rows behind an identity field),
+    the full term on this rank's history block with the all-gathered
+    neighbour rows (of an edge list, its windows built from blocks routed
+    from their owners), the slots other ranks own made dead.  Each is held
+    against its plain version; rank 0 times them as phase 3 does.
+    ``tag`` prefixes the cases.  Returns ``{kernel: (case, result)}``."""
     from stochastic_gcn_tpu_torch.parallel.mesh import all_gather_rows
     mesh, n = tr.mesh, tr.ds.num_data
     timing = mesh.rank == 0 and tr.device.type == "cuda"
     bs = tr.cfg.batch_size
-    ids = torch.from_numpy(tr._batch_matrix(
-        tr.train_iter.data[:bs], bs, n)[0]).to(tr.device)
+    ids = torch.from_numpy(tr._epoch_matrix(tr.train_iter.data[:bs],
+                                            bs)[0]).to(tr.device)
     pack = schedule(tr.gen, tr.graph_train, ids, tr.train_degrees, True,
-                    dedup=tr.cfg.field_dedup, round_multiple=mesh.size)
+                    dedup=tr.cfg.field_dedup, round_multiple=mesh.size,
+                    owner_blocks=mesh.size if tr.cfg.owner_batching else 0)
     ls, field_in, field_out = pack.layers[0], pack.fields[0], pack.fields[1]
     v = A._HaloReader(ls, field_in.shape[0], mesh, field_in, field_out, n)
     hist = tr.state.histories[0][0]
@@ -3027,39 +3062,43 @@ def _dp_kernels(tr: Trainer, seed: int = 2) -> dict:
             tr.device))
     hbar = v.hist_rows(hist)
     r, (f, k) = x.shape[0], v.pos.shape
-    fnbr, fw, _ = graph_rows(tr.graph_train, v.field_out)
+    g = tr.graph_train
+    if isinstance(g, FlatGraph):
+        fnbr, fw = _edgelist_slots(g, v.field_out,
+                                   min(g.edge_cap_per_row, g.max_degree))
+    else:
+        fnbr, fw, _ = graph_rows(g, v.field_out)
     nbr_all = all_gather_rows(fnbr, mesh).long() - mesh.rank * hist.shape[0]
     w_all = all_gather_rows(fw, mesh)
     mine = (nbr_all >= 0) & (nbr_all < hist.shape[0])
     full_idx = torch.where(mine, nbr_all, hist.shape[0]).to(
         torch.int32).contiguous()
     full_w = torch.where(mine, w_all, 0.0).contiguous()
-    base = A.full_neighborhood_mean(hist, tr.graph_train, v.field_out,
-                                    mesh=mesh)
-    g = torch.from_numpy(rng.standard_normal((f, d), dtype=np.float32)).to(
-        tr.device)
+    base = A.full_neighborhood_mean(hist, g, v.field_out, mesh=mesh)
+    grad = torch.from_numpy(rng.standard_normal((f, d), dtype=np.float32)
+                            ).to(tr.device)
     kernel, ref, replaced = _cv_calls(r)
     out = {}
     out["cv_fanout_aggregate"] = (
-        f"dp buffer: {str(hbar.dtype)[6:]} history rows [{r}, {d}] C={r} "
-        f"F={f} K={k}",
+        f"{tag}dp buffer: {str(hbar.dtype)[6:]} history rows [{r}, {d}] "
+        f"C={r} F={f} K={k}",
         _compare("dp cv fanout", kernel, ref, hbar,
                  [(v.pos, v.w, x, v.iota, base)], timing, kind="cv", rows=r,
                  sentinel=r, library=NO_LIBRARY_CV, replaced=replaced))
     out["fanout_aggregate"] = (
-        f"dp buffer: f32 C={r} F={f} K={k}",
+        f"{tag}dp buffer: f32 C={r} F={f} K={k}",
         _compare("dp fanout", K.fanout_aggregate, K.fanout_aggregate_ref, x,
                  [(v.pos, v.w)], timing, library=_library_gather))
     out["fanout_aggregate_backward"] = (
-        f"dp buffer: C={r} F={f} K={k} d={d}",
+        f"{tag}dp buffer: C={r} F={f} K={k} d={d}",
         _compare("dp backward",
                  lambda g_, p, w: K.fanout_aggregate_backward(g_, p, w, r),
                  lambda g_, p, w: K.fanout_aggregate_backward_ref(g_, p, w,
                                                                   r),
-                 g, [(v.pos, v.w)], timing, kind="backward", rows=r,
+                 grad, [(v.pos, v.w)], timing, kind="backward", rows=r,
                  library=_library_backward(r)))
     out["hbm_gather_aggregate"] = (
-        f"dp owner side: {str(hist.dtype)[6:]} history block "
+        f"{tag}dp owner side: {str(hist.dtype)[6:]} history block "
         f"{list(hist.shape)} F={full_idx.shape[0]} K={full_idx.shape[1]}",
         _compare("dp full term", K.hbm_gather_aggregate,
                  K.hbm_gather_aggregate_ref, hist, [(full_idx, full_w)],
@@ -3067,16 +3106,17 @@ def _dp_kernels(tr: Trainer, seed: int = 2) -> dict:
     return out
 
 
-def _epoch_losses(tr: Trainer) -> list:
-    """One epoch of ``tr``'s own shuffled batches, as ``train_epoch`` runs
-    it, returning every step's loss (``train_epoch`` keeps the last)."""
+def _epoch_losses(tr: Trainer, steps: int = 0) -> list:
+    """One epoch of ``tr``'s own shuffled batches (its first ``steps``
+    when ``steps > 0``), as ``train_epoch`` runs it, returning every
+    step's loss (``train_epoch`` keeps the last)."""
     tr.train_iter.shuffle()
-    bm = torch.from_numpy(tr._batch_matrix(
-        tr.train_iter.data, tr.cfg.batch_size, tr.ds.num_data)).to(tr.device)
+    bm = torch.from_numpy(tr._epoch_matrix(
+        tr.train_iter.data, tr.cfg.batch_size)).to(tr.device)
     step = St.build_train_step(tr.cfg, tr.train_spec, tr.train_degrees,
                                tr.ds.num_data, tr.mesh)
     losses = []
-    for ids in bm:
+    for ids in bm[:steps or bm.shape[0]]:
         tr.state, m = step(tr.state, tr.graph_train, tr.train_features,
                            tr.labels, ids, tr.gen,
                            importance=tr.importance_train)
@@ -3173,11 +3213,260 @@ def _dp_converge(ds, out_dir: str, device: str, cfg_kw: dict,
     return curve
 
 
+def _wire_per_step(res: dict) -> str:
+    steps = res["steps"]
+    per = {k: round(v / steps) for k, v in res["wire"].items()}
+    cross = sum(res["wire_cross"].values())
+    total = sum(res["wire"].values())
+    return (f"collective bytes per step {total / steps:.0f} {per}, of "
+            f"which {(total - cross) / steps:.0f} stay on the host and "
+            f"{cross / steps:.0f} cross hosts")
+
+
+def _shares(routed: dict) -> dict:
+    """The share of each kind of routed rows that the rank owns itself."""
+    return {k: round(mine / live, 4) if live else None
+            for k, (mine, live) in routed.items()}
+
+
+def _aligned_step(tr: Trainer, blocks: int) -> dict:
+    """One train step (no dropout) from a copy of ``tr``'s state on the
+    owner-aligned pack of ``blocks`` blocks of its first owner-grouped
+    batch, and one on the classic pack of the same generator: the same
+    edges, rows in another order, so the losses and the updated params
+    must agree within ``STEP_ATOL``.  At world 1 the Trainer's own layout
+    is the classic one (``owner_blocks = dp``), so this is where one card
+    runs the aligned layout; the aligned step's launches are checked
+    exactly."""
+    import math
+    from stochastic_gcn_tpu_torch.parallel.mesh import (
+        owner_grouped_batch_matrix)
+    n, bs, dev = tr.ds.num_data, tr.cfg.batch_size, tr.device
+    world = tr.mesh.size
+    ids = torch.from_numpy(owner_grouped_batch_matrix(
+        tr.train_iter.data[:bs], bs, n, blocks)[0]).to(dev)
+    step = St.build_train_step(tr.cfg.replace(dropout=0.0), tr.train_spec,
+                               tr.train_degrees, n, tr.mesh)
+    out = {}
+    for label, b in (("classic", 0), ("aligned", blocks)):
+        pack = schedule(torch.Generator(device=dev).manual_seed(11),
+                        tr.graph_train, ids, tr.train_degrees, True,
+                        dedup=True, round_multiple=math.lcm(blocks, world),
+                        owner_blocks=b)
+        st = copy.deepcopy(tr.state)
+        K.reset_launches()
+        st, m = step(st, tr.graph_train, tr.train_features, tr.labels, ids,
+                     torch.Generator(device=dev).manual_seed(12), pack=pack)
+        _sync(dev)
+        out[label] = (float(m["loss"]), st.params, dict(K.LAUNCHES))
+    (lc, pc, _), (la, pa, launches) = out["classic"], out["aligned"]
+    check_launches(f"an owner-aligned ({blocks} blocks) train step on rank "
+                   f"{tr.mesh.rank}", launches, STEP_LAUNCHES["CV+PP"])
+    dparams = max((pa[l][k] - pc[l][k]).abs().max().item()
+                  for l in pa for k in pa[l])
+    res = {"blocks": blocks, "loss_diff": abs(la - lc), "param_diff": dparams}
+    if not (res["loss_diff"] <= STEP_ATOL * max(1.0, abs(lc))
+            and dparams <= STEP_ATOL):
+        fail(f"an owner-aligned train step differs from the classic one: "
+             f"{res}")
+    return res
+
+
+def _timed_epoch(label: str, tr: Trainer) -> dict:
+    """One epoch of ``tr`` with the launch, wire and routed-row counters
+    reset just before it; launches checked exactly per rank."""
+    from stochastic_gcn_tpu_torch.parallel import mesh as PM
+    device = tr.device
+    _sync(device)
+    K.reset_launches()
+    PM.reset_wire()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    amt0 = tr.amt_data
+    t0 = time.perf_counter()
+    loss, _, _, steps = tr.train_epoch()
+    _sync(device)
+    secs = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    check_launches(f"a dp={tr.mesh.size} {label} train epoch on rank "
+                   f"{tr.mesh.rank}", launches,
+                   {name: per * steps for name, per in
+                    STEP_LAUNCHES["CV+PP"].items()})
+    if not np.isfinite(loss):
+        fail(f"dp {label}: non-finite training loss {loss}")
+    return dict(steps=steps, secs=secs, loss=loss, edges=tr.amt_data - amt0,
+                launches=launches, wire=dict(PM.WIRE),
+                wire_cross=dict(PM.WIRE_CROSS_HOST),
+                routed={k: list(v) for k, v in PM.ROUTED.items()},
+                peak_gib=_peak_gib(device))
+
+
+def _dp_profile(label: str, tr: Trainer,
+                steps: int = PROFILE_STEPS) -> None:
+    """``steps`` train steps of ``tr`` on every rank, timed on the host
+    clock, then ``steps`` more with rank 0 under ``torch.profiler``: rank
+    0 prints the device's busy share of the unprofiled steps, the device
+    kernels and the host operators of most time (the host's profiled, so
+    inflated; a collective's kernel counts its wait for the other ranks)
+    and the CUDA runtime calls that wait for the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    bs = tr.cfg.batch_size
+    bm = torch.from_numpy(tr._epoch_matrix(tr.train_iter.data,
+                                           bs)[:2 * steps]).to(tr.device)
+    step = St.build_train_step(tr.cfg, tr.train_spec, tr.train_degrees,
+                               tr.ds.num_data, tr.mesh)
+
+    def run(rows):
+        for ids in rows:
+            tr.state, _ = step(tr.state, tr.graph_train, tr.train_features,
+                               tr.labels, ids, tr.gen)
+        _sync(tr.device)
+
+    _sync(tr.device)
+    t0 = time.perf_counter()
+    run(bm[:steps])
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    if tr.mesh.rank != 0 or tr.device.type != "cuda":
+        run(bm[steps:])
+        return
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(bm[steps:])
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in kernels) / 1e3 / steps
+    print(f"dp profile: {label}, rank 0 of {tr.mesh.size}: "
+          f"{wall_ms / steps:.3f} ms/step unprofiled; device busy "
+          f"{busy:.3f} ms/step ({100 * busy * steps / wall_ms:.1f}% of the "
+          f"wall time); {sum(e.count for e in kernels) / steps:.1f} device "
+          f"kernels per step", flush=True)
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        print(f"dp profile:   device {dev_us(e) / steps:9.1f} us/step "
+              f"{e.count / steps:6.1f}x  {e.key[:80]}", flush=True)
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:8]:
+        print(f"dp profile:   host {e.self_cpu_time_total / steps:9.1f} "
+              f"us/step {e.count / steps:6.1f}x  {e.key[:80]}", flush=True)
+    waits = {e.key: e.count / steps for e in host
+             if "Synchronize" in e.key or "Memcpy" in e.key}
+    print(f"dp profile:   runtime calls that wait, per step: {waits}",
+          flush=True)
+
+
+def _dp_arms(ds, cfg, device: str) -> dict:
+    """The Reddit-shaped recipe twice, as it is (``plain``) and
+    owner-batched with ``--partition_nodes rcm`` (``owner``): each
+    Trainer warmed up (a whole epoch; the owner arm ``DP_WARMUP_STEPS``
+    steps), then timed epochs in turns, plain, owner, owner, plain, so
+    the host's drift falls on both (``DP_TIMED_TURNS``); each arm's
+    results are its first timed epoch's, with every epoch's seconds
+    beside them; then the four kernels on each arm's inputs, and
+    :func:`_aligned_step` from the owner arm's state."""
+    world = torch.distributed.get_world_size()
+    trs, res = {}, {}
+    for arm, over in (("plain", {}), ("owner", OWNER_OVER)):
+        t0 = time.perf_counter()
+        trs[arm] = tr = Trainer(cfg.replace(**over), ds, device=device)
+        res[arm] = {"setup_s": time.perf_counter() - t0,
+                    "batch": cfg.batch_size,
+                    "hist_bytes": sum(h.numel() * h.element_size()
+                                      for hl in (*tr.state.histories,
+                                                 *tr.eval_histories)
+                                      for h in hl)}
+        if arm == "owner":
+            _epoch_losses(tr, DP_WARMUP_STEPS)
+        else:
+            tr.train_epoch()
+    labels = {"plain": "CV+PP", "owner": "owner-batched CV+PP"}
+    for arm in DP_TIMED_TURNS:
+        got = _timed_epoch(labels[arm], trs[arm])
+        if "secs_turns" not in res[arm]:
+            res[arm].update(got, secs_turns=[])
+        res[arm]["secs_turns"].append(got["secs"])
+    for arm in ("plain", "owner"):
+        _dp_profile(labels[arm], trs[arm])
+    for arm, tr in trs.items():
+        res[arm]["kernels"] = _dp_kernels(tr, f"{labels[arm]}, ")
+    res["owner"]["aligned_step"] = _aligned_step(
+        trs["owner"], max(world, DP_ALIGNED_BLOCKS))
+    return res
+
+
+def _dp_shares(ds, cfg, device: str, steps: int) -> dict:
+    """The routed-row shares a rank owns, and the collective bytes per
+    step, over ``steps`` train steps of a Trainer of ``cfg``."""
+    from stochastic_gcn_tpu_torch.parallel import mesh as PM
+    tr = Trainer(cfg, ds, device=device)
+    PM.reset_wire()
+    _epoch_losses(tr, steps)
+    _sync(device)
+    return {"shares": _shares(PM.ROUTED),
+            "wire_per_step": sum(PM.WIRE.values()) / steps}
+
+
+def _dp_edgelist(device: str, sbm_kw: dict, cfg_kw: dict,
+                 hosts: int) -> dict:
+    """The uncapped SBM data-parallel twice (dedup fields, no dropout): on
+    the row-sharded padded graph and as a node-sharded edge list whose
+    budget covers every edge.  Graph bytes per rank; the first
+    ``DP_HELD_STEPS`` steps of the two, from the same seed, within
+    ``DP_FIRST_EPOCH_RTOL`` (every rank holds them); the
+    edge list's steps counted (launches exactly CV+PP's); the four kernels
+    on the edge list's inputs (the full term on windows of routed
+    blocks)."""
+    from stochastic_gcn_tpu_torch.data.graph import flat_csr
+    rank = torch.distributed.get_rank()
+    world = torch.distributed.get_world_size()
+    t0 = time.perf_counter()
+    ds = community_sbm_dataset(**sbm_kw)
+    built = time.perf_counter() - t0
+    # dedup fields and no dropout, as the first dp epoch against one
+    # process: a no-dedup field's duplicate history writes race on CUDA
+    cfg = Config(**{**cfg_kw, "dp": world, "dp_hosts": hosts,
+                    "field_dedup": True, "dropout": 0.0})
+    padded = Trainer(cfg, ds, device=device)
+    edge = Trainer(cfg.replace(graph_format="edgelist",
+                               fadj_edge_mult=COVER_EDGE_MULT), ds,
+                   device=device)
+    whole = flat_csr(ds.train_adj, COVER_EDGE_MULT)
+    res = {"built_s": built, "graph_bytes": {
+        "padded, this rank": _graph_bytes(padded.graph_train),
+        "edge list, this rank": _graph_bytes(edge.graph_train),
+        "edge list, whole": _graph_bytes(whole)},
+        "tile_rows": edge.graph_train.idx.shape[0],
+        "parts": edge.graph_train.parts}
+    del whole
+    want = np.array(_epoch_losses(padded, DP_HELD_STEPS))
+    K.reset_launches()
+    got = np.array(_epoch_losses(edge, DP_HELD_STEPS))
+    _sync(device)
+    res["launches"] = dict(K.LAUNCHES)
+    res["steps"] = len(got)
+    check_launches(f"dp={world} edge-list steps on rank {rank}",
+                   res["launches"], {name: per * len(got) for name, per in
+                                     STEP_LAUNCHES["CV+PP"].items()})
+    res["rel_diff"] = float((np.abs(got - want) / np.abs(want)).max())
+    if not res["rel_diff"] <= DP_FIRST_EPOCH_RTOL:
+        fail(f"dp edge list's first steps {got} differ from the padded "
+             f"graph's {want}")
+    del padded
+    res["kernels"] = _dp_kernels(edge, "edge list, ")
+    return res
+
+
 def _dp_rank(out_dir: str, device: str, sbm_kw: dict, reddit_kw: dict,
-             slice_cfg: dict, converge_cfg: dict, target: float) -> None:
+             slice_cfg: dict, converge_cfg: dict, target: float,
+             uncapped_kw: dict, fullterm_cfg: dict, hosts: int) -> None:
     """One rank of the dp phase (``phase_dp``), on ``cuda:rank``."""
     from stochastic_gcn_tpu_torch.parallel import checks
-    from stochastic_gcn_tpu_torch.parallel import mesh as PM
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank = torch.distributed.get_rank()
@@ -3194,46 +3483,95 @@ def _dp_rank(out_dir: str, device: str, sbm_kw: dict, reddit_kw: dict,
     del sbm
 
     ds = reddit_like(**reddit_kw)
-    cfg = Config(**{**slice_cfg, "dp": world})
-    t0 = time.perf_counter()
-    tr = Trainer(cfg, ds, device=device)
-    setup = time.perf_counter() - t0
-    tr.train_epoch()                                   # warm-up
-    _sync(device)
-    K.reset_launches()
-    PM.reset_wire()
-    if tr.device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    amt0 = tr.amt_data
-    t0 = time.perf_counter()
-    loss, _, _, steps = tr.train_epoch()
-    _sync(device)
-    secs = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    wire = dict(PM.WIRE)
-    hist_bytes = sum(h.numel() * h.element_size()
-                     for hl in (*tr.state.histories, *tr.eval_histories)
-                     for h in hl)
-    res.update(steps=steps, secs=secs, loss=loss, setup_s=setup,
-               batch=cfg.batch_size,
-               edges=tr.amt_data - amt0, launches=launches, wire=wire,
-               peak_gib=_peak_gib(device),
-               hist_bytes=hist_bytes)
-    check_launches(f"a dp={world} CV+PP train epoch on rank {rank}",
-                   launches, {name: per * steps for name, per in
-                              STEP_LAUNCHES["CV+PP"].items()})
-    if not np.isfinite(loss):
-        fail(f"dp: non-finite training loss {loss}")
-    res["kernels"] = _dp_kernels(tr)
+    cfg = Config(**{**slice_cfg, "dp": world, "dp_hosts": hosts})
+    res.update(_dp_arms(ds, cfg, device))
+    if world > 1:
+        res["alone"] = {
+            f"--{flag} alone": _dp_shares(ds, cfg.replace(**{flag: value}),
+                                          device, DP_SHARE_STEPS)
+            for flag, value in OWNER_OVER.items()}
+    del ds
+    res["edgelist"] = _dp_edgelist(device, uncapped_kw, fullterm_cfg, hosts)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
 
 
+def _dp_coordinator(tmp: str, device: str, world: int, hosts: int,
+                    flags: list) -> None:
+    """The coordinator arm: ``hosts`` host processes of this machine, each
+    given its ``world / hosts`` cards, start their ranks through the
+    multi-host launch (``--coordinator 127.0.0.1:<free port>
+    --num_processes H --process_id i``: a TCP store held by host 0's first
+    rank) and run ``parallel/checks.py::host_run`` (train, evaluate,
+    predict, save, load, predict).  Fails unless every host exits 0, the
+    hosts' results agree exactly and the checkpoint round trip predicts
+    within ``DP_PREDICT_ATOL``."""
+    import socket
+    import sys
+    per = world // hosts
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = visible.split(",") if visible else \
+        [str(i) for i in range(world)]
+    out = os.path.join(tmp, "coordinator")
+    os.makedirs(out)
+    args = [*flags, "--dp", str(world), "--dp_hosts", str(hosts),
+            "--coordinator", f"127.0.0.1:{port}", "--num_processes",
+            str(hosts), "--ckpt_dir", os.path.join(out, "ckpt")]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for i in range(hosts):
+            env = dict(os.environ)
+            if device == "cuda":
+                env["CUDA_VISIBLE_DEVICES"] = ",".join(
+                    cards[i * per:(i + 1) * per])
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "stochastic_gcn_tpu_torch.parallel.checks", out, device,
+                 *args, "--process_id", str(i)], cwd=ROOT, env=env))
+        rcs = [p.wait(timeout=COORD_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    if rcs != [0] * hosts:
+        fail(f"dp coordinator arm: host exit codes {rcs}")
+    got = [dict(np.load(os.path.join(out, f"host{i}.npz")))
+           for i in range(hosts)]
+    for i, h in enumerate(got[1:], 1):
+        for key in ("losses", "eval", "pred", "pred_loaded"):
+            if not np.array_equal(h[key], got[0][key]):
+                fail(f"dp coordinator arm: host {i}'s {key} differs from "
+                     f"host 0's")
+    err = float(np.abs(got[0]["pred_loaded"] - got[0]["pred"]).max())
+    if not (np.isfinite(got[0]["losses"]).all() and err <= DP_PREDICT_ATOL):
+        fail(f"dp coordinator arm: losses {got[0]['losses']}, checkpoint "
+             f"round trip max abs err {err}")
+    total, cross = got[0]["wire"]
+    print(f"dp: coordinator arm, {hosts} host(s) of {per} rank(s) through a "
+          f"TCP store at 127.0.0.1:{port}, {' '.join(flags[:2])} CV+PP "
+          f"{len(got[0]['losses'])} epochs in {secs:.1f} s (start-up "
+          f"included): the hosts agree exactly (losses "
+          f"{got[0]['losses'].round(6).tolist()}, val micro-F1 "
+          f"{got[0]['eval'][2]:.4f}); checkpoint saved by rank 0, loaded by "
+          f"every rank, predictions within {err:.3e}; rank 0's collective "
+          f"bytes {total:.0f}, {cross:.0f} of them across hosts",
+          flush=True)
+
+
 def phase_dp(results: dict, device: str = "cuda", world: int = 0,
              sbm_kw=SBM_KW, reddit_kw=None, slice_cfg=SLICE_CFG,
-             converge_cfg=CONVERGE_CFG, target: float = CONVERGE_F1) -> dict:
+             converge_cfg=CONVERGE_CFG, target: float = CONVERGE_F1,
+             uncapped_kw=UNCAPPED_SBM_KW, fullterm_cfg=FULLTERM_CFG,
+             coord_flags=COORD_FLAGS) -> dict:
     """Data parallelism: one NCCL rank per card of this machine (rank r on
-    ``cuda:r``), each running ``_dp_rank``: (a) the halo primitives against
+    ``cuda:r``; at an even world declared as two hosts of consecutive
+    ranks), each running ``_dp_rank``: (a) the halo primitives against
     whole-table gathers and scatters on the card; (b) on the SBM, one
     epoch of CV+PP with dedup-compacted fields and no dropout against one
     process of the same seed (``DP_FIRST_EPOCH_RTOL``), then CV+PP at the
@@ -3242,52 +3580,90 @@ def phase_dp(results: dict, device: str = "cuda", world: int = 0,
     Reddit-shaped recipe at global batch 512: a warm-up epoch, then a
     timed epoch with the counters reset just before it (ms/step, sampled
     edges/s, peak memory, history bytes and collective bytes per step per
-    rank, launches checked exactly per rank), and the four kernels on the
+    rank by transport and by host, the routed rows' rank-local shares,
+    launches checked exactly per rank), and the four kernels on the
     inputs this path gives them, against their plain versions and timed
-    on rank 0.  Any rank's failure fails the run.  Returns rank 0's launch
-    counts of the timed epoch; folds the kernels' dp cases into
-    ``results``."""
+    on rank 0; (e) the owner arm, (c) with ``--owner_batching
+    --partition_nodes rcm`` (and at world > 1 each flag alone, shares
+    only); (f) the edge-list arm (``_dp_edgelist``).  Any rank's failure
+    fails the run.  Then (g) the coordinator arm (``_dp_coordinator``).
+    Folds the kernels' cases into ``results`` (``dp_case``,
+    ``dp_owner_case``, ``dp_edgelist_case``) and returns rank 0's launch
+    counts of each counted path."""
     from stochastic_gcn_tpu_torch.parallel import launch
     world = world or torch.cuda.device_count()
-    print(f"dp: world {world}", flush=True)
+    hosts = 2 if world > 1 and world % 2 == 0 else 1
+    print(f"dp: world {world}, declared as {hosts} host(s)", flush=True)
     if device == "cuda":
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
         launch.spawn(_dp_rank, world,
                      (tmp, device, sbm_kw, reddit_kw or {}, slice_cfg,
-                      converge_cfg, target), device, store_dir=tmp)
+                      converge_cfg, target, uncapped_kw, fullterm_cfg,
+                      hosts), device, store_dir=tmp, hosts=hosts)
         ranks = []
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
+        t_ranks = time.perf_counter() - t0
+        _dp_coordinator(tmp, device, world, hosts, coord_flags)
     for r, res in enumerate(ranks):
-        steps = res["steps"]
-        wire = sum(res["wire"].values())
-        print(f"dp: rank {r} of {world}, Reddit-shaped CV+PP at global batch "
-              f"{res['batch']}: Trainer set-up {res['setup_s']:.2f}"
-              f" s; timed epoch {steps} steps in {res['secs']:.3f} s -> "
-              f"{1e3 * res['secs'] / steps:.3f} ms/step, "
-              f"{res['edges'] / res['secs']:.0f} sampled edges/s (global); "
-              f"last loss {res['loss']:.5f}; "
-              f"peak device memory {res['peak_gib']:.3f} GiB; history bytes "
-              f"{res['hist_bytes']} (train and eval blocks); collective "
-              f"bytes per step {wire / steps:.0f} "
-              f"{ {k: v / steps for k, v in res['wire'].items()} }; "
-              f"launches per step "
-              f"{ {k: v / steps for k, v in res['launches'].items()} }")
+        for arm in ("plain", "owner"):
+            a = res[arm]
+            steps = a["steps"]
+            turns = ", ".join(f"{1e3 * x / steps:.3f}"
+                              for x in a["secs_turns"])
+            print(f"dp: rank {r} of {world}, Reddit-shaped "
+                  f"{'owner-batched (rcm) ' if arm == 'owner' else ''}CV+PP "
+                  f"at global batch {a['batch']}: Trainer set-up "
+                  f"{a['setup_s']:.2f} s; timed epochs (in turns "
+                  f"{'/'.join(DP_TIMED_TURNS)}) {turns} ms/step over "
+                  f"{steps} steps; the first: "
+                  f"{a['edges'] / a['secs']:.0f} sampled edges/s "
+                  f"(global); last loss {a['loss']:.5f}; peak device memory "
+                  f"{a['peak_gib']:.3f} GiB; history bytes {a['hist_bytes']}"
+                  f" (train and eval blocks); {_wire_per_step(a)}; routed "
+                  f"rows the rank owns {_shares(a['routed'])}; launches per "
+                  f"step { {k: v / steps for k, v in a['launches'].items()} }")
+        al = res["owner"]["aligned_step"]
+        print(f"dp: rank {r} of {world}, an owner-aligned train step "
+              f"({al['blocks']} blocks, no dropout) against the classic one "
+              f"of the same generator: loss within {al['loss_diff']:.3e}, "
+              f"params within {al['param_diff']:.3e} (atol {STEP_ATOL})")
+        for label, alone in res.get("alone", {}).items():
+            print(f"dp: rank {r} of {world}, {label}, {DP_SHARE_STEPS} "
+                  f"steps: routed rows the rank owns {alone['shares']}; "
+                  f"collective bytes per step {alone['wire_per_step']:.0f}")
+        e = res["edgelist"]
+        print(f"dp: rank {r} of {world}, uncapped SBM (built in "
+              f"{e['built_s']:.1f} s) as a node-sharded edge list "
+              f"({e['parts']} parts, {e['tile_rows']} block rows on this "
+              f"rank): graph bytes {e['graph_bytes']}; first "
+              f"{e['steps']} steps against the row-sharded padded graph "
+              f"within {e['rel_diff']:.3e} (rtol {DP_FIRST_EPOCH_RTOL}); "
+              f"launches {e['launches']}")
     rank0 = ranks[0]
-    for name, (case, res) in rank0["kernels"].items():
-        worst = max(rk["kernels"][name][1]["max_abs_err"] for rk in ranks)
-        res["max_abs_err"] = worst
-        _report(results, name, case, res)
-        results[name]["dp_case"] = {
-            "case": case, **{key: res.get(key) for key in
-                             ("max_abs_err", *MAIN_KEYS, "library")}}
-        results[name]["dp_launches_per_step_per_rank"] = \
-            rank0["launches"][name] / rank0["steps"]
-    print(f"dp: phase {time.perf_counter() - t0:.1f} s", flush=True)
-    return rank0["launches"]
+    for key, arm in (("dp_case", ("plain",)), ("dp_owner_case", ("owner",)),
+                     ("dp_edgelist_case", ("edgelist",))):
+        for name, (case, res) in rank0[arm[0]]["kernels"].items():
+            res["max_abs_err"] = max(rk[arm[0]]["kernels"][name][1][
+                "max_abs_err"] for rk in ranks)
+            _report(results, name, case, res)
+            results[name][key] = {
+                "case": case, **{k: res.get(k) for k in
+                                 ("max_abs_err", *MAIN_KEYS, "library")}}
+    for name in results:
+        results[name]["dp_launches_per_step_per_rank"] = {
+            arm: rank0[arm]["launches"][name] / rank0[arm]["steps"]
+            for arm in ("plain", "owner", "edgelist")}
+    print(f"dp: phase {time.perf_counter() - t0:.1f} s (ranks "
+          f"{t_ranks:.1f} s)", flush=True)
+    return {f"dp={world} train epoch (rank 0)": rank0["plain"]["launches"],
+            f"dp={world} owner-batched train epoch (rank 0)":
+                rank0["owner"]["launches"],
+            f"dp={world} edge-list steps (rank 0)":
+                rank0["edgelist"]["launches"]}
 
 
 def main(argv=None) -> None:
@@ -3307,7 +3683,10 @@ def main(argv=None) -> None:
         kernels = {name: {} for name in REPLACES}
         phase_dp(kernels)
         print(json.dumps({"dp_kernels": {
-            name: res["dp_case"] for name, res in kernels.items()}}))
+            name: {key: res[key] for key in
+                   ("dp_case", "dp_owner_case", "dp_edgelist_case",
+                    "dp_launches_per_step_per_rank")}
+            for name, res in kernels.items()}}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3353,7 +3732,7 @@ def main(argv=None) -> None:
             os.path.join(tmp, "pubmed"), kernels)
         ppi_paths, ppi_step, ppi_request = phase_ppi(
             os.path.join(tmp, "ppi"))
-    dp_epoch = phase_dp(kernels)
+    dp_paths = phase_dp(kernels)
     per_step["CV+PP"] = {name: count / steps
                          for name, count in launches.items()}
     per_step.update(pubmed_steps)
@@ -3364,7 +3743,7 @@ def main(argv=None) -> None:
              "served requests (artifact)": art,
              "Exact evaluation": exact, **is_paths, **estimator_paths,
              **pubmed_paths, **ppi_paths, **fullterm_paths,
-             f"dp={torch.cuda.device_count()} train epoch (rank 0)": dp_epoch}
+             **dp_paths}
     total = {name: sum(p[name] for p in paths.values()) for name in kernels}
     idle = [name for name, count in total.items() if count == 0]
     if idle:
@@ -3390,7 +3769,8 @@ def main(argv=None) -> None:
          "sparse_layer_batches": res.get("sparse_layer_batches", {}),
          **{key: res[key] for key in ("fullterm_cases", "tier_wall_ms",
                                       "tier_sweep", "lazy_anchor_ms",
-                                      "dp_case",
+                                      "dp_case", "dp_owner_case",
+                                      "dp_edgelist_case",
                                       "dp_launches_per_step_per_rank")
             if key in res}}
         for name, res in kernels.items()]}))

@@ -1,13 +1,16 @@
 """Device-resident graph containers.
 
-Port of stochastic_gcn_tpu/data/graph.py for one device.  The whole graph
-lives on the device in one of two layouts, filled on the host with numpy:
+Port of stochastic_gcn_tpu/data/graph.py.  The graph lives on the device
+in one of two layouts, filled on the host with numpy:
 static-shape ``[N+1, Dcap]`` rows (:class:`PaddedGraph`; row ``N`` is an
 empty sentinel row), or block-aligned flat CSR (:class:`FlatGraph`, the
 edge-list layout for power-law graphs, O(E) storage).  :func:`graph_rows`
 gives either one's ``[F, Dcap]`` rows of a field.  Sparse features live on
 the device the same way, as ``[N+1, nnz_cap]`` (column, value) slots
-(:class:`PaddedSparseFeatures`).
+(:class:`PaddedSparseFeatures`).  Under data parallelism either layout may
+be node-sharded, a rank holding a block of the padded rows
+(:func:`shard_graph_rows`) or a tile of the edge list's blocks
+(:func:`shard_flat_graph`); the rows it reads come from their owners.
 """
 
 from __future__ import annotations
@@ -141,14 +144,24 @@ class FlatGraph:
       max_degree: the longest row (the sampler's row window).
       edge_cap_per_row: the CV full-neighbourhood term's budget: each
         output row reads its first ``edge_cap_per_row`` CSR entries.
-      parts: node-sharding partitions the tables are laid out for; 1 here
-        (:func:`flat_csr` raises for more).
+      parts: the node-sharding partitions the block tables are laid out
+        for: partition ``p`` holds the blocks of nodes ``[p ceil(N/parts),
+        (p+1) ceil(N/parts))``, every partition is padded to one block
+        count ``NB / parts`` (block owner ``bid // (NB / parts)``), and
+        each has its own ``ceil(max_degree/BLOCK)``-block sentinel tail, so
+        no window crosses into the next partition's tile.  ``parts = 1``
+        is the whole-table layout.  Note the node partition is not the
+        histories' ``shard_rows(N, P) / P`` rows a rank.
       tier_w, tier_frac: the two-tier split of the full term (-1 = off).
       renorm: [N+1] float32 full-row mass over the budget's mass for rows
         the budget truncates, 1 elsewhere (the reference's --max_degree
         semantics: kept edges are renormalised).
       truncated_frac: the share of edges the budget drops from the full
         term (0.0 = lossless), rounded to 6 digits.
+      mesh: the data-parallel mesh of a node-sharded graph
+        (:func:`shard_flat_graph`), whose ``idx`` and ``w`` hold this
+        rank's tile (``bstart``, ``deg`` and ``renorm`` stay whole); None
+        for a whole graph.
     """
     bstart: torch.Tensor
     idx: torch.Tensor
@@ -161,12 +174,17 @@ class FlatGraph:
     tier_frac: float = 0.0
     renorm: Optional[torch.Tensor] = None
     truncated_frac: float = 0.0
+    mesh: Optional[object] = None
 
     BLOCK: ClassVar[int] = 8
 
     @property
     def num_nodes(self) -> int:
         return self.bstart.shape[0] - 2
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
 
     @property
     def pad_degree(self) -> int:
@@ -189,12 +207,13 @@ def flat_csr(adj: sp.csr_matrix, edge_mult: float = 0.0, parts: int = 1,
     cover ``AUTO_EDGE_COVERAGE`` of all edges.  Rows longer than the budget
     keep their first ``edge_cap_per_row`` entries in the full term,
     renormalised (``renorm``); a budget that drops more than 1% of the
-    edges warns.  ``parts > 1`` (node-sharded tables) is multi-device and
-    raises."""
-    if parts != 1:
-        raise NotImplementedError(
-            "flat_csr(parts > 1), node-sharded block tables, is "
-            "multi-device: not ported yet (ROADMAP.md, queue 1)")
+    edges warns.  ``parts > 1`` lays the block tables out for node-sharding
+    over that many ranks (``FlatGraph.parts``, :func:`shard_flat_graph`);
+    a window's blocks then come from their owners
+    (:func:`flat_row_windows`)."""
+    if parts < 1:
+        raise ValueError(f"flat_csr: parts={parts} is not a partition "
+                         "count")
     adj = adj.tocsr()
     n = adj.shape[0]
     deg = np.diff(adj.indptr).astype(np.int32)
@@ -236,16 +255,25 @@ def flat_csr(adj: sp.csr_matrix, edge_mult: float = 0.0, parts: int = 1,
                 "--fadj_edge_mult (or 0 = auto) for exact neighborhoods.",
                 stacklevel=2)
 
-    # row i owns blocks [bstart[i], bstart[i+1]); after the last row, the
-    # sentinel row N's ceil(max_degree / B) blocks of padding
+    # row i owns blocks [bstart[i], bstart[i+1]); each partition ends in a
+    # ceil(max_degree / B)-block sentinel tail, so a window from any of
+    # its rows (the sentinel row N's included, placed at the last
+    # partition's used end) stays inside the partition's tile
     nb_row = -(-deg // B)
     wpad = max(-(-max_deg // B), 1)
     cum = np.zeros(n + 1, np.int64)
     cum[1:] = np.cumsum(nb_row, dtype=np.int64)
-    total_blocks = int(cum[n]) + wpad
+    nl = -(-n // parts)                         # nodes per partition
+    owner = np.arange(n, dtype=np.int64) // nl
+    part_lo = np.minimum(np.arange(parts, dtype=np.int64) * nl, n)
+    part_hi = np.minimum(part_lo + nl, n)
+    used = cum[part_hi] - cum[part_lo]          # blocks used per partition
+    nb_part = int(used.max()) + wpad if n else wpad
     bstart = np.zeros(n + 2, np.int64)
-    bstart[:n + 1] = cum
+    bstart[:n] = owner * nb_part + (cum[:n] - cum[part_lo[owner]])
+    bstart[n] = (parts - 1) * nb_part + int(used[-1]) if n else 0
     bstart[n + 1] = bstart[n]
+    total_blocks = parts * nb_part
     deg_out = np.zeros(n + 1, np.int32)
     deg_out[:n] = deg
     idx = np.full(total_blocks * B, n, np.int32)
@@ -280,7 +308,7 @@ def flat_csr(adj: sp.csr_matrix, edge_mult: float = 0.0, parts: int = 1,
     return FlatGraph(bstart=dev(bstart.astype(np.int32)),
                      idx=dev(idx.reshape(-1, B)), w=dev(w.reshape(-1, B)),
                      deg=dev(deg_out), max_degree=max_deg,
-                     edge_cap_per_row=cap_row, parts=1, tier_w=tw,
+                     edge_cap_per_row=cap_row, parts=parts, tier_w=tw,
                      tier_frac=tf, renorm=dev(renorm),
                      truncated_frac=trunc_frac)
 
@@ -297,20 +325,36 @@ def flat_row_windows(graph: FlatGraph, field: torch.Tensor, width: int,
     of the a-bar build on an NVIDIA H100 80GB HBM3 at 700 W,
     chip_smoke.py); a window may run into the next row's blocks, and
     slots at or past the row's degree are masked to the sentinel id N and
-    weight 0, as the padded layout holds them."""
+    weight 0, as the padded layout holds them.
+
+    Of a node-sharded graph (:func:`shard_flat_graph`) the windows' whole
+    blocks, ``[F * ceil(width / BLOCK)]`` block ids, come from their
+    owners in one exchange of the ``idx`` and ``w`` rows
+    (``parallel/halo.py::row_gather2``); a partition's sentinel tail keeps
+    every window inside its owner's tile."""
     n = graph.num_nodes
     B = graph.idx.shape[1]
     if start % B:
         raise ValueError(f"window start {start} is not a multiple of {B}")
     ids = field.to(torch.int64)
     dev = graph.idx.device
-    first = graph.bstart.index_select(0, ids).to(torch.int64) * B + start
     deg = graph.deg.index_select(0, ids)
-    at = first[:, None] + torch.arange(width, device=dev)[None, :]
     valid = (start + torch.arange(width, dtype=torch.int32, device=dev)
              )[None, :] < deg[:, None]
-    return (torch.where(valid, torch.take(graph.idx, at), n),
-            torch.where(valid, torch.take(graph.w, at), 0.0), deg)
+    if graph.sharded:
+        from ..parallel.halo import row_gather2
+        nb = -(-width // B)
+        b0 = graph.bstart.index_select(0, ids).to(torch.int64) + start // B
+        bids = b0[:, None] + torch.arange(nb, device=dev)[None, :]
+        blk_i, blk_w = row_gather2(graph.idx, graph.w, bids, graph.mesh)
+        nbr = blk_i.reshape(-1, nb * B)[:, :width]
+        w = blk_w.reshape(-1, nb * B)[:, :width]
+    else:
+        first = graph.bstart.index_select(0, ids).to(torch.int64) * B \
+            + start
+        at = first[:, None] + torch.arange(width, device=dev)[None, :]
+        nbr, w = torch.take(graph.idx, at), torch.take(graph.w, at)
+    return torch.where(valid, nbr, n), torch.where(valid, w, 0.0), deg
 
 
 def graph_rows(graph, field: torch.Tensor):
@@ -335,7 +379,8 @@ def graph_slots(graph, field: torch.Tensor, sel: torch.Tensor):
     below the row's degree, or 0 for an empty row, which reads the sentinel
     id N and weight 0 in either layout.  Of a row-sharded graph each slot
     comes from its row's owner, as one element of the tables viewed as
-    ``[rows * Dcap, 1]``."""
+    ``[rows * Dcap, 1]`` (of a node-sharded edge list ``[NB * BLOCK,
+    1]``)."""
     ids = field.to(torch.int64)
     sel = sel.to(torch.int64)
     if isinstance(graph, PaddedGraph) and graph.sharded:
@@ -349,10 +394,16 @@ def graph_slots(graph, field: torch.Tensor, sel: torch.Tensor):
         at = graph.bstart.index_select(0, ids).to(torch.int64) \
             * graph.idx.shape[1] + sel
         live = graph.deg.index_select(0, ids) > 0
-        return (torch.where(live, graph.idx.reshape(-1).index_select(0, at),
-                            graph.num_nodes),
-                torch.where(live, graph.w.reshape(-1).index_select(0, at),
-                            0.0))
+        if graph.sharded:
+            from ..parallel.halo import row_gather2
+            nbr, w = row_gather2(graph.idx.reshape(-1, 1),
+                                 graph.w.reshape(-1, 1), at, graph.mesh)
+            nbr, w = nbr.reshape(-1), w.reshape(-1)
+        else:
+            nbr = graph.idx.reshape(-1).index_select(0, at)
+            w = graph.w.reshape(-1).index_select(0, at)
+        return (torch.where(live, nbr, graph.num_nodes),
+                torch.where(live, w, 0.0))
     return graph.nbr[ids, sel], graph.w[ids, sel]
 
 
@@ -394,6 +445,18 @@ def shard_graph_rows(graph: PaddedGraph, mesh, rows: int) -> PaddedGraph:
     padded = pad_graph_rows(graph, rows)
     return dataclasses.replace(padded, nbr=mesh.local(padded.nbr).clone(),
                                w=mesh.local(padded.w).clone(), mesh=mesh)
+
+
+def shard_flat_graph(graph: FlatGraph, mesh) -> FlatGraph:
+    """This rank's tile, tensors of its own, of a whole FlatGraph built for
+    ``mesh.size`` partitions (``flat_csr(..., parts=P)``): the ``[NB / P,
+    BLOCK]`` block rows of ``idx`` and ``w``; ``bstart``, ``deg`` and
+    ``renorm`` stay whole."""
+    if graph.parts != mesh.size:
+        raise ValueError(f"a FlatGraph of {graph.parts} partitions does not "
+                         f"shard over {mesh.size} ranks")
+    return dataclasses.replace(graph, idx=mesh.local(graph.idx).clone(),
+                               w=mesh.local(graph.w).clone(), mesh=mesh)
 
 
 def shard_table_rows(features, mesh, rows: int):

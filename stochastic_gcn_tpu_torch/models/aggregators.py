@@ -1,7 +1,6 @@
 """Aggregation ops: the plain, control-variate (CV) and EMA estimators.
 
-Port of stochastic_gcn_tpu/models/aggregators.py for one device and the
-prefix field layout:
+Port of stochastic_gcn_tpu/models/aggregators.py:
 
 * sampled SpMM ``A_samp . X`` -> :func:`fanout_gather`, the fanout kernel
   (the estimators without a control variate, and :func:`ema_aggregate`);
@@ -30,6 +29,11 @@ beside them, and remaps the slot positions into that buffer; the same
 kernels then run on the buffer.  The full term contracts each rank's own
 history rows (:func:`full_neighborhood_mean_halo`).  Under a mesh the full
 term is always the per-step, untiered one (the JAX package's choice).
+
+The output rows of a layer are the ``[:F_out]`` prefix of its input field,
+or, under the owner-aligned layout (``--owner_batching``), the input rows
+at ``LayerSample.self_pos`` (sentinel rows parked there read zero rows);
+on a mesh a rank's buffer then holds mostly its own rows.
 """
 
 from __future__ import annotations
@@ -329,20 +333,20 @@ def _full_term(history, lazy_l, j: int, graph, field_out: torch.Tensor,
 class _LocalReader:
     """How an aggregator reads its input field on one device: the whole
     field is here, the slots are the schedule's, the output rows are the
-    ``[:F_out]`` prefix of the input field and the history rows are those
-    of the field's node ids."""
+    input rows :func:`_self_rows` names and the history rows are those of
+    the field's node ids."""
 
     def __init__(self, ls: LayerSample, field_in, field_out, n: int):
         self.pos, self.w, self.aw = ls.slot_pos, ls.slot_w, ls.slot_aw
         self.scales, self.field_in, self.field_out = ls.scales, field_in, \
             field_out
-        self.n, self.n_out = n, ls.slot_pos.shape[0]
+        self.n, self.ls = n, ls
 
     def rows(self, x):
         return x
 
     def self_rows(self, x):
-        return x[:self.n_out]
+        return _self_rows(x, self.ls)
 
     def hist_rows(self, table):
         return history_gather(table, self.field_in, self.n)
@@ -356,13 +360,15 @@ class _HaloReader:
     """How an aggregator reads its input field on one rank of a mesh: the
     rank holds a row block of the input field's activations and computes
     its block of the output field.  The input rows its slots and self rows
-    name (each once: the live slots' positions and the output rows'
-    prefix positions, sorted) are gathered into an ``[R, d]`` buffer
-    through one :class:`~..parallel.halo.Route`, and the slot positions are
-    remapped into it (dead slots park at ``R``), so the hand-written
-    kernels run on the buffer unchanged.  The history rows of the buffer's
-    node ids come from their owners into a buffer of the same rows, read
-    by the CV kernel through an identity field of sentinel ``R``."""
+    name (each once: the live slots' positions and the output rows' input
+    positions, the prefix's or ``self_pos``'s, sorted) are gathered into
+    an ``[R, d]`` buffer through one :class:`~..parallel.halo.Route`, and
+    the slot positions are remapped into it (dead slots park at ``R``), so
+    the hand-written kernels run on the buffer unchanged.  The history
+    rows of the buffer's node ids come from their owners into a buffer of
+    the same rows, read by the CV kernel through an identity field of
+    sentinel ``R``.  Under the owner-aligned layout the buffer's rows are
+    mostly the rank's own block, so the route moves little."""
 
     def __init__(self, ls: LayerSample, f_in: int, mesh, field_in=None,
                  field_out=None, n: int = -1):
@@ -371,18 +377,30 @@ class _HaloReader:
         pos = ls.slot_pos.narrow(0, lo, m)
         w = ls.slot_w.narrow(0, lo, m)
         live = (w != 0) & (pos >= 0) & (pos < f_in)
-        own = torch.arange(lo, lo + m, device=dev)
-        need = torch.unique(torch.cat([pos[live].to(torch.int64), own]))
+        if ls.self_pos is None:
+            own = torch.arange(lo, lo + m, device=dev)
+            own_live = own
+        else:
+            # parked (sentinel) output rows read zero rows; they stand for
+            # the rank's first own input row, which keeps the buffer from
+            # being empty on a rank whose rows are all sentinels
+            own = ls.self_pos.narrow(0, lo, m).to(torch.int64)
+            own_live = torch.where(own < f_in, own,
+                                   mesh.rank * (f_in // mesh.size))
+        need = torch.unique(torch.cat([pos[live].to(torch.int64),
+                                       own_live]))
         r = need.shape[0]
         self.pos = torch.where(
             live, torch.searchsorted(need, pos.to(torch.int64)),
             r).to(torch.int32)
+        # a parked output row's index is R (past every buffer row)
         self.self_idx = torch.searchsorted(need, own)
+        self.aligned = ls.self_pos is not None
         self.w = w
         self.aw = None if ls.slot_aw is None else ls.slot_aw.narrow(0, lo, m)
         self.scales = ls.scales.narrow(0, lo, m)
         self.field_in = field_in
-        self.route = halo.Route(need, f_in, mesh)
+        self.route = halo.Route(need, f_in, mesh, count="field rows")
         self.n, self.mesh, self.need = n, mesh, need
         if field_in is not None:
             self.field_out = field_out.narrow(0, lo, m)
@@ -393,6 +411,8 @@ class _HaloReader:
         return halo.fetch(x, self.route)
 
     def self_rows(self, x):
+        if self.aligned:
+            return row_gather(x, self.self_idx, x.shape[0])
         return x.index_select(0, self.self_idx)
 
     def hist_rows(self, table):
@@ -401,7 +421,8 @@ class _HaloReader:
         if self._hist_route is None:
             self._hist_route = halo.Route(
                 self.field_in.index_select(0, self.need),
-                table.shape[0] * self.mesh.size, self.mesh, self.n)
+                table.shape[0] * self.mesh.size, self.mesh, self.n,
+                count="history reads")
         return halo.fetch(table, self._hist_route)
 
     def cv(self, x, table, base):
@@ -424,23 +445,33 @@ def ema_aggregate(inputs: torch.Tensor, ls: LayerSample,
     h_bar[field_out]``, and the new history is Z.  Returns (outputs,
     new_history) where new_history follows the scatter contract of
     ``scatter_histories``: rows on the input field, the output field's
-    prefix taking Z and the rest rewriting their current history rows."""
+    output rows (the prefix, or ``self_pos``) taking Z and the rest
+    rewriting their current history rows."""
     n_out = ls.slot_pos.shape[0]
     a_hat = fanout_gather(inputs, ls.slot_pos, ls.slot_w)
     hist_rows = history[0].index_select(
-        0, field_in[:n_out].to(torch.int64))
+        0, _self_rows(field_in, ls).to(torch.int64))
     a_nbr = a_hat * alpha + hist_rows * (1.0 - alpha)
     base = history[0].index_select(0, field_in.to(torch.int64)).to(
         a_nbr.dtype)
-    new_hist = torch.cat([a_nbr, base[n_out:]])
+    if ls.self_pos is None:
+        new_hist = torch.cat([a_nbr, base[n_out:]])
+    else:
+        # parked output rows write a spare row past the end, cut off
+        c = base.shape[0]
+        new_hist = torch.cat([base, base[:1]]).index_copy_(
+            0, torch.clamp(ls.self_pos, max=c).to(torch.int64), a_nbr)[:c]
     return (_self_concat(normalization, _self_rows(inputs, ls), a_nbr),
             (new_hist,))
 
 
 def _self_rows(x: torch.Tensor, ls: LayerSample) -> torch.Tensor:
     """The output field's rows of an input-field tensor: the ``[:F_out]``
-    prefix of the append-only layout."""
-    return x[:ls.slot_pos.shape[0]]
+    prefix, or under the owner-aligned layout the rows at ``self_pos``
+    (parked sentinel rows read zero rows)."""
+    if ls.self_pos is None:
+        return x[:ls.slot_pos.shape[0]]
+    return row_gather(x, ls.self_pos, x.shape[0])
 
 
 def _self_concat(normalization: str, self_part: torch.Tensor,

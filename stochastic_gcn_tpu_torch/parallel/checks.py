@@ -28,6 +28,7 @@ from ..sampler.scheduler import BatchFields, LayerSample
 from ..training import step as St
 from ..training.loop import Trainer
 from . import halo
+from . import mesh as PM
 from .mesh import make_mesh, shard_rows, whole
 
 # the transports move rows and do no arithmetic: exact.  The owner-routed
@@ -216,10 +217,12 @@ def train_steps(npz_in: str, npz_out: str, fields: dict) -> None:
     train graph (``nbr``, ``w``, ``deg``), the params and histories
     (``param:<layer>/<name>``, ``hist:<l>/<j>``), and per step ``s`` its
     schedule (``s<s>:field<i>``, ``s<s>:pos<l>``, ``s<s>:w<l>``,
-    ``s<s>:aw<l>``, ``s<s>:scales<l>``).  Dropout masks and noise are
+    ``s<s>:aw<l>``, ``s<s>:scales<l>``, and under the owner-aligned layout
+    ``s<s>:self<l>``).  Dropout masks and noise are
     :func:`shape_seeded_noise`'s; ``fields`` are the configuration's.
-    Rank 0 writes each step's loss and the final params and whole
-    histories to ``npz_out``."""
+    Rank 0 writes each step's loss and the final params, Adam first
+    moments (``mu:<layer>/<name>``, a decaying sum of the gradients) and
+    whole histories to ``npz_out``."""
     shape_seeded_noise()
     cfg = from_fields(fields)
     mesh = make_mesh(cfg.shard_graph)
@@ -256,7 +259,9 @@ def train_steps(npz_in: str, npz_out: str, fields: dict) -> None:
         layers = tuple(LayerSample(
             slot_pos=T(f"s{s}:pos{l}"), slot_w=T(f"s{s}:w{l}"),
             slot_aw=T(f"s{s}:aw{l}") if f"s{s}:aw{l}" in z.files else None,
-            scales=T(f"s{s}:scales{l}")) for l in range(spec.num_agg_layers))
+            scales=T(f"s{s}:scales{l}"),
+            self_pos=T(f"s{s}:self{l}") if f"s{s}:self{l}" in z.files
+            else None) for l in range(spec.num_agg_layers))
         pack = BatchFields(
             fields=tuple(T(f"s{s}:field{i}")
                          for i in range(spec.num_agg_layers + 1)),
@@ -267,6 +272,8 @@ def train_steps(npz_in: str, npz_out: str, fields: dict) -> None:
     for layer, p in state.params.items():
         for name, t in p.items():
             out[f"param:{layer}/{name}"] = t.cpu().numpy()
+            out[f"mu:{layer}/{name}"] = \
+                state.opt_state.mu[layer][name].cpu().numpy()
     for l, hl in enumerate(state.histories):
         for j, h in enumerate(hl):
             out[f"hist:{l}/{j}"] = whole(h, mesh).float().cpu().numpy()
@@ -282,7 +289,9 @@ def trainer_runs(cases: dict, out: str, device: str = "cpu") -> None:
     macro F1), ``<name>:pred``, ``<name>:step0`` (the first step's loss
     and params, taken from a fresh Trainer) and ``<name>:probes`` (the
     activation moments of the train and the eval model and a
-    gradient-variance table of 2 resamples, :func:`probes`) to ``out``."""
+    gradient-variance table of 2 resamples, :func:`probes`) and
+    ``<name>:tile`` (this rank's rows of the train graph's ``idx`` or
+    ``nbr`` table, and its partition count) to ``out``."""
     res = {}
     for name, (flags, epochs) in cases.items():
         cfg = parse_flags(flags)
@@ -296,9 +305,29 @@ def trainer_runs(cases: dict, out: str, device: str = "cpu") -> None:
         res[f"{name}:pred"] = tr.predict(ds.test_d[:16])
         res[f"{name}:step0"] = first
         res[f"{name}:probes"] = probes(tr)
+        res[f"{name}:tile"] = np.array(
+            [_graph_table(tr.graph_train).shape[0],
+             getattr(tr.graph_train, "parts", 1)])
         if "--ckpt_dir" in flags:
             tr.save()
     _save(out, res)
+
+
+def _graph_table(graph) -> torch.Tensor:
+    return graph.idx if hasattr(graph, "idx") else graph.nbr
+
+
+def export_run(flags: list, path: str, epochs: int) -> None:
+    """A data-parallel Trainer from ``flags`` trains ``epochs`` epochs and
+    exports its serving artifact to ``path`` (every rank takes part in
+    the gathers; rank 0 writes)."""
+    from ..serving import export_predictor
+    cfg = parse_flags(flags)
+    ds = load_data(cfg)
+    tr = Trainer(cfg, ds, device=_device())
+    for _ in range(epochs):
+        tr.train_epoch()
+    export_predictor(tr, path)
 
 
 def probes(tr) -> np.ndarray:
@@ -328,6 +357,65 @@ def _first_step(tr) -> np.ndarray:
     return torch.cat(flat).numpy()
 
 
+def host_run(flags: list, out: str, device: str = "cpu") -> None:
+    """One rank of a (possibly multi-host) data-parallel run of ``flags``:
+    a Trainer trains ``--epochs`` epochs, evaluates the validation split,
+    predicts the first 16 test ids and saves to ``--ckpt_dir``; then a
+    fresh Trainer loads the checkpoint (histories too) and predicts them
+    again.  The first rank of each host writes ``<out>/host<i>.npz``
+    (``losses``, ``eval``, ``pred``, ``pred_loaded``, ``ranks``: the
+    group's size and this host's first rank; ``wire``: this rank's
+    collective bytes of the training epochs, all and across hosts)."""
+    cfg = parse_flags(flags)
+    ds = load_data(cfg)
+    tr = Trainer(cfg, ds, device=device)
+    PM.reset_wire()
+    res = {"losses": np.array([tr.train_epoch()[0]
+                               for _ in range(cfg.epochs)])}
+    res["wire"] = np.array([sum(PM.WIRE.values()),
+                            sum(PM.WIRE_CROSS_HOST.values())])
+    res.update(eval=np.array(tr.evaluate(ds.val_d)[:4]),
+               pred=tr.predict(ds.test_d[:16]))
+    tr.save()
+    again = Trainer(cfg, ds, device=device)
+    again.load(load_history=True)
+    res["pred_loaded"] = again.predict(ds.test_d[:16])
+    rank, world = dist.get_rank(), dist.get_world_size()
+    host = tr.mesh.host(rank)
+    res["ranks"] = np.array([world, rank])
+    if rank == host * (world // tr.mesh.hosts):
+        np.savez(f"{out}/host{host}.npz", **res)
+    dist.barrier()
+
+
+def main(argv=None) -> None:
+    """``python -m stochastic_gcn_tpu_torch.parallel.checks OUT DEVICE
+    FLAGS...``: :func:`host_run` of ``FLAGS`` on every rank, started the
+    way the command-line entry points start theirs
+    (``launch.dispatch``): ``--dp P`` spawns ``P`` local ranks;
+    ``--coordinator host:port --num_processes H --process_id i`` (run once
+    per host) spawns this host's ``P / H``."""
+    import sys
+    argv = list(sys.argv[1:] if argv is None else argv)
+    out, device, flags = argv[0], argv[1], argv[2:]
+    from . import launch
+    if launch.dispatch(parse_flags(flags), device,
+                       "stochastic_gcn_tpu_torch.parallel.checks", argv):
+        return
+    host_run(flags, out, device)
+
+
+def mesh_hosts(hosts: int, out: str) -> None:
+    """``make_mesh(hosts=hosts)`` on this group; rank 0 writes the error
+    it raised (empty when none) to ``out``."""
+    try:
+        make_mesh(hosts=hosts)
+        msg = ""
+    except ValueError as e:
+        msg = str(e)
+    _save(out, {"error": np.array(msg)})
+
+
 def fail_on_rank_zero() -> None:
     """Rank 0 raises while the other ranks wait in a collective it never
     joins: the spawn must fail at once, not when the group's timeout
@@ -335,3 +423,7 @@ def fail_on_rank_zero() -> None:
     if dist.get_rank() == 0:
         raise RuntimeError("rank 0 fails on purpose")
     dist.barrier()
+
+
+if __name__ == "__main__":
+    main()

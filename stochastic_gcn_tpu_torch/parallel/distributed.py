@@ -2,14 +2,22 @@
 
 Port of stochastic_gcn_tpu/parallel/distributed.py.  One process drives
 one device: NCCL on CUDA devices, gloo on the CPU.  A group comes from one
-of two places:
+of three places:
 
 * torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and its
   ``MASTER_ADDR`` / ``MASTER_PORT`` store): :func:`maybe_initialize` joins
   it, so ``torchrun --nproc_per_node 4 -m stochastic_gcn_tpu_torch.cli.train
-  --dp 4 ...`` runs as it would under JAX's multi-controller launch;
+  --dp 4 ...`` runs as it would under JAX's multi-controller launch (and
+  ``--nnodes H`` across hosts: a rank's host is torchrun's ``GROUP_RANK``);
 * a local spawn (:mod:`.launch`), which hands every worker its rank, the
-  world size and a rendezvous address and calls :func:`init_group`.
+  world size and a rendezvous address and calls :func:`init_group`;
+* the multi-host launch, JAX's flags ``--coordinator host:port
+  --num_processes H --process_id i`` (:func:`host_ranks`): a "process"
+  there is a host, since the port runs one process per device.  Host ``i``
+  spawns ``dp / H`` local ranks (:mod:`.launch`), global rank ``i (dp / H)
+  + local``, so the ranks are host-major by construction, and every rank
+  joins one group through a TCP store at the coordinator, held by host
+  0's local rank 0 (global rank 0).
 
 Every rank loads the same data and draws from the same seeded generators,
 so the ranks run one global schedule in step (training/step.py).
@@ -29,13 +37,49 @@ import torch.distributed as dist
 # rank that died leaves the others failing rather than hanging.
 TIMEOUT = timedelta(seconds=300)
 
+# this process's host in a multi-host launch (set by init_group; torchrun's
+# GROUP_RANK otherwise, 0 on one host)
+_HOST = None
+
+
+def host_ranks(cfg) -> tuple:
+    """``(host, hosts, local ranks)`` of a ``--coordinator`` launch: host
+    ``cfg.process_id`` of ``cfg.num_processes``, each starting ``cfg.dp /
+    hosts`` ranks.  A mismatch raises: ``dp`` not a multiple of the hosts,
+    a ``process_id`` out of range, or ``--dp_hosts`` set to another host
+    count."""
+    hosts = cfg.num_processes
+    if hosts < 1 or cfg.dp % hosts:
+        raise ValueError(f"--dp {cfg.dp} does not tile over "
+                         f"--num_processes {hosts} hosts")
+    if not 0 <= cfg.process_id < hosts:
+        raise ValueError(f"--process_id {cfg.process_id} is not a host of "
+                         f"--num_processes {hosts}")
+    if cfg.dp_hosts not in (1, hosts):
+        raise ValueError(f"--dp_hosts {cfg.dp_hosts} but --num_processes "
+                         f"{hosts} hosts")
+    return cfg.process_id, hosts, cfg.dp // hosts
+
+
+def host_index() -> int:
+    """This process's host: the one its launcher gave it, or torchrun's
+    ``GROUP_RANK``, or 0."""
+    if _HOST is not None:
+        return _HOST
+    return int(os.environ.get("GROUP_RANK", "0"))
+
 
 def init_group(device_type: str, rank: int, world: int,
-               init_method: str = "env://", local_rank: int = -1) -> None:
+               init_method: str = "env://", local_rank: int = -1,
+               host: int = None) -> None:
     """Join the process group of ``world`` ranks as ``rank`` and, on CUDA,
     make ``cuda:local_rank`` (default ``rank % device_count``) this
-    process's device.  CPU workers run one thread each: several ranks share
-    the host's cores."""
+    process's device.  ``host``: this rank's host in a multi-host launch
+    (:func:`host_index`).  CPU workers run one thread each: several ranks
+    share the host's cores."""
+    global _HOST
+    if host is not None:
+        _HOST = host
     kw = {}
     if device_type == "cuda":
         if not torch.cuda.is_available():
@@ -63,7 +107,8 @@ def maybe_initialize(cfg, device_type: str) -> int:
     """Join torchrun's group when its environment is set and no group
     exists yet; returns this process's rank (0 without a group).  The
     group's size must be ``cfg.dp``: a mismatch raises rather than running
-    another data-parallel width than the one asked for."""
+    another data-parallel width than the one asked for (in a multi-host
+    launch too: every host's ranks join the one group of ``cfg.dp``)."""
     if not dist.is_initialized() and torchrun_env():
         init_group(device_type, int(os.environ["RANK"]),
                    int(os.environ["WORLD_SIZE"]),

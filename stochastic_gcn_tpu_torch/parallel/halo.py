@@ -37,7 +37,8 @@ from __future__ import annotations
 
 import torch
 
-from .mesh import Mesh, all_gather_rows, all_to_all, reduce_scatter_rows
+from .mesh import (ROUTED, Mesh, all_gather_rows, all_to_all,
+                   reduce_scatter_rows)
 
 
 class Route:
@@ -46,10 +47,12 @@ class Route:
     0``) grouped by owner rank, the split sizes of both directions and the
     local rows this rank serves to the others.  Building it is collective
     (every rank of the mesh builds its own at the same point); it can then
-    move any number of tables with the same row ownership."""
+    move any number of tables with the same row ownership.  ``count``
+    names the rows in ``mesh.ROUTED``, which adds the live requests this
+    rank owns itself and all of them."""
 
     def __init__(self, ids: torch.Tensor, rows: int, mesh: Mesh,
-                 sentinel: int = -1):
+                 sentinel: int = -1, count: str = None):
         p = mesh.size
         if rows % p:
             raise ValueError(f"{rows} rows do not tile over {p} ranks")
@@ -64,6 +67,10 @@ class Route:
         recv = all_to_all(counts, ones, ones, mesh)
         both = torch.cat([counts, recv]).tolist()      # the host sync
         self.send, self.recv = both[:p], both[p:]
+        if count:
+            got = ROUTED.setdefault(count, [0, 0])
+            got[0] += self.send[mesh.rank]
+            got[1] += sum(self.send)
         self.order = order[:sum(self.send)]
         owned = owner.index_select(0, self.order)
         loc = (flat.index_select(0, self.order) - owned * n_loc).to(
@@ -147,12 +154,13 @@ def row_gather2(local_i: torch.Tensor, local_f: torch.Tensor,
 
 @torch.no_grad()
 def row_scatter(local: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
-                mesh: Mesh, sentinel: int = -1) -> torch.Tensor:
+                mesh: Mesh, sentinel: int = -1,
+                count: str = None) -> torch.Tensor:
     """``table[ids] = rows`` on the row-sharded table whose block ``local``
     this rank holds, in place; ids at or above ``sentinel`` are skipped.
     Of repeated ids one write wins, which one unspecified (the no-dedup
     field layout's documented scatter semantics, training/step.py)."""
-    route = Route(ids, local.shape[0] * mesh.size, mesh, sentinel)
+    route = Route(ids, local.shape[0] * mesh.size, mesh, sentinel, count)
     at, got = route.push(rows.reshape(route.n_req, -1))
     flat = local.view(local.shape[0], -1)
     flat.index_copy_(0, at, got.to(local.dtype))

@@ -21,14 +21,23 @@ adjacency):
   probability proportional to importance (Gumbel top-k); every edge into a
   selected node is kept, reweighted, in ``[F, Dcap]`` slots (or the
   ``is_slot_cap`` heaviest per row); fields are dedup-compacted;
-* either way the output field is a prefix of the input field;
+* either way the output field is a prefix of the input field, except
+  under the owner-aligned layout (``owner_blocks = P > 1``,
+  ``--owner_batching`` under ``--dp P``, :func:`compact_field_aligned`):
+  a field's ``P`` positional blocks hold the ids each rank owns, and
+  ``LayerSample.self_pos`` names the output rows' input positions;
 * sentinel padding: absent slots/nodes use id ``N`` with weight 0.
 
 Every shape is static and nothing waits for the device, so a schedule can
 be captured with the step around it (on one device: a row-sharded graph's
 rows come through owner-routed exchanges, whose split sizes are read on
-the host).  Owner-aligned layouts are not ported yet: the scheduler raises
-where the JAX one would take them.
+the host).
+
+The owner-aligned schedule is the dedup schedule of the same generator
+with its fields reordered (:func:`_align`): the draws are made on the
+classic fields, by classic position, so both layouts sample the same
+edges and only the positions differ, the property the JAX package states
+for its aligned layout (which draws on the aligned positions).
 
 Under data parallelism every rank draws the same global schedule from the
 same seeded generator (a row-sharded graph routes its own reads;
@@ -44,8 +53,7 @@ import numpy as np
 import torch
 
 from ..data.graph import FlatGraph, PaddedGraph, graph_rows, graph_slots
-
-_NOT_PORTED = "not ported yet: see ROADMAP.md, queue 1"
+from ..parallel.mesh import shard_rows
 
 # Position of a weight-masked slot (a sentinel-neighbour pad) under dedup:
 # any value at or above the field capacity.  The gather kernels read such a
@@ -63,11 +71,16 @@ class LayerSample:
       slot_w:   [F_out, k] f32   — rescaled edge weight (0 = masked slot).
       slot_aw:  [F_out, k] f32   — a_uv * w_uv cross-term weights, or None.
       scales:   [F_out] f32      — 1/sqrt(deg/k_eff).
+      self_pos: [F_out] int32    — the input-field position of each output
+                row (sentinel rows parked at :data:`PARKED_POS`) under the
+                owner-aligned layout; None under the prefix layout, where
+                it is ``arange(F_out)``.
     """
     slot_pos: torch.Tensor
     slot_w: torch.Tensor
     slot_aw: Optional[torch.Tensor]
     scales: torch.Tensor
+    self_pos: Optional[torch.Tensor] = None
 
 
 @dataclass(frozen=True)
@@ -379,6 +392,126 @@ def compact_field(field_out: torch.Tensor, new_ids: torch.Tensor,
     return field_in, pos_table
 
 
+def compact_field_aligned(field_out: torch.Tensor, new_ids: torch.Tensor,
+                          num_nodes: int, capacity: int, owner_blocks: int):
+    """Owner-aligned dedup compaction of ``field_out ++ new_ids``
+    (``--owner_batching`` under ``--dp P``, ``P = owner_blocks``).
+
+    The ``capacity`` positions form ``P`` blocks of ``capacity / P``;
+    block ``q`` holds the field's ids that rank ``q`` owns
+    (``parallel/mesh.py::shard_rows``) in ascending id order, so a rank's
+    block of the field, and of everything laid out on its positions (the
+    history rows it writes, the rows its slots read), is mostly its own
+    rows.  Ids past their owner's block spill, in ascending order, into
+    the free slots of the blocks in order, so the field holds the same id
+    set as :func:`compact_field`'s; the rest is sentinel padding.  The
+    output field is not a prefix: ``LayerSample.self_pos`` names its
+    rows.  Returns (field_in [capacity] int32, pos_table [N+1] int32),
+    ``pos_table[N]`` and the entries of ids outside the field unspecified.
+
+    The JAX function's arithmetic, op for op: masks and cumsums over the
+    ``N + 1`` ids, and candidate-sized scatters of each id to its slot
+    (duplicates carry the same id to the same slot; a min keeps one)."""
+    n, p = num_nodes, owner_blocks
+    cap_b = capacity // p
+    n_loc = shard_rows(n, p) // p
+    dev = field_out.device
+    # int64 throughout (the values are JAX's int32 ones): indices need no
+    # casts, which are most of this function's launches otherwise
+    cand = torch.cat([field_out.reshape(-1), new_ids.reshape(-1)]).long()
+    present = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    present.index_fill_(0, cand, True)
+    present[n] = False
+    cum = torch.cumsum(present, dim=0)                  # 1-based id ranks
+    # present ids before each ownership block (the last runs to N)
+    edges = torch.arange(n_loc - 1, (p - 1) * n_loc, n_loc,
+                         device=dev).clamp_(max=n)
+    cnt_before = torch.cat([cum.new_zeros(1), cum.index_select(0, edges),
+                            cum[-1:]])                         # [p+1]
+    used_q = torch.clamp(cnt_before.diff(), max=cap_b)
+
+    s = torch.arange(capacity, device=dev)
+    blk = torch.div(s, cap_b, rounding_mode="floor")
+    main_ok = s - blk * cap_b < used_q.index_select(0, blk)
+    # a present candidate with within-block rank rw (1-based) takes slot
+    # owner * cap_b + rw - 1 when rw <= cap_b; the rest go to a spare slot
+    # past the end, cut off
+    is_p = present.index_select(0, cand)
+    own_c = torch.div(cand, n_loc, rounding_mode="floor").clamp_(max=p - 1)
+    rw = cum.index_select(0, cand) - cnt_before.index_select(0, own_c)
+    field_in = torch.full((capacity + 1,), n, dtype=torch.int64, device=dev)
+    field_in.scatter_reduce_(
+        0, torch.where(is_p & (rw <= cap_b), own_c * cap_b + rw - 1,
+                       capacity), cand, reduce="amin")
+
+    # the overflow ids (within-block rank past the block), ascending, into
+    # the free slots, ascending
+    own = torch.div(torch.arange(n + 1, device=dev), n_loc,
+                    rounding_mode="floor").clamp_(max=p - 1)
+    cum_ov = torch.cumsum(present & (cum - cnt_before.index_select(0, own)
+                                     > cap_b), dim=0)
+    free = ~main_ok
+    inv_free = torch.full((capacity + 1,), capacity, dtype=torch.int64,
+                          device=dev)
+    inv_free.scatter_reduce_(
+        0, torch.where(free, torch.cumsum(free, dim=0) - 1, capacity), s,
+        reduce="amin")
+    ov_at = inv_free.index_select(
+        0, (cum_ov.index_select(0, cand) - 1).clamp_(min=0, max=capacity - 1))
+    field_in.scatter_reduce_(
+        0, torch.where(is_p & (rw > cap_b), ov_at, capacity), cand,
+        reduce="amin")
+    field_in = field_in[:capacity]
+    pos_table = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    pos_table.index_copy_(0, field_in, s.to(torch.int32))
+    return field_in.to(torch.int32), pos_table
+
+
+def _align(pack: BatchFields, num_nodes: int,
+           owner_blocks: int) -> BatchFields:
+    """The owner-aligned layout of a dedup schedule: top-down, each input
+    field re-compacted by :func:`compact_field_aligned` from the same id
+    set, each layer's rows taken in the order of its (aligned) output
+    field, its live slots pointed at their neighbours' aligned positions
+    and ``self_pos`` set; weight-0 slots and sentinel output rows park at
+    :data:`PARKED_POS`.  A sentinel output row takes one of the schedule's
+    sentinel rows (the two fields hold the same number of them), whose
+    slots are all dead."""
+    n = num_nodes
+    fields = list(pack.fields)
+    layers = list(pack.layers)
+    aligned = fields[-1]
+    for l in range(len(layers) - 1, -1, -1):
+        ls, f_in, f_out = layers[l], fields[l], fields[l + 1]
+        dev = f_out.device
+        classic = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        classic.index_copy_(0, f_out.long(),
+                            torch.arange(f_out.shape[0], device=dev))
+        rows = classic.index_select(0, aligned.long())
+        field_in, pos_table = compact_field_aligned(
+            aligned, f_in, n, f_in.shape[0], owner_blocks)
+        w = ls.slot_w.index_select(0, rows)
+        k = w.shape[1]
+        # the live slots' neighbour ids, then their aligned positions
+        nbr = f_in.index_select(0, ls.slot_pos.index_select(0, rows).clamp(
+            max=f_in.shape[0] - 1).reshape(-1).long())
+        pos = pos_table.index_select(0, nbr.long()).reshape(-1, k)
+        layers[l] = LayerSample(
+            slot_pos=torch.where(w != 0.0, pos, PARKED_POS),
+            slot_w=w,
+            slot_aw=None if ls.slot_aw is None
+            else ls.slot_aw.index_select(0, rows),
+            scales=ls.scales.index_select(0, rows),
+            self_pos=torch.where(aligned < n,
+                                 pos_table.index_select(0, aligned.long()),
+                                 PARKED_POS))
+        fields[l + 1] = aligned
+        aligned = field_in
+    fields[0] = aligned
+    return BatchFields(fields=tuple(fields), layers=tuple(layers),
+                       is_dropped=pack.is_dropped)
+
+
 def schedule(gen: torch.Generator, graph,
              batch_ids: torch.Tensor, degrees: Sequence[int], cv: bool,
              need_aw: bool = False, importance=None, owner_blocks: int = 0,
@@ -398,13 +531,20 @@ def schedule(gen: torch.Generator, graph,
     sampling; ``is_slot_cap`` caps its slots per row (-1: 8 at batch >=
     2048, else 0, no cap); ``importance_rows`` (:func:`importance_row_table`)
     gives its slots' importance by field row.  ``round_multiple`` rounds
-    every field capacity up (the data-parallel width)."""
+    every field capacity up (the data-parallel width).  ``owner_blocks >
+    1`` returns the owner-aligned layout of the dedup schedule
+    (:func:`_align`)."""
     n = graph.num_nodes
     degrees = list(degrees)
     num_layers = len(degrees)
     use_is = importance is not None
     if owner_blocks > 1:
-        raise NotImplementedError(f"owner-aligned fields {_NOT_PORTED}")
+        return _align(schedule(
+            gen, graph, batch_ids, degrees, cv, need_aw, importance,
+            dedup=True, is_approx_topk=is_approx_topk,
+            is_recall_target=is_recall_target, is_slot_cap=is_slot_cap,
+            round_multiple=round_multiple,
+            importance_rows=importance_rows), n, owner_blocks)
     if is_slot_cap < 0:
         # auto: the cap only pays at large batches, where the [F, Dcap]
         # fanout gather dominates the IS step

@@ -27,7 +27,9 @@ a torch artifact can keep it:
   ``config`` (every ``Config`` field), the raw ``feature_dim``, whether the
   first layer takes ``sparse_input``, the features' sparse width, and the
   eval graph's layout (``graph_format``) and statics (``graph_statics``:
-  the tier split; an edge-list graph's degree, budget and truncation).
+  the tier split; an edge-list graph's degree, budget, truncation and
+  ``parts``: a node-sharded edge list is stored whole in its partitioned
+  layout, which one process serves as it is).
 
 The one intended difference: the JAX artifact also holds ``module.shlo``,
 the serialised eval program, which any JAX runtime can call without the
@@ -91,8 +93,14 @@ def _serving_tensors(trainer) -> dict:
         for j, h in enumerate(hl):
             out[f"histories/{l}/{j}"] = whole(h, mesh)
     g = trainer.graph_full
-    out.update({f"graph/{name}": getattr(g, name) if name == "deg"
-                else node_table(getattr(g, name))
+
+    def graph_table(name):
+        t = getattr(g, name)
+        if not g.sharded or name in ("bstart", "deg", "renorm"):
+            return t
+        # a node-sharded edge list's tiles, whole, keep its parts layout
+        return whole(t, mesh) if isinstance(g, FlatGraph) else node_table(t)
+    out.update({f"graph/{name}": graph_table(name)
                 for name in _GRAPH_FIELDS[type(g)][0]})
     feats = trainer.test_features
     if isinstance(feats, PaddedSparseFeatures):
@@ -110,8 +118,8 @@ def _serving_tensors(trainer) -> dict:
 _GRAPH_FIELDS = {
     PaddedGraph: (("nbr", "w", "deg"), ("tier_w", "tier_frac")),
     FlatGraph: (("bstart", "idx", "w", "deg", "renorm"),
-                ("max_degree", "edge_cap_per_row", "tier_w", "tier_frac",
-                 "truncated_frac")),
+                ("max_degree", "edge_cap_per_row", "parts", "tier_w",
+                 "tier_frac", "truncated_frac")),
 }
 _LAYOUTS = {"padded": PaddedGraph, "edgelist": FlatGraph}
 

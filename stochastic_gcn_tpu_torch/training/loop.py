@@ -38,13 +38,14 @@ import scipy.sparse as sp
 import torch
 
 from ..data.graph import (Dataset, FlatGraph, dense_rows, flat_csr, pad_csr,
-                          pad_sparse_features, shard_graph_rows,
-                          shard_table_rows)
+                          pad_sparse_features, shard_flat_graph,
+                          shard_graph_rows, shard_table_rows)
 from ..data.preprocess import (cap_adj_degree, locality_permutation,
                                relabel_dataset)
 from ..models import gcn as M
 from ..parallel import distributed as D
-from ..parallel.mesh import Mesh, make_mesh, row_multiple, shard_rows, whole
+from ..parallel.mesh import (Mesh, make_mesh, owner_grouped_batch_matrix,
+                             row_multiple, shard_rows, whole)
 from ..sampler.scheduler import MinibatchIterator, compute_importance
 from ..utils.metrics import Stat, f1_from_counts
 from . import step as S
@@ -89,16 +90,14 @@ def _refuse_unported(cfg) -> None:
     if cfg.dp > 1 and (cfg.batch_size % cfg.dp
                        or cfg.test_batch_size % cfg.dp):
         raise ValueError("batch sizes must divide --dp")
+    if cfg.dp % max(cfg.dp_hosts, 1):
+        raise ValueError(f"--dp {cfg.dp} does not tile over --dp_hosts "
+                         f"{cfg.dp_hosts} hosts")
+    if cfg.num_processes > 1 and not cfg.coordinator:
+        raise ValueError(f"--num_processes {cfg.num_processes} hosts need "
+                         "--coordinator host:port")
     unported = {
         "--tp > 1 (the 2-D mesh)": cfg.tp > 1,
-        "--owner_batching with --dp > 1": cfg.owner_batching and cfg.dp > 1,
-        "--dp_hosts > 1 (multi-host)": cfg.dp_hosts > 1,
-        "--coordinator / --num_processes > 1 (multi-host)":
-            bool(cfg.coordinator) or cfg.num_processes > 1,
-        "--graph_format edgelist with --dp > 1 --shard_graph "
-        "(node-sharded edge lists, flat_csr(parts > 1))":
-            cfg.graph_format == "edgelist" and cfg.dp > 1
-            and cfg.shard_graph,
         "--ckpt_async": cfg.ckpt_async,
     }
     asked = [k for k, v in unported.items() if v]
@@ -107,23 +106,33 @@ def _refuse_unported(cfg) -> None:
             f"not ported yet (ROADMAP.md, queue 1): {', '.join(asked)}")
 
 
+def _hosts(cfg) -> int:
+    """The hosts the ranks span: ``--dp_hosts``, or the hosts of a
+    ``--coordinator`` launch (parallel/distributed.py::host_ranks)."""
+    if cfg.coordinator:
+        return D.host_ranks(cfg)[1]
+    return cfg.dp_hosts
+
+
 def _mesh_for(cfg, distributed: Optional[bool]) -> Optional[Mesh]:
     """The Trainer's mesh: the default process group's when there is one
     (``distributed=None``) or when asked for (``True``); its size must be
-    ``cfg.dp``.  None runs on one device, which ``cfg.dp > 1`` never
+    ``cfg.dp``, and its ranks host-major over the hosts of ``cfg``.  None
+    runs on one device, which ``cfg.dp > 1`` or a multi-host launch never
     does."""
     if distributed is None:
         distributed = torch.distributed.is_initialized()
+    hosts = _hosts(cfg)
     if not distributed:
-        if cfg.dp > 1:
-            raise ValueError(f"--dp {cfg.dp} needs a process group of "
-                             f"{cfg.dp} ranks (parallel/launch.py, or "
-                             "torchrun)")
+        if cfg.dp > 1 or hosts > 1 or cfg.coordinator:
+            raise ValueError(f"--dp {cfg.dp} over {hosts} host(s) needs a "
+                             f"process group of {cfg.dp} ranks "
+                             "(parallel/launch.py, or torchrun)")
         return None
     if D.process_count() != cfg.dp:
         raise ValueError(f"--dp {cfg.dp} but the process group has "
                          f"{D.process_count()} ranks")
-    return make_mesh(cfg.shard_graph)
+    return make_mesh(cfg.shard_graph, hosts)
 
 
 class Trainer:
@@ -177,9 +186,13 @@ class Trainer:
             if cfg.use_pallas:
                 raise ValueError("--use_pallas requires the padded graph "
                                  "format")
+            # laid out for node-sharding over the ranks under a sharded
+            # mesh (the tables' tiles are kept in _shard_tables)
+            parts = cfg.dp if (mesh is not None and mesh.shard_graph) else 1
             self.graph_train, self.graph_full = (
-                flat_csr(adj, cfg.fadj_edge_mult, tier=cfg.fadj_tier,
-                         tier_w=cfg.fadj_tier_w, device=device)
+                flat_csr(adj, cfg.fadj_edge_mult, parts=parts,
+                         tier=cfg.fadj_tier, tier_w=cfg.fadj_tier_w,
+                         device=device)
                 for adj in (train_adj, full_adj))
         else:
             # each graph padded to its own true (post-cap) max degree
@@ -256,16 +269,14 @@ class Trainer:
         self._prev_sig_handlers: list = []
 
     def _shard_tables(self, mesh: Mesh) -> None:
-        """Keep this rank's row block of the padded graphs, the feature
-        tables and the labels (``--shard_graph``); the whole tables go.
-        Importance is computed from the whole graphs first."""
+        """Keep this rank's row block of the padded graphs (of an edge
+        list, its tile of the block tables), the feature tables and the
+        labels (``--shard_graph``); the whole tables go.  Importance is
+        computed from the whole graphs first."""
         rows = shard_rows(self.ds.num_data, mesh.size)
-        if isinstance(self.graph_train, FlatGraph):
-            raise NotImplementedError(
-                "node-sharded edge lists (flat_csr(parts > 1)) are not "
-                "ported yet (ROADMAP.md, queue 1): use --noshard_graph")
         self.graph_train, self.graph_full = (
-            shard_graph_rows(g, mesh, rows)
+            shard_flat_graph(g, mesh) if isinstance(g, FlatGraph)
+            else shard_graph_rows(g, mesh, rows)
             for g in (self.graph_train, self.graph_full))
         self.train_features, self.test_features, self.labels = (
             shard_table_rows(t, mesh, rows) for t in (
@@ -314,6 +325,16 @@ class Trainer:
         out[:len(ids)] = ids
         return out.reshape(s, batch_size)
 
+    def _epoch_matrix(self, ids, batch_size: int) -> np.ndarray:
+        """The batch matrix of a train or evaluation epoch: owner-grouped
+        under ``--owner_batching`` on a mesh
+        (parallel/mesh.py::owner_grouped_batch_matrix), in order
+        otherwise."""
+        if self.cfg.owner_batching and self.mesh is not None:
+            return owner_grouped_batch_matrix(ids, batch_size,
+                                              self.ds.num_data, self.cfg.dp)
+        return self._batch_matrix(ids, batch_size, self.ds.num_data)
+
     def train_epoch(self):
         """One epoch over the shuffled train ids (train.py:181-209).  The
         loss and accuracy are the LAST minibatch's, as in the reference's
@@ -321,8 +342,7 @@ class Trainer:
         cfg = self.cfg
         self.train_iter.shuffle()
         t0 = time.time()
-        bm = self._batch_matrix(self.train_iter.data, cfg.batch_size,
-                                self.ds.num_data)
+        bm = self._epoch_matrix(self.train_iter.data, cfg.batch_size)
         self.state, metrics = self._train_epoch(
             self.state, self.graph_train, self.train_features, self.labels,
             torch.from_numpy(bm).to(self.device), self.gen,
@@ -361,9 +381,10 @@ class Trainer:
                                 adj_sizes=adj_sizes, fadj_sizes=fadj_sizes,
                                 is_dropped=int(is_dropped))
 
-    def _run(self, epoch, data_ids):
-        bm = self._batch_matrix(data_ids, self.cfg.test_batch_size,
-                                self.ds.num_data)
+    def _run(self, epoch, data_ids, owner_grouped: bool = False):
+        bm = self._epoch_matrix(data_ids, self.cfg.test_batch_size) \
+            if owner_grouped else self._batch_matrix(
+                data_ids, self.cfg.test_batch_size, self.ds.num_data)
         with torch.no_grad():
             self.eval_histories, out = epoch(
                 self._eval_params(), self.eval_histories, self.graph_full,
@@ -377,7 +398,7 @@ class Trainer:
         histories.  Returns (loss, accuracy, micro F1, macro F1, seconds)."""
         t0 = time.time()
         data_ids = np.asarray(self._to_internal(data_ids), np.int32)
-        out = self._run(self._eval_epoch, data_ids)
+        out = self._run(self._eval_epoch, data_ids, owner_grouped=True)
         nvalid = out["nvalid"].cpu().numpy()
         total_loss = float((out["losses"].cpu().numpy() * nvalid).sum()
                            / len(data_ids))
@@ -480,9 +501,11 @@ class Trainer:
         and ``full_grad_stdev``."""
         cfg, n = self.cfg, self.ds.num_data
         log = self._log(log)
-        batch = torch.from_numpy(self._batch_matrix(
+        # under --owner_batching the train step sees owner-grouped batches:
+        # the instrument measures through the same layout
+        batch = torch.from_numpy(self._epoch_matrix(
             self._to_internal(self.ds.train_d[:cfg.batch_size]),
-            cfg.batch_size, n)[0]).to(self.device)
+            cfg.batch_size)[0]).to(self.device)
         full_fn = S.build_pred_and_grad(cfg, self.test_spec,
                                         self.test_degrees, n, False,
                                         self.mesh)

@@ -21,6 +21,10 @@ the gradients ``all_reduce``d (summed) over the ranks are those of the
 global loss, and every rank applies the same Adam update to its copy of
 the params.  Histories are row-sharded and written through the
 owner-routed scatter; the metrics every step returns are the global ones.
+With ``cfg.owner_batching`` the schedules of the train step, the eval
+epoch, pred-and-grad and the activation taps take the owner-aligned field
+layout (``owner_blocks = cfg.dp``, sampler/scheduler.py), so a rank's
+block of every field, and the history rows it writes, are mostly its own.
 """
 
 from __future__ import annotations
@@ -159,7 +163,8 @@ def scatter_histories(histories, new_histories, fields, num_nodes: int,
         if mesh is not None:
             ids = mesh.local(field_l)
             for h, nh in zip(hist_l, new_l):
-                halo.row_scatter(h, ids, nh, mesh, sentinel=num_nodes)
+                halo.row_scatter(h, ids, nh, mesh, sentinel=num_nodes,
+                                 count="history writes")
             continue
         ids = field_l.to(torch.int64)
         for h, nh in zip(hist_l, new_l):
@@ -248,7 +253,8 @@ def _batch_stats(pack: BatchFields, graph, num_nodes: int, cv: bool):
 
 def _schedule(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...], graph,
               batch_ids: torch.Tensor, gen: torch.Generator, importance,
-              train_mode: bool, importance_rows=None) -> BatchFields:
+              train_mode: bool, importance_rows=None,
+              mesh=None) -> BatchFields:
     """The schedule of every step: one place for the sampling semantics of
     training (``cfg.importance`` with ``cfg.is_slot_cap``) and of
     evaluation, prediction and the eval side of pred-and-grad
@@ -256,7 +262,8 @@ def _schedule(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...], graph,
     so inference keeps every edge into a selected node).  ``importance``
     is the ``[N+1]`` table, needed only when the mode samples by it;
     ``importance_rows`` the ``--is_row_table`` table of it.  Fields are
-    rounded to a multiple of ``cfg.dp``."""
+    rounded to a multiple of ``cfg.dp``, and owner-aligned under a
+    ``mesh`` with ``cfg.owner_batching``."""
     use_is = cfg.importance if train_mode else cfg.test_importance
     if use_is and importance is None:
         raise ValueError("importance sampling needs the importance table")
@@ -269,7 +276,9 @@ def _schedule(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...], graph,
                     is_slot_cap=(cfg.is_slot_cap if train_mode
                                  else max(cfg.is_slot_cap, 0)),
                     round_multiple=cfg.dp,
-                    importance_rows=importance_rows if use_is else None)
+                    importance_rows=importance_rows if use_is else None,
+                    owner_blocks=cfg.dp if (cfg.owner_batching
+                                            and mesh is not None) else 0)
 
 
 def _row_table(cfg, graph, importance, use_is: bool):
@@ -305,7 +314,7 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
         if pack is None:
             pack = _schedule(cfg, spec, degrees, graph, batch_ids, gen,
                              importance, train_mode=True,
-                             importance_rows=importance_rows)
+                             importance_rows=importance_rows, mesh=mesh)
         b = _Batch(pack, labels, num_nodes, mesh)
 
         keys = param_keys(state.params)
@@ -420,7 +429,7 @@ def build_eval_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                   gen, importance, rows):
         pack = _schedule(cfg, spec, degrees, graph, batch_ids, gen,
                          importance, train_mode=False,
-                         importance_rows=rows)
+                         importance_rows=rows, mesh=mesh)
         b = _Batch(pack, labels, num_nodes, mesh)
         logits, new_h = M.forward(params, spec, pack, graph, histories,
                                   features, gen, cfg.keep_prob, train=False,
@@ -468,7 +477,7 @@ def build_pred_and_grad(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
     def _run(params, histories, graph, features, labels, batch_ids, gen,
              importance=None):
         pack = _schedule(cfg, spec, degrees, graph, batch_ids, gen,
-                         importance, train_mode)
+                         importance, train_mode, mesh=mesh)
         b = _Batch(pack, labels, num_nodes, mesh)
         first = M.first_param_layer(spec)
         params = {l: {n: t.detach() for n, t in p.items()}
@@ -498,7 +507,7 @@ def make_activation_taps(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
     def _run(params, histories, graph, features, labels, batch_ids, gen,
              importance=None):
         pack = _schedule(cfg, spec, degrees, graph, batch_ids, gen,
-                         importance, train_mode)
+                         importance, train_mode, mesh=mesh)
         taps: list = []
         M.forward(params, spec, pack, graph, histories, features, gen,
                   cfg.keep_prob, train=train_mode, taps=taps, mesh=mesh)

@@ -129,8 +129,11 @@ def test_flat_csr_explicit_tier_width_matches_jax(adj):
 
 
 def test_flat_csr_parts_raises(adj):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        G.flat_csr(adj, parts=2)
+    """``parts > 1`` is ported (tests/test_torch_parallel_data.py holds it
+    against JAX); a partition count below 1 raises."""
+    with pytest.raises(ValueError, match="partition count"):
+        G.flat_csr(adj, parts=0)
+    assert G.flat_csr(adj, 1e9, parts=2).parts == 2
 
 
 @pytest.mark.parametrize("width, start", [(None, 0), (24, 0), (40, 16)])

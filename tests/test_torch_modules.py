@@ -334,9 +334,16 @@ def test_schedule_shapes_match_jax(small):
         cv=True)
     assert [tuple(f.shape) for f in dedup.fields] == \
         [f.shape for f in want.fields]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.schedule(torch.Generator(), tg, T(batch), (1,), cv=True,
-                   owner_blocks=2)
+    # the owner-aligned layout: dedup capacities, and self_pos
+    aligned = S.schedule(torch.Generator(), tg, T(batch), (1, 1), cv=True,
+                         owner_blocks=2, round_multiple=2)
+    want = JS.schedule(jax.random.PRNGKey(0), jg,
+                       jnp.asarray(batch, jnp.int32), (1, 1), cv=True,
+                       owner_blocks=2, round_multiple=2)
+    assert [tuple(f.shape) for f in aligned.fields] == \
+        [f.shape for f in want.fields]
+    for ls, jls in zip(aligned.layers, want.layers):
+        assert tuple(ls.self_pos.shape) == jls.self_pos.shape
 
 
 def _history(rng, rows, d):

@@ -7,7 +7,14 @@ dropout masks and Gaussian noise, seeded by the whole tensor's shape as in
 test_torch_estimators.py's ``shared_noise`` (each rank takes its rows).
 After 3 steps each step's loss, the params and the histories must match to
 rtol 1e-4 / atol 1e-6, for CV+PP, CVD+PP, Exact and det-dropout+PP (float32
-histories, so the tolerance is not a bfloat16 rounding step)."""
+histories, so the tolerance is not a bfloat16 rounding step).
+
+Under ``--owner_batching`` the field layout depends on the width, so the
+JAX step runs on the first 2 virtual devices (dp=2, owner-aligned packs
+from ``JS.schedule(owner_blocks=2)`` of owner-grouped batches) against the
+port's dp=2 step: the losses, the params, the Adam first moments (a
+decaying sum of the gradients) and the histories within rtol 1e-5 / atol
+1e-6."""
 
 import dataclasses
 
@@ -23,6 +30,7 @@ from stochastic_gcn_tpu.data import graph as JG
 from stochastic_gcn_tpu.data import loaders as JLd
 from stochastic_gcn_tpu.models import gcn as JM
 from stochastic_gcn_tpu.ops import layers as JL
+from stochastic_gcn_tpu.parallel import mesh as JMesh
 from stochastic_gcn_tpu.parallel.mesh import (_halo_spec, data_shardings,
                                               make_mesh, state_shardings)
 from stochastic_gcn_tpu.sampler import scheduler as JS
@@ -32,6 +40,7 @@ from stochastic_gcn_tpu_torch.parallel import checks, launch
 
 N_NODES, WIDTH, STEPS, JAX_DP, PORT_DP = 240, 30, 3, 8, 2
 TOL = dict(rtol=1e-4, atol=1e-6)
+OWNER_TOL = dict(rtol=1e-5, atol=1e-6)
 ESTIMATORS = {
     "cv_pp": dict(cv=True, test_cv=True, degree=2, field_dedup=True),
     "cvd_pp": dict(cv=True, cvd=True, test_cv=True, test_cvd=True, degree=2,
@@ -72,15 +81,16 @@ def jax_noise(monkeypatch):
                                 tuple(shape)).astype(np.float32)))
 
 
-def _jax_run(name, ds, jg, feats, out):
-    """Three JAX dp=8 steps; their inputs go to ``out`` for the port."""
-    cfg = _cfg(name)
+def _jax_run(name, ds, jg, feats, out, dp=JAX_DP, owner=False):
+    """Three JAX steps at width ``dp`` (owner-aligned with ``owner``);
+    their inputs go to ``out`` for the port."""
+    cfg = _cfg(name).replace(dp=dp, owner_batching=owner)
     n = ds.num_data
     spec = JM.build_model_spec(cfg, ds.feature_dim, ds.num_classes,
                                cfg.preprocess, cfg.cv, cfg.cvd)
     degrees = (cfg.degree,) * spec.num_agg_layers
     rng = np.random.default_rng(49)
-    rows = -(-(n + 1) // JAX_DP) * JAX_DP
+    rows = JMesh.shard_rows(n, dp)
     hists = tuple(tuple(
         (np.abs(rng.normal(size=(rows, d))) * 0.3 if j == 1
          else rng.normal(size=(rows, d))).astype(np.float32)
@@ -99,9 +109,13 @@ def _jax_run(name, ds, jg, feats, out):
     for s in range(STEPS):
         batch = np.r_[rng.choice(ds.train_d, 28, replace=False),
                       [n] * 4].astype(np.int32)
+        if owner:
+            batch = JMesh.owner_grouped_batch_matrix(batch[:28], 32, n,
+                                                     dp)[0]
         pack = JS.schedule(jax.random.PRNGKey(3 + s), jg, jnp.asarray(batch),
                            degrees, cv=cfg.cv, need_aw=cfg.det_dropout,
-                           round_multiple=JAX_DP, dedup=cfg.field_dedup)
+                           round_multiple=dp, dedup=cfg.field_dedup,
+                           owner_blocks=dp if owner else 0)
         packs.append(pack)
         for i, f in enumerate(pack.fields):
             arrays[f"s{s}:field{i}"] = np.asarray(f)
@@ -111,16 +125,18 @@ def _jax_run(name, ds, jg, feats, out):
             arrays[f"s{s}:scales{l}"] = np.asarray(ls.scales)
             if ls.slot_aw is not None:
                 arrays[f"s{s}:aw{l}"] = np.asarray(ls.slot_aw)
+            if ls.self_pos is not None:
+                arrays[f"s{s}:self{l}"] = np.asarray(ls.self_pos)
     np.savez(out, **arrays)
 
-    mesh = make_mesh(JAX_DP)
+    mesh = make_mesh(dp)
     state = JStep.TrainState(
         params=params, opt_state=JStep.make_optimizer(cfg).init(params),
         histories=jax.tree_util.tree_map(jnp.asarray, hists),
         step=jnp.zeros((), jnp.int32))
-    data = (JG.pad_graph_rows(jg, JAX_DP),
-            JG.pad_table_rows(jnp.asarray(feats), JAX_DP),
-            JG.pad_table_rows(JG.dense_rows(ds.labels, n), JAX_DP))
+    data = (JG.pad_graph_rows(jg, dp),
+            JG.pad_table_rows(jnp.asarray(feats), dp),
+            JG.pad_table_rows(JG.dense_rows(ds.labels, n), dp))
     inner = JStep.build_train_step(cfg, spec, degrees, n,
                                    mesh=_halo_spec(cfg, mesh))
     repl = NamedSharding(mesh, P())
@@ -149,27 +165,44 @@ def dataset():
     return ds, JG.pad_csr(ds.train_adj)
 
 
-@pytest.mark.parametrize("name", list(ESTIMATORS))
-def test_port_dp2_step_matches_jax_dp8(dataset, jax_noise, tmp_path, name):
+def _port_against_jax(dataset, tmp_path, name, dp, owner, tol):
     ds, jg = dataset
     n = ds.num_data
     cfg = _cfg(name)
     feats = (np.hstack((ds.feats, ds.train_feats)) if cfg.preprocess
              else ds.feats).astype(np.float32)
     feats = np.asarray(JG.dense_rows(feats, n))
-    cfg, losses, jstate = _jax_run(name, ds, jg, feats, tmp_path / "in.npz")
+    cfg, losses, jstate = _jax_run(name, ds, jg, feats, tmp_path / "in.npz",
+                                   dp, owner)
     fields = {**dataclasses.asdict(cfg), "dp": PORT_DP}
     launch.spawn(checks.train_steps, PORT_DP,
                  (str(tmp_path / "in.npz"), str(tmp_path / "out.npz"),
                   fields), "cpu", store_dir=str(tmp_path))
     got = np.load(tmp_path / "out.npz")
     np.testing.assert_allclose([float(got[f"loss{s}"]) for s in range(STEPS)],
-                               losses, **TOL)
+                               losses, **tol)
     for l, p in jstate.params.items():
         for k, v in p.items():
             np.testing.assert_allclose(got[f"param:{l}/{k}"], np.asarray(v),
-                                       **TOL)
+                                       **tol)
+            mu = jstate.opt_state[0].mu[l][k]
+            np.testing.assert_allclose(got[f"mu:{l}/{k}"], np.asarray(mu),
+                                       **tol)
     for l, hl in enumerate(jstate.histories):
         for j, h in enumerate(hl):
             np.testing.assert_allclose(got[f"hist:{l}/{j}"], np.asarray(h),
-                                       **TOL)
+                                       **tol)
+
+
+@pytest.mark.parametrize("name", list(ESTIMATORS))
+def test_port_dp2_step_matches_jax_dp8(dataset, jax_noise, tmp_path, name):
+    _port_against_jax(dataset, tmp_path, name, JAX_DP, False, TOL)
+
+
+@pytest.mark.parametrize("name", ["cv_pp", "cvd_pp"])
+def test_port_owner_batched_dp2_step_matches_jax(dataset, jax_noise,
+                                                 tmp_path, name):
+    """``--dp 2 --owner_batching``: the port's step on JAX's owner-aligned
+    packs (``self_pos`` set, fields not prefixes) equals JAX's dp=2
+    owner-batched step."""
+    _port_against_jax(dataset, tmp_path, name, PORT_DP, True, OWNER_TOL)

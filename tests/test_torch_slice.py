@@ -152,11 +152,14 @@ def test_cuda_trainer_without_cuda_raises(trained):
 def test_unported_options_raise(trained):
     """What is still refused names ROADMAP.md; ``--dp 2`` is ported and
     needs a process group of two ranks, so without one it raises rather
-    than training on one device."""
+    than training on one device; ``--dp_hosts 2`` is ported and does not
+    tile ``--dp 1``."""
     cfg, ds, _, _ = trained
-    for over in ({"tp": 2}, {"dp_hosts": 2}, {"ckpt_async": True}):
+    for over in ({"tp": 2}, {"ckpt_async": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(port_cfg(cfg.replace(**over)), ds, device="cpu")
+    with pytest.raises(ValueError, match="hosts"):
+        Trainer(port_cfg(cfg.replace(dp_hosts=2)), ds, device="cpu")
     with pytest.raises(ValueError, match="process group"):
         Trainer(port_cfg(cfg.replace(dp=2, batch_size=cfg.batch_size * 2,
                                      test_batch_size=cfg.test_batch_size

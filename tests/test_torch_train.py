@@ -710,14 +710,22 @@ def test_cli_train_end_to_end(tmp_path, capsys):
     {"coordinator": "localhost:1234"}, {"num_processes": 2},
     {"graph_format": "edgelist", "dp": 2, "shard_graph": True}])
 def test_unported_training_options_raise(tmp_path, over):
-    """The options still to port (ROADMAP.md, queue 1) raise and name it;
-    ``--is_row_table``, ``--partition_nodes`` and ``--dp`` are ported."""
+    """The options still to port (ROADMAP.md, queue 1: ``--tp > 1``,
+    ``--ckpt_async``) raise and name it.  The multi-device options of the
+    data axis are ported (``--owner_batching``, the node-sharded edge
+    list, the multi-host launch): a Trainer built with them outside the
+    process group they need raises ValueError rather than training on one
+    device, as ``--dp 2`` does."""
     cfg = _flags(tmp_path)
     if over.get("dp", 1) > 1:
         cfg = cfg.replace(batch_size=cfg.batch_size * 2,
                           test_batch_size=cfg.test_batch_size * 2)
     ds = Ld.load_data(port_cfg(cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if "tp" in over or "ckpt_async" in over:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(port_cfg(cfg.replace(**over)), ds, device="cpu")
+        return
+    with pytest.raises(ValueError, match="process group|hosts"):
         Trainer(port_cfg(cfg.replace(**over)), ds, device="cpu")
 
 
