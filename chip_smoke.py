@@ -63,7 +63,13 @@ Phases, one or more lines each:
    layer's sampled slots, the train graph's full rows, the trained bf16
    history), held against their plain versions and timed as in phase 3;
    these times are the kernels JSON line's for the three kernels a train
-   step launches.  Then a ``torch.profiler``
+   step launches.  Then the four kernels at the column widths a rank of
+   ``--tp 2`` gives them (``phase_tp_kernels``: d = 64, a rank's block of
+   the trained bf16 train and f32 eval histories, and d = 256, hidden
+   512's block, seeded), on the same real batches, held and timed the same
+   way (``tp_cases`` in the kernels line); then ``Trainer.save()`` timed,
+   compressed and not, as a share of a ``--ckpt_every`` cycle
+   (``phase_save``).  Then a ``torch.profiler``
    window of 10 more steps: the top device ops, kernels per step and the
    device's busy share.
 5. slice — the serving path from the trained weights (test batch 2048):
@@ -185,7 +191,14 @@ Phases, one or more lines each:
    launch (two hosts of two ranks on four cards, one host of one rank on
    one card) through a TCP store, which must agree.  At an even world the
    ranks are declared as two hosts, and the collective bytes split into
-   those that stay on a host and those that cross.
+   those that stay on a host and those that cross.  Then the tp arm
+   (``phase_tp``; it needs two cards, and one card says so and runs none):
+   at world 4 dp 2 x tp 2 and dp 4 in one group and dp 2 in a group of its
+   own, at world 2 dp 1 x tp 2 and dp 2 against one process: the first
+   ``DP_HELD_STEPS`` losses held, ms/step in turns at hidden 128 and 512,
+   collective bytes with the model group's apart, a 10-step profile, the
+   save of the tp Trainer timed, and a Polyak arm whose checkpoint a fresh
+   tp Trainer and one process serve.
 
 The line before the last is a JSON object describing the kernels (times in
 device ms per call on real batches of the path that launches the kernel,
@@ -295,6 +308,7 @@ SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's ~2 GHz SM clock
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 SPLITS = (1, 2, 4, 8)        # warps per output row of the split kernel
+SPLIT_MAX_ROW_BYTES = 512    # the widest rows the split kernel takes
 # widths the kernels take by element: raw Reddit-shaped features, one
 # column, one column past 128 chunks, Cora's features
 WIDE_WIDTHS = (602, 1, 513, 1433)
@@ -409,6 +423,11 @@ LAZY_LAUNCHES = {
 # 0.9466 in 15; the card must reach CONVERGE_F1 in CONVERGE_EPOCHS
 LAZY_REFERENCE = {"first_epoch": 7, "best": 0.9466}
 EMA_ALPHA = 0.3
+# tensor parallelism: the column widths a kernel gets on one rank of --tp 2
+TP_KERNEL_WIDTHS = {64: "hidden 128 over 2 model ranks",
+                    256: "hidden 512 over 2 model ranks"}
+SAVE_REPEATS = 2
+CKPT_EVERY = (1, 10)         # epochs a --ckpt_every cycle the save joins
 
 
 def kernel_bytes(kind: str, live_rows: float, row_bytes: int, f: int,
@@ -1400,6 +1419,138 @@ def phase_train_kernels(tr: Trainer, results: dict, batches: int = 4,
                      library=_library_gather), main=True)
     _gather_splits(f"train batch: bf16 history F={f} K={k_full}", hist,
                      full)
+
+
+def _tp_case(results: dict, kname: str, case: str, res: dict) -> None:
+    """Print a tensor-parallel width case and keep it under ``tp_cases``
+    of the kernels JSON line."""
+    _report(results, kname, case, res)
+    results[kname].setdefault("tp_cases", []).append({
+        "case": case, **{k: res.get(k) for k in
+                         ("max_abs_err", *MAIN_KEYS, "library")}})
+
+
+def phase_tp_kernels(tr: Trainer, results: dict, batches: int = 4,
+                     seed: int = 3) -> None:
+    """The four kernels at the column widths tensor parallelism gives them
+    on one rank of ``--tp 2`` (``TP_KERNEL_WIDTHS``): the recipe's hidden
+    128 as 64-column blocks, and hidden 512 as 256-column blocks, on the
+    slots of ``batches`` real scheduled batches of the one-process recipe
+    (the layer's sampled slots, the train graph's full rows).  The tables
+    at d = 64 are a rank's block of the trained histories: the first 64
+    columns of the bf16 train history (128-byte rows) and of the f32 eval
+    history (256-byte rows, serving's); at d = 256 seeded tables of the
+    same rows, bf16 and f32.  Each case held against its plain version and
+    timed as in phase 3 (bound, plain version, library call), the full
+    term with every split where its rows allow one (the split kernel takes
+    rows of up to ``SPLIT_MAX_ROW_BYTES``); the cases go into the kernels
+    JSON line under ``tp_cases``."""
+    bs, n, dev = tr.cfg.batch_size, tr.ds.num_data, tr.device
+    bm = torch.from_numpy(tr._batch_matrix(
+        tr.train_iter.data[:batches * bs], bs, n)).to(dev)
+    packs = [schedule(tr.gen, tr.graph_train, ids, tr.train_degrees, True,
+                      dedup=tr.cfg.field_dedup) for ids in bm]
+    c, f = packs[0].fields[0].shape[0], packs[0].fields[1].shape[0]
+    slots = [(p.layers[0].slot_pos, p.layers[0].slot_w) for p in packs]
+    full = [graph_rows(tr.graph_train, p.fields[1])[:2] for p in packs]
+    k_fan, k_full = slots[0][0].shape[1], full[0][0].shape[1]
+    rng = np.random.default_rng(seed)
+    rows = tr.state.histories[0][0].shape[0]
+    wide = torch.from_numpy(rng.standard_normal(
+        (rows, 256), dtype=np.float32)).to(dev)
+    tables = {64: (tr.state.histories[0][0][:, :64].contiguous(),
+                   tr.eval_histories[0][0][:, :64].contiguous(),
+                   "a rank's block of the trained"),
+              256: (wide.to(torch.bfloat16), wide, "seeded")}
+    kernel, ref, replaced = _cv_calls(n)
+    for d, (train_h, eval_h, source) in tables.items():
+        tag = f"tp width d={d} ({TP_KERNEL_WIDTHS[d]}), train batch"
+        acts = torch.from_numpy(rng.standard_normal(
+            (c, d), dtype=np.float32)).to(dev)
+        g = torch.from_numpy(rng.standard_normal(
+            (f, d), dtype=np.float32)).to(dev)
+        x = row_gather(train_h, packs[0].fields[0], sentinel=n).float()
+        for hist, kind in ((train_h, "train"), (eval_h, "eval")):
+            dt = str(hist.dtype)[6:]
+            cv_sets = [(pos, w, acts, p.fields[0],
+                        K.hbm_gather_aggregate(hist, *fr))
+                       for (pos, w), p, fr in zip(slots, packs, full)]
+            _tp_case(results, "cv_fanout_aggregate",
+                     f"{tag}: {source} {dt} {kind} history "
+                     f"{list(hist.shape)} C={c} F={f} K={k_fan}",
+                     _compare(f"cv fanout tp d={d} {kind}", kernel, ref,
+                              hist, cv_sets, True, kind="cv", rows=c,
+                              sentinel=n, library=NO_LIBRARY_CV,
+                              replaced=replaced))
+            _tp_case(results, "hbm_gather_aggregate",
+                     f"{tag}: {source} {dt} {kind} history "
+                     f"{list(hist.shape)} F={f} K={k_full}",
+                     _compare(f"full term tp d={d} {kind}",
+                              K.hbm_gather_aggregate,
+                              K.hbm_gather_aggregate_ref, hist, full, True,
+                              library=_library_gather))
+            label = f"{tag}: {dt} {kind} history d={d} F={f} K={k_full}"
+            if d * hist.element_size() <= SPLIT_MAX_ROW_BYTES:
+                _gather_splits(label, hist, full)
+            else:
+                print(f"kernels: splits, {label}: rows of "
+                      f"{d * hist.element_size()} bytes, past the split "
+                      f"kernel's {SPLIT_MAX_ROW_BYTES}; the public function "
+                      f"plans split {K.gather_plan(hist, f, k_full)} "
+                      f"(0 = row)")
+        _tp_case(results, "fanout_aggregate",
+                 f"{tag}: f32 C={c} F={f} K={k_fan}",
+                 _compare(f"fanout tp d={d}", K.fanout_aggregate,
+                          K.fanout_aggregate_ref, x, slots, True,
+                          library=_library_gather))
+        _tp_case(results, "fanout_aggregate_backward",
+                 f"{tag}: C={c} F={f} K={k_fan} d={d}",
+                 _compare(f"backward tp d={d}",
+                          lambda g_, p, w: K.fanout_aggregate_backward(
+                              g_, p, w, c),
+                          lambda g_, p, w: K.fanout_aggregate_backward_ref(
+                              g_, p, w, c), g, slots, True, kind="backward",
+                          rows=c, library=_library_backward(c)))
+
+
+def _cycle_shares(save_s: float, epoch_s: float) -> str:
+    """A save of ``save_s`` as a share of a ``--ckpt_every k`` cycle (k
+    epochs of ``epoch_s`` and the save) for each k of ``CKPT_EVERY``."""
+    return ", ".join(f"{100 * save_s / (k * epoch_s + save_s):.1f}% of a "
+                     f"--ckpt_every {k} cycle" for k in CKPT_EVERY)
+
+
+def phase_save(tr: Trainer, repeats: int = SAVE_REPEATS) -> dict:
+    """``Trainer.save()`` of the trained recipe, one process, timed on the
+    host clock (the device-to-host copies, the npz writer and the rename),
+    compressed (the default ``--ckpt_compress``) and not, ``repeats``
+    times each into a temporary directory; each beside the timed epoch's
+    seconds and as a share of a ``--ckpt_every k`` cycle (k epochs and one
+    save) for each k of ``CKPT_EVERY``.  ROADMAP.md queue 1 ports
+    ``--ckpt_async`` only if that share is visible."""
+    epoch_s = tr.epoch_stats["run_t"]
+    cfg = tr.cfg
+    out = {"epoch_s": epoch_s}
+    try:
+        for compress in (True, False):
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_save_") as tmp:
+                tr.cfg = cfg.replace(ckpt_dir=tmp, ckpt_compress=compress)
+                secs = []
+                for _ in range(repeats):
+                    t0 = time.perf_counter()
+                    path = tr.save()
+                    secs.append(time.perf_counter() - t0)
+                size = os.path.getsize(path)
+            out["compressed" if compress else "uncompressed"] = secs
+            print(f"save: Trainer.save() of the Reddit-shaped recipe, one "
+                  f"process, {'compressed' if compress else 'uncompressed'}"
+                  f" npz of {size} bytes: "
+                  f"{', '.join(f'{x:.3f}' for x in secs)} s; the timed "
+                  f"epoch took {epoch_s:.3f} s, so the fastest save is "
+                  f"{_cycle_shares(min(secs), epoch_s)}", flush=True)
+    finally:
+        tr.cfg = cfg
+    return out
 
 
 def phase_profile(tr: Trainer, steps: int = PROFILE_STEPS) -> None:
@@ -3024,6 +3175,15 @@ COORD_FLAGS = ["--dataset", "synthetic:8192:64:8", "--cv", "--test_cv",
                "--batch_size", "256", "--test_batch_size", "1024",
                "--epochs", "2", "--seed", "1"]
 COORD_TIMEOUT = 300
+# the tp arm: held steps in f32 histories and dedup fields (duplicate
+# history writes race on CUDA), timed steps at the recipe and at hidden 512
+TP_HELD = {"history_dtype": "float32", "field_dedup": True}
+TP_HIDDENS = (128, 512)
+TP_WARMUP_STEPS = 16
+TP_TIMED_STEPS = 64
+TP_TIMED_TURNS = (0, 1, 1, 0)    # arm indices: tp, dp, dp, tp
+TP_SAVE_REPEATS = 2
+TP_POLYAK_STEPS = 64
 
 
 def _dp_log(*args) -> None:
@@ -3045,7 +3205,7 @@ def _dp_kernels(tr: Trainer, tag: str = "", seed: int = 2) -> dict:
     ``tag`` prefixes the cases.  Returns ``{kernel: (case, result)}``."""
     from stochastic_gcn_tpu_torch.parallel.mesh import all_gather_rows
     mesh, n = tr.mesh, tr.ds.num_data
-    timing = mesh.rank == 0 and tr.device.type == "cuda"
+    timing = mesh.global_rank == 0 and tr.device.type == "cuda"
     bs = tr.cfg.batch_size
     ids = torch.from_numpy(tr._epoch_matrix(tr.train_iter.data[:bs],
                                             bs)[0]).to(tr.device)
@@ -3327,7 +3487,7 @@ def _dp_profile(label: str, tr: Trainer,
     t0 = time.perf_counter()
     run(bm[:steps])
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    if tr.mesh.rank != 0 or tr.device.type != "cuda":
+    if torch.distributed.get_rank() != 0 or tr.device.type != "cuda":
         run(bm[steps:])
         return
     with profile(activities=[ProfilerActivity.CPU,
@@ -3564,6 +3724,289 @@ def _dp_coordinator(tmp: str, device: str, world: int, hosts: int,
           flush=True)
 
 
+def _tp_steps(label: str, tr: Trainer, steps: int) -> dict:
+    """``steps`` train steps of ``tr``'s shuffled batches, timed on the
+    host clock with one wait for the device at the end, the launch and
+    wire counters reset just before them; launches checked exactly per
+    rank (a tp rank runs each kernel once a step, on its columns)."""
+    from stochastic_gcn_tpu_torch.parallel import mesh as PM
+    dev = tr.device
+    tr.train_iter.shuffle()
+    bm = torch.from_numpy(tr._epoch_matrix(
+        tr.train_iter.data, tr.cfg.batch_size)[:steps]).to(dev)
+    step = St.build_train_step(tr.cfg, tr.train_spec, tr.train_degrees,
+                               tr.ds.num_data, tr.mesh)
+    _sync(dev)
+    K.reset_launches()
+    PM.reset_wire()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    amts = []
+    t0 = time.perf_counter()
+    for ids in bm:
+        tr.state, m = step(tr.state, tr.graph_train, tr.train_features,
+                           tr.labels, ids, tr.gen,
+                           importance=tr.importance_train)
+        amts.append(m["amt_data"])
+    loss = float(m["loss"])
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    where = "one process" if tr.mesh is None else \
+        f"rank {torch.distributed.get_rank()}"
+    check_launches(f"{label} train steps on {where}", launches,
+                   {name: per * len(bm) for name, per in
+                    STEP_LAUNCHES["CV+PP"].items()})
+    if not np.isfinite(loss):
+        fail(f"tp {label}: non-finite training loss {loss}")
+    return dict(steps=len(bm), secs=secs, loss=loss,
+                edges=int(torch.stack(amts).sum()), launches=launches,
+                wire=dict(PM.WIRE), peak_gib=_peak_gib(dev))
+
+
+def _hist_bytes(tr: Trainer) -> int:
+    return sum(h.numel() * h.element_size()
+               for hl in (*tr.state.histories, *tr.eval_histories)
+               for h in hl)
+
+
+def _tp_save(tr: Trainer, out_dir: str) -> list:
+    """``TP_SAVE_REPEATS`` timed ``Trainer.save()`` calls of ``tr`` (every
+    rank gathers, global rank 0 writes; host clock, to the barrier after
+    the write)."""
+    cfg = tr.cfg
+    tr.cfg = cfg.replace(ckpt_dir=os.path.join(out_dir, "tp_save"))
+    secs = []
+    try:
+        for _ in range(TP_SAVE_REPEATS):
+            t0 = time.perf_counter()
+            tr.save()
+            secs.append(time.perf_counter() - t0)
+    finally:
+        tr.cfg = cfg
+    return secs
+
+
+def _tp_polyak(ds, cfg, out_dir: str, device: str) -> dict:
+    """The Polyak arm: ``cfg`` (a tp layout) with ``polyak_decay=0.99`` and
+    dedup fields trains ``TP_POLYAK_STEPS`` steps, evaluates (from
+    ``avg_params``) and predicts ``DP_PREDICT_IDS`` test ids, saves; a
+    fresh tp Trainer loads the checkpoint and predicts them again, and
+    global rank 0 serves it from one process: both within
+    ``DP_PREDICT_ATOL`` of the first prediction."""
+    cfg = cfg.replace(polyak_decay=0.99, field_dedup=True,
+                      ckpt_dir=os.path.join(out_dir, "tp_polyak"))
+    tr = Trainer(cfg, ds, device=device)
+    losses = _epoch_losses(tr, TP_POLYAK_STEPS)
+    ev = tr.evaluate(ds.val_d)
+    avg_gap = max((a - p).abs().max().item() for l in tr.state.params
+                  for a, p in zip(tr.state.avg_params[l].values(),
+                                  tr.state.params[l].values()))
+    ids = ds.test_d[:DP_PREDICT_IDS]
+    pred = tr.predict(ids)
+    tr.save()
+    del tr
+    again = Trainer(cfg, ds, device=device)
+    again.load(load_history=True)
+    err_tp = float(np.abs(again.predict(ids) - pred).max())
+    del again
+    res = {"losses": losses, "val": list(ev[:4]), "avg_gap": avg_gap,
+           "err_tp": err_tp, "err_one": None}
+    if torch.distributed.get_rank() == 0:
+        one = Trainer(cfg.replace(dp=1, tp=1), ds, device=device,
+                      distributed=False)
+        one.load(load_history=True)
+        res["err_one"] = float(np.abs(one.predict(ids) - pred).max())
+        del one
+    torch.distributed.barrier()
+    if not err_tp <= DP_PREDICT_ATOL or not (
+            res["err_one"] is None or res["err_one"] <= DP_PREDICT_ATOL):
+        fail(f"tp Polyak arm: the checkpoint round trip predicts within "
+             f"{err_tp} (tp) and {res['err_one']} (one process)")
+    return res
+
+
+def _tp_rank(out_dir: str, tag: str, device: str, reddit_kw: dict,
+             slice_cfg: dict, arms: dict, extras: bool) -> None:
+    """One rank of a tp-phase group (``phase_tp``): every arm of ``arms``
+    (label: its ``dp`` / ``tp``, whose product is the group's size) on the
+    Reddit-shaped recipe: its first ``DP_HELD_STEPS`` steps with float32
+    histories and dedup fields (the held losses), then at each hidden
+    width of ``TP_HIDDENS`` a warm-up and ``TP_TIMED_STEPS`` timed steps
+    in turns (``TP_TIMED_TURNS`` over the arms), a 10-step profile of each
+    (rank 0 prints it).  With ``extras``: at world 2 the same for one
+    process on rank 0 (``one``), the timing of ``Trainer.save()`` of the
+    first arm at hidden 128, and the Polyak arm (``_tp_polyak``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = torch.distributed.get_rank()
+    world = torch.distributed.get_world_size()
+    ds = reddit_like(**reddit_kw)
+    base = Config(**slice_cfg)
+    res = {"held": {}, "timed": {},
+           "epoch_steps": -(-len(ds.train_d) // base.batch_size)}
+    one = extras and world == 2 and rank == 0
+    for arm, over in arms.items():
+        tr = Trainer(base.replace(**over, **TP_HELD), ds, device=device)
+        res["held"][arm] = _epoch_losses(tr, DP_HELD_STEPS)
+        del tr
+    if one:
+        tr = Trainer(base.replace(**TP_HELD), ds, device=device,
+                     distributed=False)
+        res["held"]["one"] = _epoch_losses(tr, DP_HELD_STEPS)
+        del tr
+    torch.distributed.barrier()
+    first = next(iter(arms))
+    for hidden in TP_HIDDENS:
+        cfg = base.replace(hidden1=hidden)
+        trs = {arm: Trainer(cfg.replace(**over), ds, device=device)
+               for arm, over in arms.items()}
+        got = {arm: {"hist_bytes": _hist_bytes(tr), "secs_turns": []}
+               for arm, tr in trs.items()}
+        for tr in trs.values():
+            _epoch_losses(tr, TP_WARMUP_STEPS)
+        turns = TP_TIMED_TURNS if len(arms) > 1 else (0, 0)
+        for i in turns:
+            arm = list(arms)[i]
+            r = _tp_steps(f"{arm} at hidden {hidden}", trs[arm],
+                          TP_TIMED_STEPS)
+            if "steps" not in got[arm]:
+                got[arm].update(r)
+            got[arm]["secs_turns"].append(r["secs"])
+        for arm, tr in trs.items():
+            _dp_profile(f"{tag} {arm} ({arms[arm]}) at hidden {hidden}", tr)
+        if extras and hidden == TP_HIDDENS[0]:
+            res["save_s"] = _tp_save(trs[first], out_dir)
+        del trs
+        if one:
+            tr = Trainer(cfg, ds, device=device, distributed=False)
+            _epoch_losses(tr, TP_WARMUP_STEPS)
+            got["one"] = {"hist_bytes": _hist_bytes(tr), "secs_turns": []}
+            for _ in range(2):
+                r = _tp_steps(f"one process at hidden {hidden}", tr,
+                              TP_TIMED_STEPS)
+                if "steps" not in got["one"]:
+                    got["one"].update(r)
+                got["one"]["secs_turns"].append(r["secs"])
+            del tr
+        torch.distributed.barrier()
+        res["timed"][str(hidden)] = got
+    if extras:
+        res["polyak"] = _tp_polyak(ds, base.replace(**arms[first]), out_dir,
+                                   device)
+    with open(os.path.join(out_dir, f"{tag}_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _tp_results(out_dir: str, tag: str, world: int) -> list:
+    got = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"{tag}_rank{r}.json")) as f:
+            got.append(json.load(f))
+    return got
+
+
+def phase_tp(device: str = "cuda", world: int = 0, reddit_kw=None,
+             slice_cfg=SLICE_CFG) -> dict:
+    """Tensor parallelism, one NCCL rank per card (NCCL takes one rank per
+    card, so the arm needs two cards at least; at world 1 it says so and
+    nothing runs in its place: the one-card run holds the kernels at the
+    tp widths in ``phase_tp_kernels``).  At world 2: dp 1 x tp 2 and dp 2
+    in one group, against one process on rank 0's card.  At world 4: dp 2
+    x tp 2 and dp 4 in one group (``_tp_rank`` with ``extras``: the save
+    timing and the Polyak arm), then dp 2 on cards 0 and 1 in a group of
+    its own.  Fails unless the tp arm's first ``DP_HELD_STEPS`` losses
+    (float32 histories, dedup fields) agree with each other arm's within
+    ``DP_FIRST_EPOCH_RTOL`` on every rank.  Prints per rank and arm: ms per
+    step in turns, sampled edges/s, collective bytes per step with the
+    model group's apart, history bytes, peak memory and launches per step.
+    Returns rank 0's launches of the tp arm's first timed steps."""
+    from stochastic_gcn_tpu_torch.parallel import launch
+    world = world or torch.cuda.device_count()
+    if world < 2:
+        print(f"tp: the tp arm needs two cards (one NCCL rank per card); "
+              f"this machine has {world}, so no tp arm runs (the kernels "
+              f"at the tp widths are held in the kernels phase)",
+              flush=True)
+        return {}
+    if world % 2:
+        world -= 1
+    reddit_kw = reddit_kw or {}
+    t0 = time.perf_counter()
+    groups = [("tp", world, {"tp": dict(dp=world // 2, tp=2),
+                             "dp": dict(dp=world)}, True)]
+    if world == 4:
+        groups.append(("dp2", 2, {"dp2": dict(dp=2)}, False))
+    ranks = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        for tag, size, arms, extras in groups:
+            launch.spawn(_tp_rank, size, (tmp, tag, device, reddit_kw,
+                                          slice_cfg, arms, extras),
+                         device, store_dir=tmp)
+            ranks[tag] = _tp_results(tmp, tag, size)
+    tp_arm = f"dp {world // 2} x tp 2"
+    labels = {"tp": tp_arm, "dp": f"dp {world}", "dp2": "dp 2 (its own group)",
+              "one": "one process"}
+    for tag, rks in ranks.items():
+        for r, rk in enumerate(rks):
+            held = ranks["tp"][r % world]["held"]
+            for arm, losses in rk["held"].items():
+                if arm == "tp":
+                    continue
+                d = np.abs(np.array(held["tp"]) - np.array(losses)) \
+                    / np.abs(np.array(losses))
+                print(f"tp: held, {tp_arm} against {labels[arm]} on rank "
+                      f"{r}: first {len(losses)} steps (float32 histories, "
+                      f"dedup fields) within {d.max():.3e} (rtol "
+                      f"{DP_FIRST_EPOCH_RTOL})", flush=True)
+                if not d.max() <= DP_FIRST_EPOCH_RTOL:
+                    fail(f"tp: {tp_arm} losses {held['tp']} differ from "
+                         f"{labels[arm]}'s {losses}")
+    for tag, rks in ranks.items():
+        for r, rk in enumerate(rks):
+            for hidden, arms in rk["timed"].items():
+                for arm, a in arms.items():
+                    steps = a["steps"]
+                    turns = ", ".join(f"{1e3 * x / steps:.3f}"
+                                      for x in a["secs_turns"])
+                    wire = {k: round(v / steps) for k, v in a["wire"].items()}
+                    model = wire.pop("model", 0)
+                    launches = a["launches"]
+                    print(f"tp: {labels[arm]}, rank {r} of {len(rks)}, "
+                          f"Reddit-shaped CV+PP at hidden {hidden}, global "
+                          f"batch {slice_cfg['batch_size']}: {turns} ms/step "
+                          f"over {steps} steps (in turns); "
+                          f"{a['edges'] / a['secs']:.0f} sampled edges/s "
+                          f"(global, the first turn); collective bytes per "
+                          f"step: data group {sum(wire.values())} {wire}, "
+                          f"model group {model}; history bytes "
+                          f"{a['hist_bytes']}; peak device memory "
+                          f"{a['peak_gib']:.3f} GiB; launches per step "
+                          f"{ {k: v / steps for k, v in launches.items()} }",
+                          flush=True)
+    main = ranks["tp"][0]
+    secs = main["save_s"]
+    a = main["timed"][str(TP_HIDDENS[0])]["tp"]
+    epoch_s = main["epoch_steps"] * min(a["secs_turns"]) / a["steps"]
+    print(f"tp: Trainer.save() of the {tp_arm} Trainer at hidden "
+          f"{TP_HIDDENS[0]} (the column blocks gathered, rank 0 writing the "
+          f"compressed npz): {', '.join(f'{x:.3f}' for x in secs)} s; an "
+          f"epoch of {main['epoch_steps']} steps at its fastest turn takes "
+          f"{epoch_s:.3f} s, so the fastest save is "
+          f"{_cycle_shares(min(secs), epoch_s)}", flush=True)
+    pk = main["polyak"]
+    print(f"tp: Polyak arm ({tp_arm}, polyak_decay 0.99, dedup fields): "
+          f"{len(pk['losses'])} steps, last loss {pk['losses'][-1]:.5f}; "
+          f"validation from avg_params {pk['val']} (avg_params differ from "
+          f"the params by up to {pk['avg_gap']:.3e}); checkpoint round trip "
+          f"predicts {DP_PREDICT_IDS} test ids within {pk['err_tp']:.3e} "
+          f"(tp) and {pk['err_one']:.3e} (served by one process; atol "
+          f"{DP_PREDICT_ATOL})", flush=True)
+    print(f"tp: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    first = main["timed"][str(TP_HIDDENS[0])]["tp"]
+    return {f"{tp_arm} train steps (rank 0)": first["launches"]}
+
+
 def phase_dp(results: dict, device: str = "cuda", world: int = 0,
              sbm_kw=SBM_KW, reddit_kw=None, slice_cfg=SLICE_CFG,
              converge_cfg=CONVERGE_CFG, target: float = CONVERGE_F1,
@@ -3659,7 +4102,9 @@ def phase_dp(results: dict, device: str = "cuda", world: int = 0,
             for arm in ("plain", "owner", "edgelist")}
     print(f"dp: phase {time.perf_counter() - t0:.1f} s (ranks "
           f"{t_ranks:.1f} s)", flush=True)
-    return {f"dp={world} train epoch (rank 0)": rank0["plain"]["launches"],
+    tp_paths = phase_tp(device, world, reddit_kw, slice_cfg)
+    return {**tp_paths,
+            f"dp={world} train epoch (rank 0)": rank0["plain"]["launches"],
             f"dp={world} owner-batched train epoch (rank 0)":
                 rank0["owner"]["launches"],
             f"dp={world} edge-list steps (rank 0)":
@@ -3706,6 +4151,8 @@ def main(argv=None) -> None:
           f"both of its graphs)")
     tr, launches, steps = phase_train(ds)
     phase_train_kernels(tr, kernels)
+    phase_tp_kernels(tr, kernels)
+    phase_save(tr)
     phase_profile(tr)
     phase_activation_stats(tr)
     served, per_request, art, art_per_request = phase_slice(tr)
@@ -3769,7 +4216,7 @@ def main(argv=None) -> None:
          "sparse_layer_batches": res.get("sparse_layer_batches", {}),
          **{key: res[key] for key in ("fullterm_cases", "tier_wall_ms",
                                       "tier_sweep", "lazy_anchor_ms",
-                                      "dp_case", "dp_owner_case",
+                                      "tp_cases", "dp_case", "dp_owner_case",
                                       "dp_edgelist_case",
                                       "dp_launches_per_step_per_rank")
             if key in res}}

@@ -7,12 +7,30 @@ stack; parameters are ``{layer: {name: Tensor}}`` dicts with the JAX names
 
 The train/eval model distinction is: same params, different ModelSpec
 (cv/cvd/preprocess flags) plus different graph and history.
+
+Tensor parallelism (``--tp T``, a mesh with ``model_size`` T): GSPMD lays
+out the JAX package's tensors; here :func:`column_layout` does, by the
+JAX package's ``param_sharding_rule``: every param layer whose output
+width tiles over T keeps a column block of its weights, offset and scale
+(and of the Adam moments and Polyak average), and its output is that
+column block of the activations; a layer whose output does not tile (the
+head of 41 classes, every layer when ``hidden1 % T``) is whole on every
+model rank.  A dense layer needs its input whole: a column-sharded input
+is all-gathered over the model group first (the gradient reduce-scattered
+back when the layer is sharded, sliced when it is whole), which is what
+GSPMD inserts.  Aggregators work column by column on the blocks, and a
+history takes the layout of its aggregator's input: ``[rows / dp, d /
+T]`` blocks.  The one difference from the JAX layout: a history whose
+input is whole (the raw features of the first aggregator without
+preprocessing) stays whole over the model group, where JAX shards its
+columns too when they tile; a checkpoint holds whole tables either way.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple, Union
+from functools import lru_cache
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -21,7 +39,9 @@ from ..ops import layers as L
 from ..ops.gather import row_gather
 from ..parallel.halo import row_gather as halo_row_gather
 from ..parallel.halo import row_gather2
-from ..parallel.mesh import all_reduce_sum
+from ..parallel.mesh import (Cols, all_gather_rows, all_reduce_max,
+                             all_reduce_sum, gather_cols, model_copy,
+                             tensor_parallel)
 from ..sampler.scheduler import BatchFields
 from . import aggregators as agg
 
@@ -181,6 +201,94 @@ def init_params(gen: torch.Generator, spec: ModelSpec) -> dict:
             for s in spec.specs if isinstance(s, _PARAM_SPECS)}
 
 
+@dataclass(frozen=True)
+class ColumnLayout:
+    """Where the columns of each tensor of a model lie under tensor
+    parallelism of ``tp`` model ranks: ``after[i]`` is the layout of the
+    activations after ``spec.specs[i]`` (None: whole on every model rank),
+    ``params`` that of each param layer's output columns (its weights,
+    offset and scale), ``histories`` that of each aggregator's input, which
+    its history tables share."""
+    tp: int
+    after: tuple
+    params: dict
+    histories: tuple
+
+
+@lru_cache(maxsize=None)
+def column_layout(spec: ModelSpec, tp: int) -> ColumnLayout:
+    """The JAX package's ``param_sharding_rule`` applied to ``spec``: a
+    param layer whose output width tiles over ``tp`` is column-sharded in
+    contiguous blocks, and the columns flow on through dropout and the
+    aggregators (the graphsage concat ``[self ‖ agg]`` holds two disjoint
+    ranges a rank)."""
+    after, params, hist = [], {}, []
+    cols = None
+    for s in spec.specs:
+        if isinstance(s, _PARAM_SPECS):
+            cols = Cols.block(s.output_dim, tp) \
+                if tp > 1 and s.output_dim % tp == 0 else None
+            params[s.name] = cols
+        elif isinstance(s, AggSpec):
+            hist.append(cols)
+            if cols is not None and spec.normalization != "gcn":
+                cols = cols.concat()
+        after.append(cols)
+    return ColumnLayout(tp, tuple(after), params, tuple(hist))
+
+
+def shard_param_tree(tree: dict, spec: ModelSpec, mesh) -> dict:
+    """This rank's columns of a whole ``{layer: {name: [r, out]}}`` tree
+    (params, an Adam moment, the Polyak average); the tree itself without
+    tensor parallelism."""
+    if not tensor_parallel(mesh):
+        return tree
+    lay = column_layout(spec, mesh.model_size)
+    return {l: {n: t if lay.params[l] is None
+                else lay.params[l].take(t, mesh).contiguous()
+                for n, t in p.items()} for l, p in tree.items()}
+
+
+def gather_param_tree(tree: dict, spec: ModelSpec, mesh) -> dict:
+    """The whole tree of this rank's column blocks (every model rank takes
+    part); the tree itself without tensor parallelism."""
+    if not tensor_parallel(mesh):
+        return tree
+    lay = column_layout(spec, mesh.model_size)
+    return {l: {n: t if lay.params[l] is None
+                else gather_cols(t.detach(), lay.params[l], mesh)
+                for n, t in p.items()} for l, p in tree.items()}
+
+
+def whole_histories(histories, spec: ModelSpec, mesh):
+    """The whole ``[R, d]`` tables of this rank's history blocks (rows over
+    the data ranks, columns over the model ranks; every rank takes part);
+    the tables themselves without a mesh."""
+    if mesh is None:
+        return histories
+    lay = column_layout(spec, mesh.model_size) \
+        if tensor_parallel(mesh) else None
+    out = []
+    for l, hl in enumerate(histories):
+        rows = [all_gather_rows(h, mesh) for h in hl]
+        if lay is not None and lay.histories[l] is not None:
+            rows = [gather_cols(h, lay.histories[l], mesh) for h in rows]
+        out.append(tuple(rows))
+    return tuple(out)
+
+
+def history_block(table: torch.Tensor, spec: ModelSpec, l: int, mesh):
+    """This rank's block of a whole history table of aggregator ``l``."""
+    if mesh is None:
+        return table
+    block = mesh.local(table)
+    if tensor_parallel(mesh):
+        cols = column_layout(spec, mesh.model_size).histories[l]
+        if cols is not None:
+            block = cols.take(block, mesh)
+    return block
+
+
 def first_param_layer(spec: ModelSpec) -> str:
     """Name of the first layer carrying variables (the weight-decay
     target)."""
@@ -209,16 +317,23 @@ def init_histories(spec: ModelSpec, num_nodes: int, row_multiple: int = 8,
     """Zero history buffers: per agg layer, 1 (2 for det_dropout) arrays of
     shape [R, d], R = N+1 rounded up to ``row_multiple``; rows past the
     sentinel are never addressed.  With a ``mesh`` (``row_multiple`` a
-    multiple of its size) this rank's ``[R / P, d]`` block of each."""
+    multiple of its size) this rank's ``[R / P, d]`` block of each, and
+    under tensor parallelism its columns of a history whose aggregator
+    input is column-sharded (:func:`column_layout`): ``[R / P, d / T]``."""
     if not spec.cv:
         return tuple()
     rows = -(-(num_nodes + 1) // row_multiple) * row_multiple
+    widths = list(spec.history_dims)
     if mesh is not None:
         rows = mesh.block(rows)[1]
+        if tensor_parallel(mesh):
+            lay = column_layout(spec, mesh.model_size)
+            widths = [d if c is None else d // mesh.model_size
+                      for d, c in zip(widths, lay.histories)]
     return tuple(
         tuple(torch.zeros((rows, d), dtype=dtype, device=device)
               for _ in range(spec.n_history_per_layer))
-        for d in spec.history_dims)
+        for d in widths)
 
 
 # ----------------------------- forward ------------------------------------
@@ -254,17 +369,20 @@ def _densify(h: PaddedSparseFeatures) -> torch.Tensor:
     return dense.index_put_((r, safe), h.val.float(), accumulate=True)
 
 
-def _tap(taps, label: str, h, mesh=None) -> None:
+def _tap(taps, label: str, h, mesh=None, cols=None) -> None:
     """Append ``(label, mean, population std, absmax)`` of ``h`` in float32
     (of the mean stream of a CVD ``(mu, var)`` pair, of the stored values
     of padded-sparse features) to ``taps``, a list the caller owns; None
     taps nothing.  With a ``mesh`` ``h`` is a row block and the moments
-    are those of the whole tensor (sums over the ranks)."""
+    are those of the whole tensor (sums over the ranks); ``cols``: it is
+    also a column block of that layout, gathered first."""
     if taps is None:
         return
     if isinstance(h, PaddedSparseFeatures):
         h = h.val
     x = (h[0] if isinstance(h, tuple) else h).detach().float()
+    if cols is not None:
+        x = gather_cols(x, cols, mesh)
     if mesh is None:
         taps.append((label, x.mean(), torch.std(x, correction=0),
                      x.abs().max()))
@@ -273,8 +391,7 @@ def _tap(taps, label: str, h, mesh=None) -> None:
                          mesh)
     mean = tot[0] / tot[1]
     var = all_reduce_sum((x - mean).square().sum(), mesh) / tot[1]
-    top = x.abs().max()
-    torch.distributed.all_reduce(top, op=torch.distributed.ReduceOp.MAX)
+    top = all_reduce_max(x.abs().max(), mesh)
     taps.append((label, mean, torch.sqrt(var), top))
 
 
@@ -298,8 +415,13 @@ def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
     ``mesh``: data parallelism.  The pack is the global schedule; this rank
     computes its row block of every field (parallel/mesh.py), with its
     history blocks, and returns its block of the logits and of each new
-    history.  Dropout takes this rank's rows of the global draw."""
+    history.  Dropout takes this rank's rows of the global draw.  Under
+    tensor parallelism (``mesh.model_size > 1``) every tensor has the
+    columns :func:`column_layout` gives it, and the logits are whole on
+    every model rank (module docstring)."""
     kp = keep_prob if train else 1.0
+    lay = column_layout(spec, mesh.model_size) \
+        if tensor_parallel(mesh) else None
 
     def rows_of(field):
         # this rank's ids of a field, and its (rows, lo) dropout block
@@ -307,6 +429,12 @@ def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
             return field, None
         lo, m = mesh.block(field.shape[0])
         return field.narrow(0, lo, m), (field.shape[0], lo)
+
+    def draw_block(block, cols, like):
+        # the dropout block of a tensor of layout ``cols``
+        if cols is None or block is None:
+            return block
+        return (*block, cols.width, cols.own(mesh, like.device))
 
     field0, block = rows_of(pack.fields[0])
     h = _slice_inputs(features, field0, graph.num_nodes, mesh)
@@ -318,17 +446,26 @@ def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
         h = _densify(h)
     _tap(taps, "input", h, mesh)
     new_histories = [None] * spec.num_agg_layers
+    cols = None                         # the columns h holds (None: whole)
     for i, s in enumerate(spec.specs):
         if isinstance(s, DropoutSpec):
-            h = L.dropout_layer(gen, h, kp, spec.cvd, block)
-        elif isinstance(s, DenseSpec):
-            h = L.dense(params[s.name], h, L.relu if s.relu else L.identity,
-                        s.norm)
-        elif isinstance(s, AugDenseSpec):
-            h = L.aug_dropout_dense(params[s.name], gen, h, kp, L.relu,
-                                    s.norm, block)
-        elif isinstance(s, DetFCSpec):
-            h = L.det_dropout_fc(params[s.name], h, kp, s.norm)
+            first = h[0] if isinstance(h, tuple) else h
+            h = L.dropout_layer(gen, h, kp, spec.cvd,
+                                draw_block(block, cols, first))
+        elif isinstance(s, _PARAM_SPECS):
+            tp_mesh = None
+            if lay is not None:
+                tp_mesh = mesh if lay.params[s.name] is not None else None
+                h = _whole_over_model(h, cols, tp_mesh is not None, mesh)
+            if isinstance(s, DenseSpec):
+                h = L.dense(params[s.name], h,
+                            L.relu if s.relu else L.identity, s.norm,
+                            tp_mesh)
+            elif isinstance(s, AugDenseSpec):
+                h = L.aug_dropout_dense(params[s.name], gen, h, kp, L.relu,
+                                        s.norm, block, tp_mesh)
+            else:
+                h = L.det_dropout_fc(params[s.name], h, kp, s.norm, tp_mesh)
         elif isinstance(s, AggSpec):
             l = s.index
             ls = pack.layers[l]
@@ -341,8 +478,29 @@ def forward(params: dict, spec: ModelSpec, pack: BatchFields, graph,
             else:
                 h = agg.plain_aggregate(h, ls, spec.normalization, mesh)
             block = rows_of(pack.fields[l + 1])[1]
-        _tap(taps, f"{i}:{type(s).__name__}", h, mesh)
+        if lay is not None:
+            cols = lay.after[i]
+        _tap(taps, f"{i}:{type(s).__name__}", h, mesh, cols)
+    if cols is not None:
+        # a column-sharded head: the loss is computed whole on every rank
+        h = gather_cols(h, cols, mesh, scatter=False)
     return h, tuple(new_histories)
+
+
+def _whole_over_model(h, cols: Optional[Cols], sharded: bool, mesh):
+    """The input of a param layer, whole on every model rank: a column
+    block of layout ``cols`` all-gathered (the gradient reduce-scattered
+    when the layer is ``sharded``, each rank's product using its own
+    columns only; sliced when the layer is whole, its gradient the same on
+    every rank); a whole input of a sharded layer passes through
+    :func:`~..parallel.mesh.model_copy` (the gradient summed)."""
+    if isinstance(h, tuple):
+        return tuple(_whole_over_model(t, cols, sharded, mesh) for t in h)
+    if isinstance(h, PaddedSparseFeatures):
+        return h
+    if cols is None:
+        return model_copy(h, mesh) if sharded else h
+    return gather_cols(h, cols, mesh, scatter=sharded)
 
 
 # ------------------------- loss / metrics ---------------------------------

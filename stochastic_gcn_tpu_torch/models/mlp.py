@@ -78,13 +78,10 @@ class MLPTrainer:
     and Adam state live on ``device``; batches slice feature rows.  The
     epoch order comes from a numpy generator seeded by ``cfg.seed``,
     dropout from a ``torch.Generator`` on the device.  ``device="cuda"``
-    on a machine without CUDA raises."""
+    on a machine without CUDA raises.  It runs on one device whatever
+    ``cfg.dp`` and ``cfg.tp`` say, as the JAX trainer does."""
 
     def __init__(self, cfg, ds, device="cuda"):
-        if cfg.dp > 1:
-            raise NotImplementedError(
-                "--model mlp with --dp > 1: the NeighbourMLP runs on one "
-                "device")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("MLPTrainer(device='cuda') but CUDA is not "

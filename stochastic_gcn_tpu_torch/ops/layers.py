@@ -16,6 +16,13 @@ across with no transpose.  Every random draw takes an explicit
   linear, layer norm and a rectified-Gaussian ReLU
 * dropout_layer — dropout over the estimator's input type
 
+Under tensor parallelism (``--tp``) a layer whose weights are
+column-sharded takes ``mesh`` (parallel/mesh.py): its input is whole, its
+product is this rank's column block, and the layer norm's row moments
+are sums over the model group.  A dropout draw on a column block draws
+the whole tensor and keeps this rank's rows and columns
+(:func:`rows_draw`), so the masks are those of one device.
+
 Every layer that takes the input features also takes them padded-sparse
 (:class:`~..data.graph.PaddedSparseFeatures`): ``matmul`` gathers the
 weights' rows by column id (the hand-written ``fanout_aggregate`` kernel on
@@ -30,6 +37,7 @@ import math
 import torch
 
 from ..data.graph import PaddedSparseFeatures
+from ..parallel.mesh import model_sum
 from .cuda_spmm import fanout_aggregate
 
 
@@ -54,11 +62,29 @@ def matmul(x, w: torch.Tensor) -> torch.Tensor:
     return x.to(w.dtype) @ w
 
 
+def row_moments(x: torch.Tensor, mesh=None) -> tuple:
+    """``(mean, var)`` of every row of ``x``, two passes as the JAX layer
+    (the mean, then the mean of the squared deviation).  With a ``mesh``
+    ``x`` holds this rank's columns of a row whose other columns the
+    model group holds: each pass is one sum over the group of the ranks'
+    ``[rows, 1]`` partial sums, divided by the whole width (the same two
+    passes, the row's sums split by column block)."""
+    if mesh is None:
+        mean = x.mean(dim=1, keepdim=True)
+        return mean, (x - mean).square().mean(dim=1, keepdim=True)
+    width = x.shape[1] * mesh.model_size
+    mean = model_sum(x.sum(dim=1, keepdim=True), mesh) / width
+    var = model_sum((x - mean).square().sum(dim=1, keepdim=True),
+                    mesh) / width
+    return mean, var
+
+
 def layer_norm(x: torch.Tensor, offset: torch.Tensor, scale: torch.Tensor,
-               eps: float = 1e-9) -> torch.Tensor:
-    """x_hat = (x - mean) * rsqrt(var + eps) * scale + offset, per row."""
-    mean = x.mean(dim=1, keepdim=True)
-    var = (x - mean).square().mean(dim=1, keepdim=True)
+               eps: float = 1e-9, mesh=None) -> torch.Tensor:
+    """x_hat = (x - mean) * rsqrt(var + eps) * scale + offset, per row;
+    ``mesh``: ``x``, ``offset`` and ``scale`` are this rank's columns
+    (:func:`row_moments`)."""
+    mean, var = row_moments(x, mesh)
     return (x - mean) * torch.rsqrt(var + eps) * scale + offset
 
 
@@ -67,11 +93,17 @@ def rows_draw(draw, shape, block=None) -> torch.Tensor:
     ``rows``-row tensor (a rank's rows under data parallelism) the draw of
     the whole ``(rows, *shape[1:])`` tensor narrowed to rows ``[lo, lo +
     shape[0])``: every rank takes its rows of the one global draw, so the
-    random stream stays in step across ranks and equals one device's."""
+    random stream stays in step across ranks and equals one device's.
+    ``block = (rows, lo, width, cols)``: the tensor is also a column block
+    (tensor parallelism), ``cols`` the index of its columns among the
+    whole ``width``; the draw is of the whole ``(rows, width)``."""
     if block is None:
         return draw(shape)
-    rows, lo = block
-    return draw((rows, *shape[1:])).narrow(0, lo, shape[0])
+    rows, lo = block[:2]
+    if len(block) == 2:
+        return draw((rows, *shape[1:])).narrow(0, lo, shape[0])
+    width, cols = block[2:]
+    return draw((rows, width)).narrow(0, lo, shape[0]).index_select(1, cols)
 
 
 def dropout(gen: torch.Generator, x, keep_prob: float, block=None):
@@ -105,10 +137,14 @@ def init_dense(gen: torch.Generator, input_dim: int, output_dim: int,
     return p
 
 
-def dense(params: dict, x: torch.Tensor, act, norm: bool) -> torch.Tensor:
+def dense(params: dict, x: torch.Tensor, act, norm: bool,
+          mesh=None) -> torch.Tensor:
+    """``act(norm(x @ W))``; ``mesh``: ``W`` is this rank's column block
+    (module docstring)."""
     out = matmul(x, params["weights"])
     if norm:
-        out = layer_norm(out, params["offset"], params["scale"], eps=1e-9)
+        out = layer_norm(out, params["offset"], params["scale"], eps=1e-9,
+                         mesh=mesh)
     return act(out)
 
 
@@ -118,15 +154,19 @@ def init_aug_dense(gen: torch.Generator, input_dim: int, output_dim: int,
 
 
 def aug_dropout_dense(params: dict, gen: torch.Generator, inputs,
-                      keep_prob: float, act, norm: bool, block=None):
+                      keep_prob: float, act, norm: bool, block=None,
+                      mesh=None):
     """``(act(norm(dropout(x) @ W)), act(norm(mu @ W)).detach())`` for
-    ``inputs = (x, mu)``, or ``x = mu = inputs`` for a single tensor."""
+    ``inputs = (x, mu)``, or ``x = mu = inputs`` for a single tensor;
+    ``mesh``: ``W`` is this rank's column block (module docstring)."""
     x, mu = inputs if isinstance(inputs, tuple) else (inputs, inputs)
     x = matmul(_dropout(gen, x, keep_prob, block), params["weights"])
     mu = matmul(mu, params["weights"])
     if norm:
-        x = layer_norm(x, params["offset"], params["scale"], eps=1e-9)
-        mu = layer_norm(mu, params["offset"], params["scale"], eps=1e-9)
+        x = layer_norm(x, params["offset"], params["scale"], eps=1e-9,
+                       mesh=mesh)
+        mu = layer_norm(mu, params["offset"], params["scale"], eps=1e-9,
+                        mesh=mesh)
     return act(x), act(mu).detach()
 
 
@@ -138,7 +178,8 @@ def init_det_dropout_fc(gen: torch.Generator, input_dim: int,
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 
-def det_dropout_fc(params: dict, inputs, keep_prob: float, norm: bool):
+def det_dropout_fc(params: dict, inputs, keep_prob: float, norm: bool,
+                   mesh=None):
     """Moments ``(mu, var)`` of ``relu(norm(dropout(h) @ W))`` for an input
     with moments ``inputs = (mu, var)``, or a deterministic input tensor
     (variance ``(1-p)/p * h^2`` from the dropout alone; for padded-sparse
@@ -147,7 +188,9 @@ def det_dropout_fc(params: dict, inputs, keep_prob: float, norm: bool):
 
     The 1.2 variance factor, the 1e-10 epsilons (layer norm, shared by the
     variance path so all-zero sentinel rows stay finite) and the 1e-20
-    floor under the square root sit where the JAX layer has them."""
+    floor under the square root sit where the JAX layer has them.
+    ``mesh``: ``W`` is this rank's column block, and the layer norm's row
+    moments of ``mu`` are model-group sums (:func:`row_moments`)."""
     p = keep_prob
     if isinstance(inputs, tuple):
         mu, var = inputs
@@ -165,8 +208,7 @@ def det_dropout_fc(params: dict, inputs, keep_prob: float, norm: bool):
     var = matmul(var, w.square()) * 1.2
 
     if norm:
-        mean = mu.mean(dim=1, keepdim=True)
-        variance = (mu - mean).square().mean(dim=1, keepdim=True)
+        mean, variance = row_moments(mu, mesh)
         mu = ((mu - mean) * torch.rsqrt(variance + 1e-10)
               * params["scale"] + params["offset"])
         var = var * (params["scale"].square() / (variance + 1e-10))

@@ -6,7 +6,8 @@ over NCCL on the card.  Each reads its inputs from, and rank 0 writes its
 results to, ``.npz`` files, so the process that started the ranks (which
 may hold other frameworks) compares them with its own references; the
 halo primitives are checked here against plain gathers and scatters of the
-whole tables and raise on a mismatch.
+whole tables and raise on a mismatch.  :func:`run_jobs` runs several of
+them, one after another, in one group (one spawn for a whole test module).
 """
 
 from __future__ import annotations
@@ -182,9 +183,10 @@ def full_term(npz_in: str, npz_out: str) -> None:
 
 def shape_seeded_noise() -> None:
     """Replace the port's dropout masks and Gaussian noise with numpy draws
-    seeded by the WHOLE tensor's shape (a rank takes its rows of them), so
-    a data-parallel run and another framework's single-program run of the
-    same shapes draw the same noise."""
+    seeded by the WHOLE tensor's shape (a rank takes its rows of them, and
+    under tensor parallelism its columns), so a data-parallel run and
+    another framework's single-program run of the same shapes draw the
+    same noise."""
 
     def rng(shape, salt):
         return np.random.default_rng([salt, len(shape), *shape])
@@ -195,10 +197,13 @@ def shape_seeded_noise() -> None:
         if hasattr(x, "val"):
             return x.replace(val=dropout(gen, x.val, keep_prob, block))
         shape = tuple(x.shape) if block is None \
-            else (block[0], *x.shape[1:])
+            else (block[0], *(x.shape[1:] if len(block) == 2
+                              else (block[2],)))
         keep = torch.from_numpy(rng(shape, 1).random(shape) < keep_prob)
         if block is not None:
             keep = keep.narrow(0, block[1], x.shape[0])
+            if len(block) == 4:
+                keep = keep.index_select(1, block[3].cpu())
         return torch.where(keep.to(x.device), x, 0.0) * (1.0 / keep_prob)
 
     def randn(shape, generator=None, device=None, dtype=None):
@@ -222,10 +227,12 @@ def train_steps(npz_in: str, npz_out: str, fields: dict) -> None:
     :func:`shape_seeded_noise`'s; ``fields`` are the configuration's.
     Rank 0 writes each step's loss and the final params, Adam first
     moments (``mu:<layer>/<name>``, a decaying sum of the gradients) and
-    whole histories to ``npz_out``."""
+    whole histories to ``npz_out``.  With ``tp > 1`` in ``fields`` each
+    rank takes its columns of the params and histories, and the results
+    are gathered whole."""
     shape_seeded_noise()
     cfg = from_fields(fields)
-    mesh = make_mesh(cfg.shard_graph)
+    mesh = make_mesh(cfg.shard_graph, tp=cfg.tp)
     dev = _device()
     z = np.load(npz_in)
 
@@ -244,7 +251,9 @@ def train_steps(npz_in: str, npz_out: str, fields: dict) -> None:
         if key.startswith("param:"):
             layer, name = key[6:].split("/")
             params.setdefault(layer, {})[name] = T(key)
-    hists = tuple(tuple(mesh.local(T(f"hist:{l}/{j}")).clone()
+    params = M.shard_param_tree(params, spec, mesh)
+    hists = tuple(tuple(M.history_block(T(f"hist:{l}/{j}"), spec, l,
+                                        mesh).clone()
                         for j in range(spec.n_history_per_layer))
                   for l in range(len(spec.history_dims))) if spec.cv else ()
     state = St.TrainState(params=params,
@@ -269,15 +278,22 @@ def train_steps(npz_in: str, npz_out: str, fields: dict) -> None:
         state, m = step(state, graph, feats, labels, pack.fields[-1],
                         torch.Generator(device=dev), pack=pack)
         out[f"loss{s}"] = m["loss"].cpu().numpy()
-    for layer, p in state.params.items():
+    mu = M.gather_param_tree(state.opt_state.mu, spec, mesh)
+    for layer, p in M.gather_param_tree(state.params, spec, mesh).items():
         for name, t in p.items():
             out[f"param:{layer}/{name}"] = t.cpu().numpy()
-            out[f"mu:{layer}/{name}"] = \
-                state.opt_state.mu[layer][name].cpu().numpy()
-    for l, hl in enumerate(state.histories):
+            out[f"mu:{layer}/{name}"] = mu[layer][name].cpu().numpy()
+    for l, hl in enumerate(M.whole_histories(state.histories, spec, mesh)):
         for j, h in enumerate(hl):
-            out[f"hist:{l}/{j}"] = whole(h, mesh).float().cpu().numpy()
+            out[f"hist:{l}/{j}"] = h.float().cpu().numpy()
     _save(npz_out, out)
+
+
+def run_jobs(jobs: list) -> None:
+    """Run ``name(*args)`` for every ``(name, args)`` of ``jobs``, a
+    function of this module each, in order, on every rank of one group."""
+    for name, args in jobs:
+        globals()[name](*args)
 
 
 def trainer_runs(cases: dict, out: str, device: str = "cpu") -> None:
@@ -315,6 +331,127 @@ def trainer_runs(cases: dict, out: str, device: str = "cpu") -> None:
 
 def _graph_table(graph) -> torch.Tensor:
     return graph.idx if hasattr(graph, "idx") else graph.nbr
+
+
+def epoch_steps(tr, epochs: int) -> np.ndarray:
+    """``epochs`` epochs of ``tr``'s shuffled batches, as ``train_epoch``
+    runs them (no lazy anchor, no ``--is_row_table``), returning every
+    step's ``(loss, accuracy)`` (``train_epoch`` keeps the last)."""
+    step = St.build_train_step(tr.cfg, tr.train_spec, tr.train_degrees,
+                               tr.ds.num_data, tr.mesh)
+    out = []
+    for _ in range(epochs):
+        tr.train_iter.shuffle()
+        bm = torch.from_numpy(tr._epoch_matrix(
+            tr.train_iter.data, tr.cfg.batch_size)).to(tr.device)
+        for ids in bm:
+            tr.state, m = step(tr.state, tr.graph_train, tr.train_features,
+                               tr.labels, ids, tr.gen,
+                               importance=tr.importance_train)
+            out.append([float(m["loss"]), float(m["accuracy"])])
+        tr._params_version += 1
+    return np.array(out)
+
+
+def state_arrays(tr, prefix: str) -> dict:
+    """The whole (one-device layout) train state and eval histories of
+    ``tr`` as ``{<prefix>:<leaf>: array}`` (every rank takes part).  The
+    histories keep their node rows only: row N holds what sentinel field
+    entries wrote, which one device writes and a mesh skips (both layouts
+    mask every read of it)."""
+    state, eval_h = tr._whole_state()
+    out = {}
+    trees = {"param": state.params, "mu": state.opt_state.mu,
+             "nu": state.opt_state.nu, "avg": state.avg_params}
+    for kind, tree in trees.items():
+        for layer, p in (tree or {}).items():
+            for name, t in p.items():
+                out[f"{prefix}:{kind}:{layer}/{name}"] = \
+                    t.detach().float().cpu().numpy()
+    for kind, hs in (("hist", state.histories), ("eval_hist", eval_h)):
+        for l, hl in enumerate(hs):
+            for j, h in enumerate(hl):
+                out[f"{prefix}:{kind}:{l}/{j}"] = \
+                    h[:tr.ds.num_data].float().cpu().numpy()
+    return out
+
+
+def trainer_steps(cases: dict, out: str, device: str = "cpu") -> None:
+    """For every ``name: (flags, epochs[, export])`` of ``cases`` (``--dp``
+    and ``--tp`` whose product is the group's size): a Trainer trains
+    ``epochs`` epochs step by step (:func:`epoch_steps`), then evaluates
+    the validation split and predicts the first 16 test ids; with
+    ``--ckpt_dir`` it also saves, and with an ``export`` path it exports
+    its serving artifact there.  Rank 0 writes ``<name>:steps`` (every step's loss and
+    accuracy), ``<name>:eval``, ``<name>:pred``, the whole state
+    (:func:`state_arrays`, after the evaluation), ``<name>:local`` and
+    ``<name>:head`` (the shapes of rank 0's blocks of the first and the
+    last layer's weights) to ``out``."""
+    from ..serving import export_predictor
+    res = {}
+    for name, (flags, epochs, *export) in cases.items():
+        cfg = parse_flags(flags)
+        ds = load_data(cfg)
+        tr = Trainer(cfg, ds, device=device)
+        first = M.first_param_layer(tr.train_spec)
+        head = max(tr.state.params, key=lambda l: int(l[5:]))
+        res[f"{name}:local"] = np.array(
+            tr.state.params[first]["weights"].shape)
+        res[f"{name}:head"] = np.array(
+            tr.state.params[head]["weights"].shape)
+        res[f"{name}:steps"] = epoch_steps(tr, epochs)
+        res[f"{name}:eval"] = np.array(tr.evaluate(ds.val_d)[:4])
+        res[f"{name}:pred"] = tr.predict(ds.test_d[:16])
+        res.update(state_arrays(tr, name))
+        if "--ckpt_dir" in flags:
+            tr.save()
+        if export:
+            export_predictor(tr, export[0])
+    _save(out, res)
+
+
+def load_run(flags: list, out: str) -> None:
+    """A Trainer of ``flags`` loads ``--ckpt_dir``'s checkpoint (histories
+    too) and predicts the first 16 test ids; rank 0 writes them to
+    ``out`` (``pred``)."""
+    cfg = parse_flags(flags)
+    ds = load_data(cfg)
+    tr = Trainer(cfg, ds, device=_device())
+    tr.load(load_history=True)
+    _save(out, {"pred": tr.predict(ds.test_d[:16])})
+
+
+def schedules(flags: list, out_dir: str, steps: int = 3) -> None:
+    """Every rank writes the train schedules of the first ``steps`` batches
+    of a Trainer of ``flags`` to ``<out_dir>/sched<global rank>.npz``
+    (fields and slots of every layer), drawn as the train step draws
+    them."""
+    cfg = parse_flags(flags)
+    tr = Trainer(cfg, load_data(cfg), device=_device())
+    bm = torch.from_numpy(tr._epoch_matrix(
+        tr.train_iter.data, cfg.batch_size)).to(tr.device)
+    arrays = {}
+    for s, ids in enumerate(bm[:steps]):
+        pack = St._schedule(cfg, tr.train_spec, tr.train_degrees,
+                            tr.graph_train, ids, tr.gen, None,
+                            train_mode=True, mesh=tr.mesh)
+        for i, f in enumerate(pack.fields):
+            arrays[f"s{s}:field{i}"] = f.cpu().numpy()
+        for l, ls in enumerate(pack.layers):
+            arrays[f"s{s}:pos{l}"] = ls.slot_pos.cpu().numpy()
+            arrays[f"s{s}:w{l}"] = ls.slot_w.cpu().numpy()
+    np.savez(f"{out_dir}/sched{dist.get_rank()}.npz", **arrays)
+
+
+def cli_in_group(argv: list, out_dir: str) -> None:
+    """``cli/train.py``'s ``main(argv)`` as one rank of this group (the
+    way torchrun starts it), its standard output to
+    ``<out_dir>/cli<global rank>.txt``."""
+    import contextlib
+    from ..cli import train as train_cli
+    with open(f"{out_dir}/cli{dist.get_rank()}.txt", "w") as f, \
+            contextlib.redirect_stdout(f):
+        train_cli.main(argv)
 
 
 def export_run(flags: list, path: str, epochs: int) -> None:
@@ -381,7 +518,7 @@ def host_run(flags: list, out: str, device: str = "cpu") -> None:
     again.load(load_history=True)
     res["pred_loaded"] = again.predict(ds.test_d[:16])
     rank, world = dist.get_rank(), dist.get_world_size()
-    host = tr.mesh.host(rank)
+    host = tr.mesh.host(tr.mesh.rank)
     res["ranks"] = np.array([world, rank])
     if rank == host * (world // tr.mesh.hosts):
         np.savez(f"{out}/host{host}.npz", **res)

@@ -14,10 +14,13 @@ of three places:
 * the multi-host launch, JAX's flags ``--coordinator host:port
   --num_processes H --process_id i`` (:func:`host_ranks`): a "process"
   there is a host, since the port runs one process per device.  Host ``i``
-  spawns ``dp / H`` local ranks (:mod:`.launch`), global rank ``i (dp / H)
-  + local``, so the ranks are host-major by construction, and every rank
-  joins one group through a TCP store at the coordinator, held by host
-  0's local rank 0 (global rank 0).
+  spawns ``dp tp / H`` local ranks (:mod:`.launch`), global rank ``i (dp
+  tp / H) + local``, so the ranks are host-major by construction, and
+  every rank joins one group through a TCP store at the coordinator, held
+  by host 0's local rank 0 (global rank 0).
+
+A group has ``dp * tp`` ranks (``--tp``, tensor parallelism: the model
+axis is innermost, parallel/mesh.py), one per device.
 
 Every rank loads the same data and draws from the same seeded generators,
 so the ranks run one global schedule in step (training/step.py).
@@ -42,12 +45,17 @@ TIMEOUT = timedelta(seconds=300)
 _HOST = None
 
 
+def world_size(cfg) -> int:
+    """The ranks a run of ``cfg`` takes: ``dp * tp``."""
+    return cfg.dp * cfg.tp
+
+
 def host_ranks(cfg) -> tuple:
     """``(host, hosts, local ranks)`` of a ``--coordinator`` launch: host
-    ``cfg.process_id`` of ``cfg.num_processes``, each starting ``cfg.dp /
-    hosts`` ranks.  A mismatch raises: ``dp`` not a multiple of the hosts,
-    a ``process_id`` out of range, or ``--dp_hosts`` set to another host
-    count."""
+    ``cfg.process_id`` of ``cfg.num_processes``, each starting ``cfg.dp *
+    cfg.tp / hosts`` ranks (whole model groups).  A mismatch raises:
+    ``dp`` not a multiple of the hosts, a ``process_id`` out of range, or
+    ``--dp_hosts`` set to another host count."""
     hosts = cfg.num_processes
     if hosts < 1 or cfg.dp % hosts:
         raise ValueError(f"--dp {cfg.dp} does not tile over "
@@ -58,7 +66,7 @@ def host_ranks(cfg) -> tuple:
     if cfg.dp_hosts not in (1, hosts):
         raise ValueError(f"--dp_hosts {cfg.dp_hosts} but --num_processes "
                          f"{hosts} hosts")
-    return cfg.process_id, hosts, cfg.dp // hosts
+    return cfg.process_id, hosts, world_size(cfg) // hosts
 
 
 def host_index() -> int:
@@ -106,16 +114,16 @@ def torchrun_env() -> bool:
 def maybe_initialize(cfg, device_type: str) -> int:
     """Join torchrun's group when its environment is set and no group
     exists yet; returns this process's rank (0 without a group).  The
-    group's size must be ``cfg.dp``: a mismatch raises rather than running
-    another data-parallel width than the one asked for (in a multi-host
-    launch too: every host's ranks join the one group of ``cfg.dp``)."""
+    group's size must be ``cfg.dp * cfg.tp``: a mismatch raises rather
+    than running another width than the one asked for (in a multi-host
+    launch too: every host's ranks join the one group)."""
     if not dist.is_initialized() and torchrun_env():
         init_group(device_type, int(os.environ["RANK"]),
                    int(os.environ["WORLD_SIZE"]),
                    local_rank=int(os.environ.get("LOCAL_RANK", "-1")))
-    if dist.is_initialized() and dist.get_world_size() != cfg.dp:
-        raise ValueError(f"--dp {cfg.dp} but the process group has "
-                         f"{dist.get_world_size()} ranks")
+    if dist.is_initialized() and dist.get_world_size() != world_size(cfg):
+        raise ValueError(f"--dp {cfg.dp} --tp {cfg.tp} but the process "
+                         f"group has {dist.get_world_size()} ranks")
     return rank()
 
 

@@ -147,7 +147,7 @@ def row_gather2(local_i: torch.Tensor, local_f: torch.Tensor,
     route = Route(ids, local_i.shape[0] * mesh.size, mesh, sentinel)
     got = route.fetch(both)
     rows_i = got[:, :k].contiguous().view(torch.int32)
-    rows_f = got[:, k:].to(local_f.dtype)
+    rows_f = got[:, k:].to(local_f.dtype).contiguous()
     return (rows_i.reshape(*ids.shape, k),
             rows_f.reshape(*ids.shape, k))
 

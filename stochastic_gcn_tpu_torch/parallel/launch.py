@@ -1,8 +1,9 @@
 """Local launcher: run a function in one process per rank.
 
-``--dp N`` without torchrun's environment starts ``N`` workers on this
-host with :func:`spawn` (``torch.multiprocessing`` with the ``spawn``
-method, so each worker starts from a fresh import), as the JAX package's
+``--dp D --tp T`` (``N = D T`` ranks) without torchrun's environment
+starts ``N`` workers on this host with :func:`spawn`
+(``torch.multiprocessing`` with the ``spawn`` method, so each worker
+starts from a fresh import), as the JAX package's
 ``--dp N`` runs in one command.  Worker ``r`` joins a process group of
 ``N`` ranks (NCCL on ``cuda:r % device_count``, gloo on the CPU) through a
 file store in a fresh temporary directory, runs ``fn(*args)``, and leaves
@@ -32,7 +33,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from .distributed import (host_ranks, init_group, maybe_initialize,
-                          torchrun_env)
+                          torchrun_env, world_size)
 
 
 def _worker(local: int, fn, world: int, device_type: str, init_method: str,
@@ -85,21 +86,27 @@ def _cli_worker(module: str, argv: list) -> None:
 
 
 def dispatch(cfg, device: str, module: str, argv: list) -> bool:
-    """The data-parallel start of a command-line entry point (``module``'s
+    """The multi-process start of a command-line entry point (``module``'s
     ``main(argv)``): with no process group yet, join torchrun's group when
     its environment is set; else with ``--coordinator`` run ``main(argv)``
-    on this host's ``cfg.dp / cfg.num_processes`` workers of the
-    multi-host group, or with ``cfg.dp > 1`` on ``cfg.dp`` local workers,
-    and return True (the caller then returns: the workers did the work).
-    False: the caller runs here, as one rank of the group or alone."""
+    on this host's ``cfg.dp * cfg.tp / cfg.num_processes`` workers of the
+    multi-host group, or with ``cfg.dp * cfg.tp > 1`` on that many local
+    workers, and return True (the caller then returns: the workers did the
+    work).  False: the caller runs here, as one rank of the group or
+    alone.  ``--model mlp`` always runs here, in one process, whatever
+    ``--dp`` and ``--tp`` say (the NeighbourMLP has no multi-device path,
+    in either package)."""
+    if cfg.model == "mlp":
+        return False
     device_type = torch.device(device).type
+    world = world_size(cfg)
     if cfg.coordinator and not dist.is_initialized() and not torchrun_env():
         host, hosts, _ = host_ranks(cfg)
-        spawn(_cli_worker, cfg.dp, (module, list(argv)), device_type,
+        spawn(_cli_worker, world, (module, list(argv)), device_type,
               coordinator=cfg.coordinator, host=host, hosts=hosts)
         return True
-    if cfg.dp > 1 and not dist.is_initialized() and not torchrun_env():
-        spawn(_cli_worker, cfg.dp, (module, list(argv)), device_type)
+    if world > 1 and not dist.is_initialized() and not torchrun_env():
+        spawn(_cli_worker, world, (module, list(argv)), device_type)
         return True
     maybe_initialize(cfg, device_type)
     return False

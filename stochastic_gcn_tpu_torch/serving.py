@@ -77,7 +77,9 @@ _BF16 = "bf16:"          # npz has no bfloat16: the uint16 bit view
 def _serving_tensors(trainer) -> dict:
     """The tensors a Predictor serves from, by artifact name: whole tables
     (a data-parallel trainer's row blocks gathered from every rank, the
-    node tables cut back to their ``N+1`` rows)."""
+    node tables cut back to their ``N+1`` rows; a tensor-parallel
+    trainer's column blocks of the params and histories gathered from its
+    model group)."""
     mesh = getattr(trainer, "mesh", None)
     n1 = trainer.ds.num_data + 1
 
@@ -87,11 +89,14 @@ def _serving_tensors(trainer) -> dict:
         return whole(t, mesh)[:n1]
 
     out = {f"params/{layer}/{name}": t
-           for layer, p in trainer._eval_params().items()
+           for layer, p in M.gather_param_tree(
+               trainer._eval_params(), trainer.train_spec, mesh).items()
            for name, t in p.items()}
-    for l, hl in enumerate(trainer.eval_histories):
+    eval_h = M.whole_histories(trainer.eval_histories, trainer.test_spec,
+                               mesh)
+    for l, hl in enumerate(eval_h):
         for j, h in enumerate(hl):
-            out[f"histories/{l}/{j}"] = whole(h, mesh)
+            out[f"histories/{l}/{j}"] = h
     g = trainer.graph_full
 
     def graph_table(name):
@@ -167,8 +172,8 @@ def export_predictor(trainer, path: str, refresh: bool = True,
     tensors = _serving_tensors(trainer)
     mesh = getattr(trainer, "mesh", None)
     if mesh is not None:
-        # every rank took part in the gathers; rank 0 writes
-        if mesh.rank == 0:
+        # every rank took part in the gathers; global rank 0 writes
+        if mesh.global_rank == 0:
             _write_artifact(trainer, path, tensors, platforms, scan_batches)
         torch.distributed.barrier()
         return path

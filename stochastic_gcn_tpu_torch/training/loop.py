@@ -23,6 +23,14 @@ and checkpoints hold the whole tables in the single-device layout, so a
 run of any width loads one of any other.  ``--partition_nodes rcm``
 relabels the nodes internally (every id a caller passes or gets stays in
 the caller's id space).
+
+``--tp T > 1`` adds tensor parallelism: ``dp x T`` ranks, each holding
+its column blocks of the wide params, their Adam state and Polyak
+average, and of the histories (models/gcn.py::column_layout).  Every
+public method still returns the values of the ``--dp`` run of the same
+seed (up to reduction order) on every rank; logging and files are global
+rank 0's, and ``save`` gathers the column blocks, so a tp checkpoint holds
+the one-device layout and loads at any ``dp``, any ``tp`` and in JAX.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from ..data.preprocess import (cap_adj_degree, locality_permutation,
 from ..models import gcn as M
 from ..parallel import distributed as D
 from ..parallel.mesh import (Mesh, make_mesh, owner_grouped_batch_matrix,
-                             row_multiple, shard_rows, whole)
+                             row_multiple, shard_rows)
 from ..sampler.scheduler import MinibatchIterator, compute_importance
 from ..utils.metrics import Stat, f1_from_counts
 from . import step as S
@@ -97,7 +105,6 @@ def _refuse_unported(cfg) -> None:
         raise ValueError(f"--num_processes {cfg.num_processes} hosts need "
                          "--coordinator host:port")
     unported = {
-        "--tp > 1 (the 2-D mesh)": cfg.tp > 1,
         "--ckpt_async": cfg.ckpt_async,
     }
     asked = [k for k, v in unported.items() if v]
@@ -117,22 +124,23 @@ def _hosts(cfg) -> int:
 def _mesh_for(cfg, distributed: Optional[bool]) -> Optional[Mesh]:
     """The Trainer's mesh: the default process group's when there is one
     (``distributed=None``) or when asked for (``True``); its size must be
-    ``cfg.dp``, and its ranks host-major over the hosts of ``cfg``.  None
-    runs on one device, which ``cfg.dp > 1`` or a multi-host launch never
-    does."""
+    ``cfg.dp * cfg.tp``, and its data axis host-major over the hosts of
+    ``cfg``.  None runs on one device, which ``cfg.dp * cfg.tp > 1`` or a
+    multi-host launch never does."""
     if distributed is None:
         distributed = torch.distributed.is_initialized()
     hosts = _hosts(cfg)
+    world = D.world_size(cfg)
     if not distributed:
-        if cfg.dp > 1 or hosts > 1 or cfg.coordinator:
-            raise ValueError(f"--dp {cfg.dp} over {hosts} host(s) needs a "
-                             f"process group of {cfg.dp} ranks "
-                             "(parallel/launch.py, or torchrun)")
+        if world > 1 or hosts > 1 or cfg.coordinator:
+            raise ValueError(f"--dp {cfg.dp} --tp {cfg.tp} over {hosts} "
+                             f"host(s) needs a process group of {world} "
+                             "ranks (parallel/launch.py, or torchrun)")
         return None
-    if D.process_count() != cfg.dp:
-        raise ValueError(f"--dp {cfg.dp} but the process group has "
-                         f"{D.process_count()} ranks")
-    return make_mesh(cfg.shard_graph, hosts)
+    if D.process_count() != world:
+        raise ValueError(f"--dp {cfg.dp} --tp {cfg.tp} but the process "
+                         f"group has {D.process_count()} ranks")
+    return make_mesh(cfg.shard_graph, hosts, cfg.tp)
 
 
 class Trainer:
@@ -284,7 +292,9 @@ class Trainer:
 
     @property
     def _main(self) -> bool:
-        return self.mesh is None or self.mesh.rank == 0
+        """Global rank 0 (of every rank of the group, not of a data or a
+        model group): the one that logs and writes files."""
+        return self.mesh is None or self.mesh.global_rank == 0
 
     def _log(self, log):
         """``log`` on rank 0, nothing on the others."""
@@ -641,21 +651,35 @@ class Trainer:
                 break
 
     # ------------------------------------------------------------------
-    def _whole_histories(self, histories):
-        return tuple(tuple(whole(h, self.mesh) for h in hl)
-                     for hl in histories)
+    def _whole_state(self):
+        """``(train state, eval histories)`` in the one-device layout: the
+        history blocks gathered into whole tables and, under tensor
+        parallelism, the column blocks of the params, the Adam moments and
+        the Polyak average gathered too (every rank takes part)."""
+        mesh, spec = self.mesh, self.train_spec
+        st = self.state
+
+        def tree(t):
+            return None if t is None else M.gather_param_tree(t, spec, mesh)
+        state = dataclasses.replace(
+            st, params=tree(st.params),
+            opt_state=dataclasses.replace(st.opt_state,
+                                          mu=tree(st.opt_state.mu),
+                                          nu=tree(st.opt_state.nu)),
+            avg_params=tree(st.avg_params),
+            histories=M.whole_histories(st.histories, spec, mesh))
+        return state, M.whole_histories(self.eval_histories, self.test_spec,
+                                        mesh)
 
     def save(self):
         """Write the full state in the JAX layout to
         ``<ckpt_dir>/model.ckpt.npz``, with the --resume loop counters.
-        Under a mesh the history blocks are gathered into whole tables
-        (every rank takes part) and rank 0 writes them."""
+        Under a mesh the blocks are gathered into whole tables (every rank
+        takes part; :meth:`_whole_state`) and global rank 0 writes them."""
         extra = {"completed_epochs": np.int64(self.completed_epochs),
                  "amt_data": np.int64(self.amt_data),
                  "cost_val": np.asarray(self.cost_val, np.float64)}
-        state = dataclasses.replace(
-            self.state, histories=self._whole_histories(self.state.histories))
-        eval_h = self._whole_histories(self.eval_histories)
+        state, eval_h = self._whole_state()
         path = None
         if self._main:
             path = save_checkpoint(self.cfg.ckpt_dir, state, eval_h,
@@ -666,27 +690,57 @@ class Trainer:
         return path
 
     def _load_sharded(self, load_history: bool) -> None:
-        """:meth:`load` under a mesh: the params and Adam state in place,
-        and the histories read whole, each rank keeping its block."""
-        p = self.mesh.size
+        """:meth:`load` under a mesh: every leaf read whole into a
+        one-device-layout copy of the state, then each rank keeps its
+        blocks (its rows of the histories; under tensor parallelism its
+        columns of the params, the Adam moments, the Polyak average and
+        the histories)."""
+        mesh, p = self.mesh, self.mesh.size
+        lay_tr = M.column_layout(self.train_spec, mesh.model_size)
+        lay_te = M.column_layout(self.test_spec, mesh.model_size)
 
-        def blank(histories):
+        def blank_tree(tree):
+            if tree is None:
+                return None
+            return {l: {n: t if lay_tr.params[l] is None else t.new_zeros(
+                (t.shape[0], lay_tr.params[l].width)) for n, t in q.items()}
+                for l, q in tree.items()}
+
+        def blank(histories, lay):
             if not load_history:
                 return histories
-            return tuple(tuple(h.new_zeros((h.shape[0] * p, *h.shape[1:]))
-                               for h in hl) for hl in histories)
-        state = dataclasses.replace(self.state,
-                                    histories=blank(self.state.histories))
-        eval_h = blank(self.eval_histories)
+            return tuple(tuple(h.new_zeros((
+                h.shape[0] * p, h.shape[1] if c is None else c.width))
+                for h in hl) for hl, c in zip(histories, lay.histories))
+        st = self.state
+        state = dataclasses.replace(
+            st, params=blank_tree(st.params),
+            opt_state=dataclasses.replace(
+                st.opt_state, mu=blank_tree(st.opt_state.mu),
+                nu=blank_tree(st.opt_state.nu)),
+            avg_params=blank_tree(st.avg_params),
+            histories=blank(st.histories, lay_tr))
+        eval_h = blank(self.eval_histories, lay_te)
         load_checkpoint(self.cfg.ckpt_dir, state, eval_h,
                         load_history=load_history)
-        if load_history:
-            with torch.no_grad():
-                for mine, got in ((self.state.histories, state.histories),
-                                  (self.eval_histories, eval_h)):
-                    for hl, gl in zip(mine, got):
+        with torch.no_grad():
+            for mine, got in ((st.params, state.params),
+                              (st.opt_state.mu, state.opt_state.mu),
+                              (st.opt_state.nu, state.opt_state.nu),
+                              (st.avg_params, state.avg_params)):
+                if mine is None:
+                    continue
+                blocks = M.shard_param_tree(got, self.train_spec, mesh)
+                for l, q in mine.items():
+                    for n, t in q.items():
+                        t.copy_(blocks[l][n])
+            if load_history:
+                for mine, got, spec in (
+                        (st.histories, state.histories, self.train_spec),
+                        (self.eval_histories, eval_h, self.test_spec)):
+                    for l, (hl, gl) in enumerate(zip(mine, got)):
                         for h, g in zip(hl, gl):
-                            h.copy_(self.mesh.local(g))
+                            h.copy_(M.history_block(g, spec, l, mesh))
 
     def install_preemption_handler(self, signals=None):
         """Route SIGTERM (the eviction notice cluster managers send before

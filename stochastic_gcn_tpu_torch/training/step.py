@@ -25,6 +25,18 @@ With ``cfg.owner_batching`` the schedules of the train step, the eval
 epoch, pred-and-grad and the activation taps take the owner-aligned field
 layout (``owner_blocks = cfg.dp``, sampler/scheduler.py), so a rank's
 block of every field, and the history rows it writes, are mostly its own.
+
+Tensor parallelism (``--tp T``, a mesh of ``dp x T`` ranks): the params a
+rank holds are its column blocks (models/gcn.py::column_layout), the
+gradients are all-reduced over its data group only (the ranks of its
+model index, which hold the same blocks), Adam and the Polyak EMA work on
+the blocks element by element, and the histories are written as column
+blocks.  The weight decay is added on data index 0 of every model index,
+so each block's L2 is counted once; the loss the step reports adds the
+other blocks' L2 (a sum over the model group), so it is the whole
+model's on every rank.  The logits come from a head every model rank
+computes whole, so the loss, accuracy and F1 reductions run over the data
+group as under dp alone.
 """
 
 from __future__ import annotations
@@ -39,7 +51,8 @@ from ..models import aggregators as A
 from ..models import gcn as M
 from ..ops.gather import row_gather
 from ..parallel import halo
-from ..parallel.mesh import all_gather_rows, all_reduce_sum, row_multiple
+from ..parallel.mesh import (all_gather_rows, all_reduce_sum, gather_cols,
+                             model_sum, row_multiple, tensor_parallel)
 from ..sampler.scheduler import BatchFields, importance_row_table, schedule
 from ..utils.metrics import device_f1_counts
 
@@ -128,9 +141,13 @@ def init_train_state(gen: torch.Generator, cfg, spec: M.ModelSpec,
     """Glorot params from ``gen`` (a CPU generator, so every device starts
     from the same values), zero Adam moments and zero histories of
     ``cfg.history_dtype`` (rows padded to ``row_multiple(dp)``, 8 at dp 1;
-    this rank's block of them with a ``mesh``), all on ``device``."""
-    params = {l: {n: t.to(device) for n, t in p.items()}
-              for l, p in M.init_params(gen, spec).items()}
+    this rank's block of them with a ``mesh``), all on ``device``.  Under
+    tensor parallelism every rank draws the whole glorot matrices and
+    keeps its columns, so the run starts from the weights of one
+    device."""
+    params = M.shard_param_tree(
+        {l: {n: t.to(device) for n, t in p.items()}
+         for l, p in M.init_params(gen, spec).items()}, spec, mesh)
     avg = {l: {n: t.clone() for n, t in p.items()}
            for l, p in params.items()} if cfg.polyak_decay > 0 else None
     return TrainState(
@@ -211,9 +228,26 @@ def _rows(t: torch.Tensor, mesh) -> torch.Tensor:
 
 def _weight_decay(cfg, mesh) -> float:
     """The weight decay a rank adds to its loss: all of it on one device
-    and on rank 0, none on the other ranks, so the summed gradients count
-    it once."""
+    and on data index 0 (of every model index), none on the other ranks,
+    so the gradients summed over a data group count it once."""
     return cfg.weight_decay if mesh is None or mesh.rank == 0 else 0.0
+
+
+def _reported_loss(loss: torch.Tensor, params: dict, spec: M.ModelSpec,
+                   cfg, mesh) -> torch.Tensor:
+    """The loss a step reports: ``loss`` summed over the data ranks and,
+    when the first layer's weights are column-sharded (tensor
+    parallelism), the weight decay of the other model ranks' columns
+    added, so it is the whole model's penalty on every rank."""
+    loss = _global(loss.detach(), mesh)
+    if not tensor_parallel(mesh) or not cfg.weight_decay:
+        return loss
+    first, names = M.weight_decay_param_names(spec)
+    if M.column_layout(spec, mesh.model_size).params[first] is None:
+        return loss
+    own = cfg.weight_decay * sum(params[first][n].detach().square().sum()
+                                 / 2.0 for n in names)
+    return loss + (model_sum(own, mesh) - own)
 
 
 def _allreduce_grads(grads: list, mesh) -> list:
@@ -326,6 +360,8 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                                   lazy=lazy, mesh=mesh)
         loss, acc = M.loss_and_metrics(params, spec, logits, b.y, b.valid,
                                        wd, b.nvalid)
+        # before the update, which the params' aliases see
+        reported = _reported_loss(loss, params, spec, cfg, mesh)
         flat = _allreduce_grads(list(torch.autograd.grad(
             loss, [params[l][n] for l, n in keys])), mesh)
         grads: dict = {}
@@ -349,8 +385,8 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
             pack, graph, num_nodes, spec.cv)
         is_dropped = pack.is_dropped if pack.is_dropped is not None \
             else torch.zeros((), dtype=torch.int32, device=amt.device)
-        loss, acc = (_global(t.detach(), mesh) for t in (loss, acc))
-        return state, {"loss": loss, "accuracy": acc,
+        acc = _global(acc.detach(), mesh)
+        return state, {"loss": reported, "accuracy": acc,
                        "amt_data": amt, "field_sizes": field_sizes,
                        "adj_sizes": adj_sizes, "fadj_sizes": fadj_sizes,
                        "is_dropped": is_dropped}
@@ -439,7 +475,8 @@ def build_eval_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
         tp, fp, fn = device_f1_counts(logits, b.y, b.valid, spec.multitask,
                                       mesh)
         scatter_histories(histories, new_h, pack.fields, num_nodes, mesh)
-        out = (_global(loss, mesh), _global(acc, mesh), tp, fp, fn,
+        out = (_reported_loss(loss, params, spec, cfg, mesh),
+               _global(acc, mesh), tp, fp, fn,
                (pack.fields[-1] < num_nodes).sum().float())
         if with_preds:
             out = out + (_rows(M.predict(spec, logits), mesh),
@@ -471,7 +508,8 @@ def build_pred_and_grad(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
     weights)``: the probe of the gradient-variance harness.  A fresh
     schedule (training's sampling semantics with ``train_mode``,
     evaluation's otherwise), dropout applied, no weight update and no
-    history scatter.  Under a ``mesh`` both are the whole batch's."""
+    history scatter.  Under a ``mesh`` both are the whole batch's, and the
+    gradient the whole matrix's (its column blocks gathered)."""
     wd = _weight_decay(cfg, mesh)
 
     def _run(params, histories, graph, features, labels, batch_ids, gen,
@@ -489,6 +527,10 @@ def build_pred_and_grad(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                                      wd, b.nvalid)
         grad, = _allreduce_grads(list(torch.autograd.grad(loss, [weights])),
                                  mesh)
+        if tensor_parallel(mesh):
+            cols = M.column_layout(spec, mesh.model_size).params[first]
+            if cols is not None:
+                grad = gather_cols(grad, cols, mesh)
         return _rows(M.predict(spec, logits.detach()), mesh), grad
 
     return _run

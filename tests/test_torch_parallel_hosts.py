@@ -8,8 +8,9 @@ predict again); a one-host ``--dp 4`` run of the same flags is the
 reference.  Gloo sums over the same 4 ranks in the same order either way,
 so the two hosts agree exactly and with the one-host run within rtol 1e-5;
 the collective bytes split into those that stay on a host and those that
-cross hosts.  The launch's mismatches raise, and what is still not ported
-(``--tp > 1``, ``--ckpt_async``) raises naming ROADMAP.md."""
+cross hosts.  The launch's mismatches raise, what is still not ported
+(``--ckpt_async``) raises naming ROADMAP.md, and ``--tp 2`` outside a
+process group of ``dp * tp`` ranks raises the group-size error."""
 
 import os
 import socket
@@ -109,8 +110,10 @@ def test_ranks_not_host_major_raise(tmp_path):
     assert "not host-major" in str(np.load(out)["error"])
 
 
-@pytest.mark.parametrize("over", [{"tp": 2}, {"ckpt_async": True}])
-def test_tp_and_ckpt_async_still_raise(over):
+@pytest.mark.parametrize("over, error, match", [
+    ({"tp": 2}, ValueError, "process group of 2 ranks"),
+    ({"ckpt_async": True}, NotImplementedError, "ROADMAP")])
+def test_tp_needs_its_group_and_ckpt_async_still_raises(over, error, match):
     cfg = parse_flags(FLAGS[:-2]).replace(**over)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         Trainer(cfg, Ld.load_data(cfg), device="cpu")

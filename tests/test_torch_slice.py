@@ -150,14 +150,15 @@ def test_cuda_trainer_without_cuda_raises(trained):
 
 
 def test_unported_options_raise(trained):
-    """What is still refused names ROADMAP.md; ``--dp 2`` is ported and
-    needs a process group of two ranks, so without one it raises rather
-    than training on one device; ``--dp_hosts 2`` is ported and does not
-    tile ``--dp 1``."""
+    """What is still refused names ROADMAP.md; ``--dp 2`` and ``--tp 2``
+    are ported and need a process group of two ranks, so without one they
+    raise rather than train on one device; ``--dp_hosts 2`` is ported and
+    does not tile ``--dp 1``."""
     cfg, ds, _, _ = trained
-    for over in ({"tp": 2}, {"ckpt_async": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(port_cfg(cfg.replace(**over)), ds, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(port_cfg(cfg.replace(ckpt_async=True)), ds, device="cpu")
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
+        Trainer(port_cfg(cfg.replace(tp=2)), ds, device="cpu")
     with pytest.raises(ValueError, match="hosts"):
         Trainer(port_cfg(cfg.replace(dp_hosts=2)), ds, device="cpu")
     with pytest.raises(ValueError, match="process group"):

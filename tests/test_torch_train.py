@@ -710,18 +710,18 @@ def test_cli_train_end_to_end(tmp_path, capsys):
     {"coordinator": "localhost:1234"}, {"num_processes": 2},
     {"graph_format": "edgelist", "dp": 2, "shard_graph": True}])
 def test_unported_training_options_raise(tmp_path, over):
-    """The options still to port (ROADMAP.md, queue 1: ``--tp > 1``,
-    ``--ckpt_async``) raise and name it.  The multi-device options of the
-    data axis are ported (``--owner_batching``, the node-sharded edge
-    list, the multi-host launch): a Trainer built with them outside the
-    process group they need raises ValueError rather than training on one
-    device, as ``--dp 2`` does."""
+    """The option still to port (ROADMAP.md, queue 1: ``--ckpt_async``)
+    raises and names it.  The multi-device options are ported
+    (``--owner_batching``, the node-sharded edge list, the multi-host
+    launch, ``--tp > 1``): a Trainer built with them outside the process
+    group they need raises ValueError rather than training on one device,
+    as ``--dp 2`` does."""
     cfg = _flags(tmp_path)
     if over.get("dp", 1) > 1:
         cfg = cfg.replace(batch_size=cfg.batch_size * 2,
                           test_batch_size=cfg.test_batch_size * 2)
     ds = Ld.load_data(port_cfg(cfg))
-    if "tp" in over or "ckpt_async" in over:
+    if "ckpt_async" in over:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(port_cfg(cfg.replace(**over)), ds, device="cpu")
         return
