@@ -67,9 +67,16 @@ Phases, one or more lines each:
    ``--tp 2`` gives them (``phase_tp_kernels``: d = 64, a rank's block of
    the trained bf16 train and f32 eval histories, and d = 256, hidden
    512's block, seeded), on the same real batches, held and timed the same
-   way (``tp_cases`` in the kernels line); then ``Trainer.save()`` timed,
-   compressed and not, as a share of a ``--ckpt_every`` cycle
-   (``phase_save``).  Then a ``torch.profiler``
+   way (``tp_cases`` in the kernels line); then ``Trainer.save()``,
+   compressed and not, after a validation pass (``phase_save``): runs of 3
+   epochs with a save after each (``--ckpt_every 1``), sync against
+   ``--ckpt_async`` (the snapshot on the card, the side-stream copy into
+   pinned buffers, the writer thread) in turns, every epoch, save() call
+   and npz write timed: the save's latency on the critical path, an epoch
+   with a write in flight against one without, the cycle, and the save's
+   share of a ``--ckpt_every`` 1 and 10 cycle; then one more async save
+   held bitwise against the last sync file, and a ``--resume`` from it
+   against the saved state.  Then a ``torch.profiler``
    window of 10 more steps: the top device ops, kernels per step and the
    device's busy share.
 5. slice — the serving path from the trained weights (test batch 2048):
@@ -117,7 +124,8 @@ Phases, one or more lines each:
    is exact without dropout (bias and stdev < 1e-5), its gradient bias is
    within 3 standard errors while NS+PP's is not, its gradient stdev is
    below NS+PP's, CVD+PP's is below NS+PP's under dropout, and every value
-   is finite.
+   is finite.  Each of CVD+PP, Exact, det-dropout+PP and IS+PP also gets
+   the 10-step profile of phase 4.
 
 8. formats — the reference's data formats at published sizes, written by
    the port's fixture writers into a temporary directory and read by
@@ -197,8 +205,9 @@ Phases, one or more lines each:
    own, at world 2 dp 1 x tp 2 and dp 2 against one process: the first
    ``DP_HELD_STEPS`` losses held, ms/step in turns at hidden 128 and 512,
    collective bytes with the model group's apart, a 10-step profile, the
-   save of the tp Trainer timed, and a Polyak arm whose checkpoint a fresh
-   tp Trainer and one process serve.
+   save of the tp Trainer with ``--ckpt_async`` timed (a mesh keeps the
+   sync gathered save), and a Polyak arm whose checkpoint a fresh tp
+   Trainer and one process serve.
 
 The line before the last is a JSON object describing the kernels (times in
 device ms per call on real batches of the path that launches the kernel,
@@ -260,6 +269,7 @@ from stochastic_gcn_tpu_torch.sampler.scheduler import (PARKED_POS,
                                                         is_select, schedule)
 from stochastic_gcn_tpu_torch.serving import (export_predictor,
                                               load_predictor)
+from stochastic_gcn_tpu_torch.training import checkpoint as Ckpt
 from stochastic_gcn_tpu_torch.training import step as St
 from stochastic_gcn_tpu_torch.training.loop import Trainer
 
@@ -426,8 +436,9 @@ EMA_ALPHA = 0.3
 # tensor parallelism: the column widths a kernel gets on one rank of --tp 2
 TP_KERNEL_WIDTHS = {64: "hidden 128 over 2 model ranks",
                     256: "hidden 512 over 2 model ranks"}
-SAVE_REPEATS = 2
 CKPT_EVERY = (1, 10)         # epochs a --ckpt_every cycle the save joins
+CYCLE_EPOCHS = 3             # epochs of a timed --ckpt_every 1 run
+SAVE_TURNS = (False, True, True, False)   # sync, async, async, sync
 
 
 def kernel_bytes(kind: str, live_rows: float, row_bytes: int, f: int,
@@ -1520,43 +1531,216 @@ def _cycle_shares(save_s: float, epoch_s: float) -> str:
                      f"--ckpt_every {k} cycle" for k in CKPT_EVERY)
 
 
-def phase_save(tr: Trainer, repeats: int = SAVE_REPEATS) -> dict:
-    """``Trainer.save()`` of the trained recipe, one process, timed on the
-    host clock (the device-to-host copies, the npz writer and the rename),
-    compressed (the default ``--ckpt_compress``) and not, ``repeats``
-    times each into a temporary directory; each beside the timed epoch's
-    seconds and as a share of a ``--ckpt_every k`` cycle (k epochs and one
-    save) for each k of ``CKPT_EVERY``.  ROADMAP.md queue 1 ports
-    ``--ckpt_async`` only if that share is visible."""
-    epoch_s = tr.epoch_stats["run_t"]
+def _secs(xs) -> str:
+    return ", ".join(f"{x:.3f}" for x in xs)
+
+
+def _timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def _ckpt_run(tr: Trainer, writes: list,
+              epochs: int = CYCLE_EPOCHS) -> dict:
+    """``epochs`` epochs with a ``Trainer.save()`` after each
+    (``--ckpt_every 1`` under ``tr.cfg``), the last write durable: the
+    seconds a cycle, each epoch's, each save() call's, the final wait's and
+    each npz write's (``writes`` collects them as they end).
+    ``train_epoch`` ends reading the loss, so the device is done."""
+    n = len(writes)
+    epoch_s, save_s = [], []
+    _sync(tr.device)
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        epoch_s.append(_timed(tr.train_epoch))
+        save_s.append(_timed(tr.save))
+    finish_s = _timed(tr.finish_checkpoints)
+    return dict(cycle_s=(time.perf_counter() - t0) / epochs,
+                epoch_s=epoch_s, save_s=save_s, finish_s=finish_s,
+                write_s=writes[n:])
+
+
+def _same_files(want: str, got: str) -> int:
+    """Fails unless the two npz files hold the same entries in the same
+    order, each of the same dtype and bitwise equal; returns the count."""
+    with np.load(want) as w, np.load(got) as g:
+        if g.files != w.files:
+            fail(f"{got} holds other entries than {want}")
+        bad = [k for k in w.files if g[k].dtype != w[k].dtype
+               or not np.array_equal(g[k], w[k])]
+        if bad:
+            fail(f"{got} differs from {want} in {bad}")
+        return len(w.files)
+
+
+def _state_copy(tr: Trainer) -> list:
+    """Clones of the train state's checkpoint leaves."""
+    return [(k, t.clone()) for k, t in
+            Ckpt._state_leaves(tr.state, tr.eval_histories)
+            if k.startswith("['state']")]
+
+
+def _resume_check(tr: Trainer, path: str) -> str:
+    """A ``--resume`` of ``tr`` from ``path`` (its last save), after one
+    more epoch moved the live state on: the counters and every train
+    state leaf must come back bitwise."""
+    want = _state_copy(tr)
+    counters = (tr.completed_epochs, tr.amt_data, list(tr.cost_val))
+    tr.train_epoch()
     cfg = tr.cfg
-    out = {"epoch_s": epoch_s}
+    tr.cfg = cfg.replace(ckpt_dir=os.path.dirname(path), resume=True)
     try:
-        for compress in (True, False):
-            with tempfile.TemporaryDirectory(prefix="chip_smoke_save_") as tmp:
-                tr.cfg = cfg.replace(ckpt_dir=tmp, ckpt_compress=compress)
-                secs = []
-                for _ in range(repeats):
-                    t0 = time.perf_counter()
-                    path = tr.save()
-                    secs.append(time.perf_counter() - t0)
-                size = os.path.getsize(path)
-            out["compressed" if compress else "uncompressed"] = secs
-            print(f"save: Trainer.save() of the Reddit-shaped recipe, one "
-                  f"process, {'compressed' if compress else 'uncompressed'}"
-                  f" npz of {size} bytes: "
-                  f"{', '.join(f'{x:.3f}' for x in secs)} s; the timed "
-                  f"epoch took {epoch_s:.3f} s, so the fastest save is "
-                  f"{_cycle_shares(min(secs), epoch_s)}", flush=True)
+        epoch = tr._try_resume(log=lambda *a: None)
     finally:
+        tr.cfg = cfg
+    if (epoch, tr.amt_data, tr.cost_val) != counters:
+        fail(f"--resume restored {(epoch, tr.amt_data, tr.cost_val)}, "
+             f"saved {counters}")
+    bad = [k for (k, w), (_, g) in zip(want, _state_copy(tr))
+           if not torch.equal(w, g)]
+    if bad:
+        fail(f"--resume from the async file differs in {bad}")
+    return f"--resume from it restored the counters (completed epochs " \
+        f"{epoch}, amt_data {tr.amt_data}) and {len(want)} state leaves " \
+        f"bitwise"
+
+
+def _save_arm(tr: Trainer, sync_cfg, async_cfg, writes: list) -> dict:
+    """One ``--ckpt_compress`` setting of :func:`phase_save`: the
+    ``--ckpt_every 1`` runs in turns, then one more async save of the last
+    (sync) run's state, timed to its return and to the file on disk,
+    whose file must equal that run's bitwise."""
+    res = {"first": tr._async_ckpt is None, "sync": [], "async": []}
+    for mode in SAVE_TURNS:
+        tr.cfg = async_cfg if mode else sync_cfg
+        res["async" if mode else "sync"].append(_ckpt_run(tr, writes))
+    tr.cfg = async_cfg
+    t0 = time.perf_counter()
+    path = tr.save()
+    res["latency_s"] = time.perf_counter() - t0
+    if async_cfg.ckpt_compress and not tr._async_ckpt.pending:
+        fail("a compressed async save returned after its write")
+    tr.finish_checkpoints()
+    res["durable_s"] = time.perf_counter() - t0
+    res["alone_write_s"] = writes[-1]
+    ck = tr._async_ckpt
+    if ck._stream is None or not all(h.is_pinned() for h in ck._host):
+        fail("the async save ran without its side stream or pinned buffers")
+    res["pinned_bytes"] = sum(h.numel() * h.element_size()
+                              for h in ck._host or ())
+    res["arrays"] = _same_files(
+        Ckpt.checkpoint_path(sync_cfg.ckpt_dir), path)
+    res["path"] = path
+    return res
+
+
+def _print_save_arm(kind: str, r: dict) -> None:
+    """The lines of one ``_save_arm``: the save's latency, its writes, the
+    epoch with and without a write in flight, the cycles and the shares."""
+    med = statistics.median
+    sync, asy = r["sync"], r["async"]
+    alone = [e for x in sync for e in x["epoch_s"]]
+    beside = [e for x in asy for e in x["epoch_s"][1:]]
+    epoch_s, slow_s = med(alone), med(beside) - med(alone)
+    sync_save = med([t for x in sync for t in x["save_s"]])
+    # a save() that found no write in flight: each async run's first, and
+    # the closing one
+    free = [x["save_s"][0] for x in asy] + [r["latency_s"]]
+    later = med(free[1:] if r["first"] else free)
+    on_path = later + max(slow_s, 0.0)
+    k = CKPT_EVERY[-1]
+    cyc = {m: med([x["cycle_s"] for x in r[m]]) for m in ("sync", "async")}
+    print(f"save: Reddit-shaped recipe, one process, {kind} npz of "
+          f"{os.path.getsize(r['path'])} bytes; --ckpt_every 1 over "
+          f"{CYCLE_EPOCHS} epochs, runs in turns "
+          f"{['async' if m else 'sync' for m in SAVE_TURNS]}:", flush=True)
+    for mode in ("sync", "async"):
+        for x in r[mode]:
+            print(f"save: {kind}, {mode}: {x['cycle_s']:.3f} s a cycle; "
+                  f"epochs {_secs(x['epoch_s'])} s, save() calls "
+                  f"{_secs(x['save_s'])} s, the final wait "
+                  f"{x['finish_s']:.3f} s, npz writes {_secs(x['write_s'])}"
+                  f" s", flush=True)
+    print(f"save: {kind}: a save() with no write in flight returned in "
+          f"{_secs(free)} s"
+          f"{' (the first allocates the pinned buffers)' if r['first'] else ''}"
+          f", against the sync save's {sync_save:.3f} s (median); "
+          f"{r['pinned_bytes']} pinned bytes; one more async save of the "
+          f"last run's state was on disk {r['durable_s']:.3f} s after the "
+          f"call with nothing else running (its npz write "
+          f"{r['alone_write_s']:.3f} s), and its {r['arrays']} arrays equal "
+          f"the sync file's bitwise", flush=True)
+    print(f"save: {kind}: an epoch alone (the sync runs) {epoch_s:.3f} s, "
+          f"with an async write in flight (the async runs' epochs 2 on) "
+          f"{_secs(beside)} s: {100 * slow_s / epoch_s:+.1f}% (medians)",
+          flush=True)
+    print(f"save: {kind}: the save's share of a --ckpt_every 1 cycle "
+          f"(measured: 1 - epoch alone / cycle, medians): sync "
+          f"{100 * (cyc['sync'] - epoch_s) / cyc['sync']:.1f}%, async "
+          f"{100 * (cyc['async'] - epoch_s) / cyc['async']:.1f}% (cycle "
+          f"{cyc['sync']:.3f} -> {cyc['async']:.3f} s, "
+          f"{100 * (1 - cyc['async'] / cyc['sync']):.1f}% shorter); of a "
+          f"--ckpt_every {k} cycle (reckoned: the sync save "
+          f"{sync_save:.3f} s; the async save's return {later:.3f} s plus "
+          f"the epoch's slowdown): sync "
+          f"{100 * sync_save / (k * epoch_s + sync_save):.1f}%, async "
+          f"{100 * on_path / (k * epoch_s + on_path):.1f}%", flush=True)
+
+
+def phase_save(tr: Trainer) -> dict:
+    """``Trainer.save()`` of the trained recipe, one process, into a
+    temporary directory, compressed (the default ``--ckpt_compress``) and
+    not, on the host clock, from the state ``sgd_train`` saves (after a
+    validation pass, which fills the eval histories).  Each setting
+    (``_save_arm``): ``CYCLE_EPOCHS`` epochs with a save after each
+    (``--ckpt_every 1``), sync against ``--ckpt_async`` in turns
+    (``SAVE_TURNS``; the first async save allocates the pinned buffers),
+    every epoch, save() call and npz write timed where it runs: an async
+    run's later epochs are the epochs with a write in flight, the sync
+    runs' the epochs alone.  The save's share of a ``--ckpt_every k``
+    cycle: at k = 1 measured, at k = 10 reckoned from the save's time on
+    the critical path.  Fails unless the async save runs on a side stream
+    into pinned buffers, a compressed one returns with its write pending,
+    the async file holds the sync file's arrays bitwise, and a
+    ``--resume`` from the last async file restores the state bitwise."""
+    cfg = tr.cfg
+    tr.evaluate(tr.ds.val_d)
+    writes = []
+    write = Ckpt._write_npz
+
+    def timed_write(*args):
+        writes.append(_timed(lambda: write(*args)))
+
+    Ckpt._write_npz = timed_write
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_save_") as tmp:
+            for compress in (True, False):
+                kind = "compressed" if compress else "uncompressed"
+                sync_cfg = cfg.replace(
+                    ckpt_dir=os.path.join(tmp, kind, "sync"),
+                    ckpt_compress=compress, ckpt_async=False)
+                async_cfg = sync_cfg.replace(
+                    ckpt_dir=os.path.join(tmp, kind, "async"),
+                    ckpt_async=True)
+                out[kind] = _save_arm(tr, sync_cfg, async_cfg, writes)
+                _print_save_arm(kind, out[kind])
+            tr.cfg = cfg
+            print(f"save: {_resume_check(tr, out[kind]['path'])}",
+                  flush=True)
+    finally:
+        Ckpt._write_npz = write
         tr.cfg = cfg
     return out
 
 
-def phase_profile(tr: Trainer, steps: int = PROFILE_STEPS) -> None:
-    """``steps`` more train steps, first timed without the profiler, then
-    under ``torch.profiler``: the top device ops, kernels per step and the
-    device's busy share of the unprofiled wall time."""
+def phase_profile(tr: Trainer, steps: int = PROFILE_STEPS,
+                  label: str = "CV+PP") -> None:
+    """``steps`` more train steps of ``tr`` (the estimator ``label``), first
+    timed without the profiler, then under ``torch.profiler``: the top
+    device ops, kernels per step and the device's busy share of the
+    unprofiled wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     bs, n = tr.cfg.batch_size, tr.ds.num_data
@@ -1566,7 +1750,7 @@ def phase_profile(tr: Trainer, steps: int = PROFILE_STEPS) -> None:
     def run():
         tr.state, _ = tr._train_epoch(tr.state, tr.graph_train,
                                       tr.train_features, tr.labels, bm,
-                                      tr.gen)
+                                      tr.gen, tr.importance_train)
         torch.cuda.synchronize()
 
     torch.cuda.synchronize()
@@ -1584,11 +1768,13 @@ def phase_profile(tr: Trainer, steps: int = PROFILE_STEPS) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     if not kernels:
-        print("profile: the profiler recorded no device time (not measured)")
+        print(f"profile: {label}: the profiler recorded no device time (not "
+              f"measured)")
         return
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
-    print(f"profile: {steps} train steps, {wall_ms / steps:.3f} ms/step "
+    print(f"profile: {label}, {steps} train steps, {wall_ms / steps:.3f} "
+          f"ms/step "
           f"unprofiled; device busy {busy_ms / steps:.3f} ms/step "
           f"({100 * busy_ms / wall_ms:.1f}% busy, "
           f"{100 - 100 * busy_ms / wall_ms:.1f}% idle); "
@@ -2019,7 +2205,8 @@ def phase_estimators(ds, cv_tr: Trainer, cv_curve, device: str = "cuda",
     ``IS_F1_FLOOR``), then the gradient-variance table from the trained CV+PP
     (``cv_tr``) and CVD+PP weights.  With ``results`` (the per-kernel
     results, on the card) the standalone fanout is also held against its
-    plain version on the first layer of a real Exact train batch.  Returns
+    plain version on the first layer of a real Exact train batch, and each
+    estimator's steps are profiled (``phase_profile``).  Returns
     ({path: launch counts of its counted epoch}, {estimator: launches per
     step})."""
     paths, per_step = {}, {}
@@ -2034,6 +2221,8 @@ def phase_estimators(ds, cv_tr: Trainer, cv_curve, device: str = "cuda",
     cvd = Trainer(Config(**{**cfg_kw, "cvd": True, "test_cvd": True}), ds,
                   device=device)
     counted("CVD+PP (cvd, test_cvd)", "CVD+PP", cvd, cvd_epochs, target)
+    if results is not None:
+        phase_profile(cvd, label="CVD+PP")
     print(f"estimators: CV+PP's curve, for comparison: "
           f"{', '.join(f'{f:.4f}' for f in cv_curve)}")
 
@@ -2073,12 +2262,15 @@ def phase_estimators(ds, cv_tr: Trainer, cv_curve, device: str = "cuda",
             f"F={pos.shape[0]} K={pos.shape[1]} d={x.shape[1]} (by element)",
             x, pos, w)
         del x, pack
+        phase_profile(exact, label="Exact")
     del exact
 
     det = Trainer(Config(**{**cfg_kw, "det_dropout": True}), ds,
                   device=device)
     counted("det-dropout+PP (cv, det_dropout)", "det-dropout+PP", det, 1,
             None)
+    if results is not None:
+        phase_profile(det, label="det-dropout+PP")
     del det
 
     ispp = Trainer(Config(**{**cfg_kw, "cv": False, "test_cv": False,
@@ -2089,6 +2281,8 @@ def phase_estimators(ds, cv_tr: Trainer, cv_curve, device: str = "cuda",
     if not max(curve) >= IS_F1_FLOOR:
         fail(f"IS+PP val micro-F1 {max(curve):.4f} < {IS_F1_FLOOR} in "
              f"{is_epochs} epochs")
+    if results is not None:
+        phase_profile(ispp, label="IS+PP")
     del ispp
 
     ns = {"cv": False, "test_cv": False}
@@ -3771,17 +3965,24 @@ def _hist_bytes(tr: Trainer) -> int:
 
 
 def _tp_save(tr: Trainer, out_dir: str) -> list:
-    """``TP_SAVE_REPEATS`` timed ``Trainer.save()`` calls of ``tr`` (every
-    rank gathers, global rank 0 writes; host clock, to the barrier after
-    the write)."""
+    """``TP_SAVE_REPEATS`` timed ``Trainer.save()`` calls of ``tr`` with
+    ``--ckpt_async``, which a mesh answers with the sync save (every rank
+    gathers, global rank 0 writes; host clock, to the barrier after the
+    write): fails if a background writer was built or rank 0's file was
+    not on disk when save() returned."""
     cfg = tr.cfg
-    tr.cfg = cfg.replace(ckpt_dir=os.path.join(out_dir, "tp_save"))
+    tr.cfg = cfg.replace(ckpt_dir=os.path.join(out_dir, "tp_save"),
+                         ckpt_async=True)
     secs = []
     try:
         for _ in range(TP_SAVE_REPEATS):
             t0 = time.perf_counter()
-            tr.save()
+            path = tr.save()
             secs.append(time.perf_counter() - t0)
+            if tr._async_ckpt is not None or (
+                    path is not None and not os.path.exists(path)):
+                fail("a tp Trainer's --ckpt_async save did not take the "
+                     "sync gathered path")
     finally:
         tr.cfg = cfg
     return secs
@@ -3989,8 +4190,10 @@ def phase_tp(device: str = "cuda", world: int = 0, reddit_kw=None,
     a = main["timed"][str(TP_HIDDENS[0])]["tp"]
     epoch_s = main["epoch_steps"] * min(a["secs_turns"]) / a["steps"]
     print(f"tp: Trainer.save() of the {tp_arm} Trainer at hidden "
-          f"{TP_HIDDENS[0]} (the column blocks gathered, rank 0 writing the "
-          f"compressed npz): {', '.join(f'{x:.3f}' for x in secs)} s; an "
+          f"{TP_HIDDENS[0]} with --ckpt_async (the sync fallback of a mesh: "
+          f"the column blocks gathered, rank 0 writing the compressed npz "
+          f"before save() returns): {', '.join(f'{x:.3f}' for x in secs)} "
+          f"s; an "
           f"epoch of {main['epoch_steps']} steps at its fastest turn takes "
           f"{epoch_s:.3f} s, so the fastest save is "
           f"{_cycle_shares(min(secs), epoch_s)}", flush=True)

@@ -7,11 +7,10 @@ lines and checkpoints carry the same config fields in both packages.  The
 port imports nothing of the JAX package; tests/test_torch_config.py holds
 the two definitions against each other.
 
-Many options configure parts that are not ported yet (the trainer refuses
-them, training/loop.py::_refuse_unported) or name JAX-only mechanisms
-(``sched_prepass``, ``scan_unroll``, ``use_pallas``: accepted, no effect;
-``use_pallas`` with ``--graph_format edgelist`` raises, as in JAX).
-They stay so that one command line drives both packages.
+Some options name JAX-only mechanisms (``sched_prepass``, ``scan_unroll``,
+``use_pallas``: accepted, no effect; ``use_pallas`` with ``--graph_format
+edgelist`` raises, as in JAX).  They stay so that one command line drives
+both packages.
 """
 
 from __future__ import annotations
@@ -120,6 +119,8 @@ class Config:
     ckpt_dir: str = "tmp"
     ckpt_every: int = 0               # 0 = only at the end
     ckpt_compress: bool = True
+    # write checkpoints from a background thread (one process only;
+    # training/checkpoint.py::AsyncCheckpointer)
     ckpt_async: bool = False
     # continue an interrupted run from ckpt_dir's checkpoint (fresh start
     # when there is none); --load restores weights and skips training

@@ -12,6 +12,8 @@ them, one after another, in one group (one spawn for a whole test module).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -407,6 +409,23 @@ def trainer_steps(cases: dict, out: str, device: str = "cpu") -> None:
             tr.save()
         if export:
             export_predictor(tr, export[0])
+    _save(out, res)
+
+
+def save_runs(cases: dict, out: str) -> None:
+    """For every ``name: flags`` of ``cases``: a Trainer of ``flags``
+    trains one epoch and saves.  Rank 0 writes ``<name>`` (whether the
+    Trainer built a background writer, and whether the file was on disk
+    when ``save()`` returned) to ``out``."""
+    res = {}
+    for name, flags in cases.items():
+        cfg = parse_flags(flags)
+        tr = Trainer(cfg, load_data(cfg), device=_device())
+        tr.train_epoch()
+        path = tr.save()
+        if dist.get_rank() == 0:
+            res[name] = np.array([tr._async_ckpt is not None,
+                                  os.path.exists(path)])
     _save(out, res)
 
 

@@ -17,11 +17,15 @@ train state from files either package wrote.
 The ``key`` leaf is the JAX PRNG key of ``cfg.seed`` (``PRNGKey(seed)``'s
 raw ``[0, seed]``).  The two frameworks draw different random streams, so
 no generator state is carried across in either direction.
+
+:class:`AsyncCheckpointer` (``--ckpt_async``) writes the same entries from
+a background thread.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 import torch
@@ -98,6 +102,35 @@ def checkpoint_path(ckpt_dir: str) -> str:
     return os.path.join(ckpt_dir, "model.ckpt.npz")
 
 
+def _npz_arrays(leaves, seed: int, extra: dict) -> dict:
+    """The npz entries of a checkpoint: ``leaves`` ([(keystr path, CPU
+    tensor)], :func:`_state_leaves`' order) as ``leaf:`` arrays, bfloat16
+    ones as ``bf16leaf:`` uint16 bit views, then the ``key`` leaf and the
+    ``extra:`` counters."""
+    arrays = {}
+    for k, t in leaves:
+        if t.dtype == torch.bfloat16:
+            arrays[_BF16 + k] = t.view(torch.int16).numpy().view(np.uint16)
+        else:
+            arrays[_LEAF + k] = t.numpy()
+    arrays[_LEAF + "['key']"] = jax_key(seed)
+    for k, v in (extra or {}).items():
+        arrays[_EXTRA + k] = np.asarray(v)
+    return arrays
+
+
+def _write_npz(path: str, arrays: dict, compress: bool) -> None:
+    """Write ``arrays`` to ``path`` atomically: into ``<path>.tmp``, then
+    renamed over ``path``, so a crash mid-write leaves the previous
+    snapshot intact."""
+    writer = np.savez_compressed if compress else np.savez
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        writer(f, **arrays)
+    os.replace(tmp, path)
+    print(f"Model saved in file: {path}")
+
+
 def save_checkpoint(ckpt_dir: str, state: TrainState, eval_histories,
                     seed: int, extra: dict = None,
                     compress: bool = True) -> str:
@@ -106,23 +139,105 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, eval_histories,
     counters for --resume, stored as ``extra:`` entries."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = checkpoint_path(ckpt_dir)
-    arrays = {}
-    for k, t in _state_leaves(state, eval_histories):
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            arrays[_BF16 + k] = t.view(torch.int16).numpy().view(np.uint16)
-        else:
-            arrays[_LEAF + k] = t.numpy()
-    arrays[_LEAF + "['key']"] = jax_key(seed)
-    for k, v in (extra or {}).items():
-        arrays[_EXTRA + k] = np.asarray(v)
-    writer = np.savez_compressed if compress else np.savez
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        writer(f, **arrays)
-    os.replace(tmp, path)
-    print(f"Model saved in file: {path}")
+    leaves = [(k, t.detach().cpu())
+              for k, t in _state_leaves(state, eval_histories)]
+    _write_npz(path, _npz_arrays(leaves, seed, extra), compress)
     return path
+
+
+class AsyncCheckpointer:
+    """:func:`save_checkpoint` off the caller's critical path (the JAX
+    package's ``AsyncCheckpointer``, ``--ckpt_async``).
+
+    ``save()`` waits for the previous write, snapshots every leaf into
+    fresh tensors on ``device`` and hands the npz write to a background
+    thread.  On a CUDA device the snapshot is taken on the current stream,
+    so the next step's in-place history scatters and Adam updates, queued
+    behind it, cannot reach it; a side stream then copies it into
+    page-locked host buffers (allocated at the first save, reused after:
+    the wait makes reuse safe) and records an event the writer thread
+    waits on.  On the CPU the snapshot is a ``clone()`` the thread writes
+    from.  Nothing falls back: a failure to pin or to copy raises in
+    ``save()``.
+
+    The thread writes the file as :func:`save_checkpoint` does (the same
+    entries, tmp then rename), so a crash mid-write leaves the previous
+    snapshot loadable.  A writer error is re-raised by the next
+    ``wait()``; callers wait before reading the file back and before the
+    process exits.  One process only: a mesh's save gathers its blocks in
+    collectives that cannot overlap the next epoch's (``Trainer.save``
+    keeps the sync path there)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._thread = None
+        self._error = None
+        self._stream = None
+        self._host = None         # pinned buffers of the last snapshot
+
+    @property
+    def pending(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def wait(self) -> None:
+        """Join the write in flight, if any; re-raise its error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _to_host(self, snap: list):
+        """Copy the device snapshot into the pinned buffers on the side
+        stream; returns the buffers and the event that marks the copy."""
+        dev = self.device
+        if self._host is None or [(h.shape, h.dtype) for h in self._host] \
+                != [(s.shape, s.dtype) for s in snap]:
+            self._host = [torch.empty(s.shape, dtype=s.dtype,
+                                      pin_memory=True) for s in snap]
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=dev)
+        self._stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self._stream):
+            for h, s in zip(self._host, snap):
+                h.copy_(s, non_blocking=True)
+                # the allocator may hand s's memory out again only after
+                # the side stream's copy
+                s.record_stream(self._stream)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        return self._host, done
+
+    def save(self, ckpt_dir: str, state: TrainState, eval_histories,
+             seed: int, extra: dict = None, compress: bool = True) -> str:
+        """Snapshot ``state`` and ``eval_histories`` and start writing them
+        to ``<ckpt_dir>/model.ckpt.npz`` in the background; returns the
+        path, which holds the snapshot once :meth:`wait` returns."""
+        self.wait()
+        os.makedirs(ckpt_dir, exist_ok=True)
+        path = checkpoint_path(ckpt_dir)
+        keys, live = zip(*_state_leaves(state, eval_histories))
+        with torch.no_grad():
+            snap = [t.detach().clone() for t in live]
+        done = None
+        if self.device.type == "cuda":
+            snap, done = self._to_host(snap)
+        extra = {k: np.array(v) for k, v in (extra or {}).items()}
+
+        def write():
+            try:
+                if done is not None:
+                    done.synchronize()
+                _write_npz(path, _npz_arrays(zip(keys, snap), seed, extra),
+                           compress)
+            except Exception as e:       # re-raised by the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, daemon=True,
+                                        name="ckpt-writer")
+        self._thread.start()
+        return path
 
 
 def load_checkpoint(ckpt_dir: str, state: TrainState, eval_histories,

@@ -57,8 +57,8 @@ from ..parallel.mesh import (Mesh, make_mesh, owner_grouped_batch_matrix,
 from ..sampler.scheduler import MinibatchIterator, compute_importance
 from ..utils.metrics import Stat, f1_from_counts
 from . import step as S
-from .checkpoint import (checkpoint_path, load_checkpoint, load_loop_extras,
-                         save_checkpoint)
+from .checkpoint import (AsyncCheckpointer, checkpoint_path, load_checkpoint,
+                         load_loop_extras, save_checkpoint)
 
 
 def assemble_input_features(cfg, feats, nbr_feats, preprocess: bool):
@@ -88,7 +88,9 @@ def to_device_features(cfg, feats, num_nodes: int, device):
     return dense_rows(feats, num_nodes, dtype=dtype, device=device)
 
 
-def _refuse_unported(cfg) -> None:
+def _check_flags(cfg) -> None:
+    """Refuse flag combinations the JAX Trainer refuses, and multi-device
+    flags that do not tile."""
     if cfg.det_dropout and (cfg.importance or cfg.test_importance):
         # as the JAX Trainer: importance sampling produces no cross-term
         # (slot_aw) weights
@@ -104,13 +106,6 @@ def _refuse_unported(cfg) -> None:
     if cfg.num_processes > 1 and not cfg.coordinator:
         raise ValueError(f"--num_processes {cfg.num_processes} hosts need "
                          "--coordinator host:port")
-    unported = {
-        "--ckpt_async": cfg.ckpt_async,
-    }
-    asked = [k for k, v in unported.items() if v]
-    if asked:
-        raise NotImplementedError(
-            f"not ported yet (ROADMAP.md, queue 1): {', '.join(asked)}")
 
 
 def _hosts(cfg) -> int:
@@ -154,7 +149,7 @@ class Trainer:
 
     def __init__(self, cfg, ds: Dataset, device="cuda",
                  distributed: Optional[bool] = None):
-        _refuse_unported(cfg)
+        _check_flags(cfg)
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda') but CUDA is not "
@@ -275,6 +270,7 @@ class Trainer:
         self.stop_requested = False   # preemption: finish epoch, save, exit
         self.epoch_stats: dict = {}
         self._prev_sig_handlers: list = []
+        self._async_ckpt: Optional[AsyncCheckpointer] = None   # built lazily
 
     def _shard_tables(self, mesh: Mesh) -> None:
         """Keep this rank's row block of the padded graphs (of an edge
@@ -589,8 +585,11 @@ class Trainer:
     def sgd_train(self, log=print, max_epochs: Optional[int] = None):
         """SGDTrain (train.py:170-238): epoch loop, validation, early
         stopping on the trailing-window validation loss, then the final
-        save.  The preemption handlers are restored only after that save
-        is on disk, so a SIGTERM during it still just sets the stop flag."""
+        save, durable before this returns.  The preemption handlers are
+        restored only after that save is on disk, so a SIGTERM during it
+        (or during its background write) still just sets the stop flag.
+        If training raises, a write in flight is still joined (and its own
+        error logged) before the exception propagates."""
         cfg = self.cfg
         log = self._log(log)
         try:
@@ -601,6 +600,13 @@ class Trainer:
             self._sgd_epoch_loop(cfg, start_epoch, max_epochs, log)
             log("Optimization Finished!")
             self.save()
+            self.finish_checkpoints()
+        except BaseException:
+            try:
+                self.finish_checkpoints()
+            except Exception as e:
+                log(f"checkpoint write failed while training failed: {e!r}")
+            raise
         finally:
             self._restore_preemption_handlers()
 
@@ -673,12 +679,23 @@ class Trainer:
 
     def save(self):
         """Write the full state in the JAX layout to
-        ``<ckpt_dir>/model.ckpt.npz``, with the --resume loop counters.
-        Under a mesh the blocks are gathered into whole tables (every rank
-        takes part; :meth:`_whole_state`) and global rank 0 writes them."""
+        ``<ckpt_dir>/model.ckpt.npz``, with the --resume loop counters;
+        returns the path.  With ``--ckpt_async`` in one process the state
+        is snapshotted and written in the background
+        (:class:`AsyncCheckpointer`): the file is there once
+        :meth:`finish_checkpoints` returns.  Under a mesh the blocks are
+        gathered into whole tables (every rank takes part;
+        :meth:`_whole_state`) and global rank 0 writes them, whatever
+        ``--ckpt_async`` says, as in the JAX package."""
         extra = {"completed_epochs": np.int64(self.completed_epochs),
                  "amt_data": np.int64(self.amt_data),
                  "cost_val": np.asarray(self.cost_val, np.float64)}
+        if self.cfg.ckpt_async and self.mesh is None:
+            if self._async_ckpt is None:
+                self._async_ckpt = AsyncCheckpointer(self.device)
+            return self._async_ckpt.save(
+                self.cfg.ckpt_dir, self.state, self.eval_histories,
+                self.cfg.seed, extra=extra, compress=self.cfg.ckpt_compress)
         state, eval_h = self._whole_state()
         path = None
         if self._main:
@@ -688,6 +705,14 @@ class Trainer:
         if self.mesh is not None:
             torch.distributed.barrier()
         return path
+
+    def finish_checkpoints(self) -> None:
+        """Wait for an async checkpoint write in flight, re-raising its
+        error.  :meth:`load`, :meth:`_try_resume` and the end of
+        :meth:`sgd_train` call it; so must anything else that reads the
+        file back or exits the process."""
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait()
 
     def _load_sharded(self, load_history: bool) -> None:
         """:meth:`load` under a mesh: every leaf read whole into a
@@ -772,6 +797,7 @@ class Trainer:
         to continue from.  The host-side shuffle order restarts from the
         iterator's seed, and the torch generators restart from cfg.seed:
         neither is checkpointed (a JAX checkpoint's key cannot seed them)."""
+        self.finish_checkpoints()
         path = checkpoint_path(self.cfg.ckpt_dir)
         if not os.path.exists(path):
             log(f"resume: no checkpoint at {path}, starting fresh")
@@ -794,6 +820,7 @@ class Trainer:
         the eval dtype when the two models' history shapes match.  The
         checkpoint's JAX RNG key is not carried over: the frameworks draw
         different streams."""
+        self.finish_checkpoints()      # read after write
         if load_history is None:
             load_history = self.cfg.gradvar
         if self.mesh is None:

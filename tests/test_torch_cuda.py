@@ -1052,3 +1052,33 @@ def test_fullterm_train_steps_on_card_match_cpu(cuda, over, per_step,
     for l, k in St.param_keys(cpu[0].params):
         torch.testing.assert_close(gpu[0].params[l][k].cpu(),
                                    cpu[0].params[l][k], rtol=0, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_async_save_on_card_snapshots_before_the_next_step(cuda, tmp_path):
+    """``--ckpt_async`` on the card: the snapshot is taken on the current
+    stream ahead of the next epoch's in-place updates, copied on a side
+    stream into pinned buffers (reused by the next save), and the file
+    holds the arrays of a sync save of the same state, bit for bit."""
+    ds = synthetic_dataset(num_nodes=300, feature_dim=16, num_classes=4,
+                           normalization="graphsage", seed=0)
+    cfg = Config(dataset="synthetic", batch_size=32, degree=1, test_degree=1,
+                 cv=True, test_cv=True, hidden1=16, seed=1,
+                 test_batch_size=64, ckpt_dir=str(tmp_path / "sync"))
+    tr = Trainer(cfg, ds, device=cuda)
+    tr.train_epoch()
+    want = tr.save()
+    tr.cfg = cfg.replace(ckpt_async=True, ckpt_dir=str(tmp_path / "async"))
+    got = tr.save()
+    tr.train_epoch()               # updates the live state in place
+    tr.finish_checkpoints()
+    ck = tr._async_ckpt
+    assert ck._stream is not None and all(h.is_pinned() for h in ck._host)
+    with np.load(want) as w, np.load(got) as g:
+        assert g.files == w.files
+        for k in w.files:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    host = list(ck._host)
+    tr.save()
+    tr.finish_checkpoints()
+    assert all(a is b for a, b in zip(host, ck._host))

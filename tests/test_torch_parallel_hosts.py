@@ -8,9 +8,9 @@ predict again); a one-host ``--dp 4`` run of the same flags is the
 reference.  Gloo sums over the same 4 ranks in the same order either way,
 so the two hosts agree exactly and with the one-host run within rtol 1e-5;
 the collective bytes split into those that stay on a host and those that
-cross hosts.  The launch's mismatches raise, what is still not ported
-(``--ckpt_async``) raises naming ROADMAP.md, and ``--tp 2`` outside a
-process group of ``dp * tp`` ranks raises the group-size error."""
+cross hosts.  The launch's mismatches raise, ``--tp 2`` outside a process
+group of ``dp * tp`` ranks raises the group-size error, and
+``--ckpt_async`` builds in one process."""
 
 import os
 import socket
@@ -112,8 +112,22 @@ def test_ranks_not_host_major_raise(tmp_path):
 
 @pytest.mark.parametrize("over, error, match", [
     ({"tp": 2}, ValueError, "process group of 2 ranks"),
-    ({"ckpt_async": True}, NotImplementedError, "ROADMAP")])
-def test_tp_needs_its_group_and_ckpt_async_still_raises(over, error, match):
-    cfg = parse_flags(FLAGS[:-2]).replace(**over)
-    with pytest.raises(error, match=match):
-        Trainer(cfg, Ld.load_data(cfg), device="cpu")
+    ({"ckpt_async": True}, None, None)])
+def test_tp_needs_its_group_and_ckpt_async_builds(tmp_path, over, error,
+                                                  match):
+    """``--tp 2`` outside a group of 2 ranks raises; ``--ckpt_async`` is
+    ported: without ``--dp`` the Trainer builds in one process and its
+    save writes in the background (a group keeps the sync save:
+    tests/test_torch_ckpt_async.py)."""
+    cfg = parse_flags(FLAGS[:-2] + ["--ckpt_dir", str(tmp_path)]).replace(
+        **over)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            Trainer(cfg, Ld.load_data(cfg), device="cpu")
+        return
+    tr = Trainer(cfg, Ld.load_data(cfg), device="cpu")
+    assert tr.mesh is None
+    path = tr.save()
+    assert tr._async_ckpt is not None
+    tr.finish_checkpoints()
+    assert os.path.exists(path)

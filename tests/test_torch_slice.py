@@ -150,13 +150,15 @@ def test_cuda_trainer_without_cuda_raises(trained):
 
 
 def test_unported_options_raise(trained):
-    """What is still refused names ROADMAP.md; ``--dp 2`` and ``--tp 2``
-    are ported and need a process group of two ranks, so without one they
-    raise rather than train on one device; ``--dp_hosts 2`` is ported and
-    does not tile ``--dp 1``."""
-    cfg, ds, _, _ = trained
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(port_cfg(cfg.replace(ckpt_async=True)), ds, device="cpu")
+    """Nothing is refused as unported: a ``--ckpt_async`` Trainer loads the
+    JAX checkpoint and serves JAX's predictions.  ``--dp 2`` and ``--tp
+    2`` need a process group of two ranks, so without one they raise
+    rather than train on one device; ``--dp_hosts 2`` does not tile
+    ``--dp 1``."""
+    cfg, ds, want, _ = trained
+    tr = _port(cfg.replace(ckpt_async=True), ds)
+    np.testing.assert_allclose(tr.predict(np.asarray(ds.test_d)), want,
+                               rtol=0, atol=ATOL)
     with pytest.raises(ValueError, match="process group of 2 ranks"):
         Trainer(port_cfg(cfg.replace(tp=2)), ds, device="cpu")
     with pytest.raises(ValueError, match="hosts"):

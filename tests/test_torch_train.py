@@ -307,10 +307,14 @@ def test_adam_matches_optax():
 
 # ------------------------------ one step ----------------------------------
 
-@pytest.fixture(scope="module")
-def graphs():
+@pytest.fixture(scope="module", params=[False, True],
+                ids=["single_label", "multitask"])
+def graphs(request):
+    """The dataset (multi-hot labels for ``multitask``) and its padded
+    train graph in both packages."""
     ds = JLd.synthetic_dataset(num_nodes=240, feature_dim=16, num_classes=5,
-                               normalization="graphsage", seed=0)
+                               normalization="graphsage",
+                               multitask=request.param, seed=0)
     return ds, JG.pad_csr(ds.train_adj), G.pad_csr(ds.train_adj)
 
 
@@ -322,12 +326,17 @@ def _bf16_values(rng, shape, n):
 
 
 def test_train_step_matches_jax(graphs):
+    """One CV+PP train step on a JAX pack, single-label (softmax) or
+    multi-label (``Config.multitask``, ``dataset="ppi"``: sigmoid)."""
     ds, jg, tg = graphs
     n = ds.num_data
-    cfg = Config(batch_size=32, degree=1, cv=True, test_cv=True, hidden1=16,
+    multitask = bool((ds.labels.sum(1) != 1).any())
+    cfg = Config(dataset="ppi" if multitask else "cora", batch_size=32,
+                 degree=1, cv=True, test_cv=True, hidden1=16,
                  normalization="graphsage", layer_norm=True,
                  num_fc_layers=2, weight_decay=5e-4, dropout=0.0,
                  pad_degree=64, seed=1)
+    assert cfg.multitask == multitask
     jspec = JM.build_model_spec(cfg, ds.feature_dim, ds.num_classes, True,
                                 True, False)
     spec = M.build_model_spec(port_cfg(cfg), ds.feature_dim, ds.num_classes, True,
@@ -710,20 +719,23 @@ def test_cli_train_end_to_end(tmp_path, capsys):
     {"coordinator": "localhost:1234"}, {"num_processes": 2},
     {"graph_format": "edgelist", "dp": 2, "shard_graph": True}])
 def test_unported_training_options_raise(tmp_path, over):
-    """The option still to port (ROADMAP.md, queue 1: ``--ckpt_async``)
-    raises and names it.  The multi-device options are ported
-    (``--owner_batching``, the node-sharded edge list, the multi-host
-    launch, ``--tp > 1``): a Trainer built with them outside the process
-    group they need raises ValueError rather than training on one device,
-    as ``--dp 2`` does."""
+    """Every option of the JAX package is ported.  ``--ckpt_async`` builds
+    a one-process Trainer whose save writes in the background.  The
+    multi-device options (``--owner_batching``, the node-sharded edge
+    list, the multi-host launch, ``--tp > 1``): a Trainer built with them
+    outside the process group they need raises ValueError rather than
+    training on one device, as ``--dp 2`` does."""
     cfg = _flags(tmp_path)
     if over.get("dp", 1) > 1:
         cfg = cfg.replace(batch_size=cfg.batch_size * 2,
                           test_batch_size=cfg.test_batch_size * 2)
     ds = Ld.load_data(port_cfg(cfg))
     if "ckpt_async" in over:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(port_cfg(cfg.replace(**over)), ds, device="cpu")
+        tr = Trainer(port_cfg(cfg.replace(**over)), ds, device="cpu")
+        path = tr.save()
+        assert tr._async_ckpt is not None       # the background writer
+        tr.finish_checkpoints()
+        assert os.path.exists(path) and not os.path.exists(path + ".tmp")
         return
     with pytest.raises(ValueError, match="process group|hosts"):
         Trainer(port_cfg(cfg.replace(**over)), ds, device="cpu")
