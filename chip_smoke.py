@@ -184,15 +184,21 @@ Phases, one or more lines each:
    to 131,072 rows, tiered against untiered, on the host clock.
 10. dp — data parallelism, one NCCL rank per card (``python3 chip_smoke.py
    --phase dp`` runs the card, build and dp phases alone; ``phase_dp``):
-   the halo primitives; the SBM's first dp epoch against one process, CV+PP
-   to 0.90 and its checkpoint served by one process; the Reddit-shaped
-   recipe timed per rank; the owner arm (the same recipe with
-   ``--owner_batching --partition_nodes rcm``: a timed epoch, the share of
-   the routed history reads and writes, and of the layer's input rows,
-   that the rank owns, and at world > 1 the share under each flag alone);
-   the edge-list arm (the uncapped SBM as a node-sharded edge list
-   against the row-sharded padded graph: graph bytes per rank, the first
-   ``DP_HELD_STEPS`` steps within ``DP_FIRST_EPOCH_RTOL``); each arm's
+   the halo primitives, the scatter's static-capacity cases among them;
+   the SBM's first dp epoch against one process, CV+PP to 0.90 and its
+   checkpoint served by one process, and at world > 1 the SBM plain
+   against owner batching (``--partition_nodes rcm``) in turns;
+   the Reddit-shaped recipe timed per rank; the owner arm (the same recipe
+   with ``--owner_batching --partition_nodes rcm``: a timed epoch, the
+   share of the routed history reads and writes, and of the layer's input
+   rows, that the rank owns, and at world > 1 the share under each flag
+   alone); both arms in turns against ``--halo_exchange false`` (exact
+   splits), each printing on a ``dp halo:`` line ms/step, stream syncs a
+   step, collective bytes a step and ``hist_dropped`` per epoch; the
+   edge-list arm (the uncapped SBM as a node-sharded edge
+   list against the row-sharded padded graph: graph bytes per rank, the
+   first ``DP_HELD_STEPS`` steps within ``DP_FIRST_EPOCH_RTOL``, then in
+   turns against ``--halo_exchange false``); each arm's
    launches checked exactly per rank and the four kernels on its inputs
    held against their plain versions and timed on rank 0; then the
    coordinator arm: the ranks started as hosts through the multi-host
@@ -3350,6 +3356,11 @@ def phase_ema(tr: Trainer, alpha: float = EMA_ALPHA):
 
 DP_HALO = dict(rows_per_rank=4096, d=128, k=64, n_req=8192)
 DP_FIRST_EPOCH_RTOL = 1e-4   # dp against one process, same seed, no dropout
+# runs held against a run at another data width keep every history write:
+# a scatter capacity multiplier of at least the data width never drops
+# (parallel/halo.py::scatter_capacity), and a dropped write would leave a
+# staler history row that the other run does not have
+NO_DROP = {"scatter_cap_mult": 8.0}
 # over the epoch's first steps: then the atomics' order, the ranks' sum
 # order and the bf16 history make any two runs drift apart (at world 4 the
 # sums differ from step 1 and reached 4.4e-4 by step 32; PERF.md, PR 9)
@@ -3361,17 +3372,40 @@ DP_SHARE_STEPS = 16          # steps of each flag alone (world > 1)
 # owner blocks of the aligned step checked at world 1, where the Trainer's
 # own layout (owner_blocks = dp) is the classic one
 DP_ALIGNED_BLOCKS = 4
-DP_TIMED_TURNS = ("plain", "owner", "owner", "plain")
 OWNER_OVER = {"owner_batching": True, "partition_nodes": "rcm"}
-# the coordinator arm: a small graph, CV+PP, a checkpoint round trip
+# each arm against --halo_exchange false (exact splits), in turns
+EXACT_OVER = {"halo_exchange": False}
+DP_ARMS = {"plain": {}, "plain exact": EXACT_OVER, "owner": OWNER_OVER,
+           "owner exact": {**OWNER_OVER, **EXACT_OVER}}
+# two arms alive at a time, timed in turns: the host-bound step's time
+# depends on what else the process holds (on four H100s the
+# static-capacity arm ran ~31 ms/step beside three other Trainers and
+# ~20 beside one), and a user's run holds one Trainer
+DP_PAIRS = (("plain", "plain exact"), ("owner", "owner exact"))
+DP_TIMED_TURNS = (0, 1, 1, 0)    # indices into a pair
+# the edge-list arm's transports in turns, steps a turn
+DP_EDGE_TURNS = ("default", "exact", "exact", "default")
+DP_EDGE_STEPS = 32
+# the SBM owner arm (world > 1): plain and owner-batched CV+PP in turns
+DP_SBM_TURNS = ("plain", "owner", "owner", "plain")
+# the coordinator arm: a small graph, CV+PP, a checkpoint round trip.  Its
+# scatter drops nothing (NO_DROP): the CV refresh before a prediction
+# walks the nodes in id order, so at world 4 a rank's block of a refresh
+# field is all another rank's rows and the default capacity drops
+# eval-history writes; the round trip's two predictions refresh from two
+# history states (the second from the rows the first refreshed and saved),
+# and only an exact scatter makes them equal.  The default's dropping
+# evaluation is held against the JAX package's on the CPU
+# (tests/test_torch_parallel_jax.py)
 COORD_FLAGS = ["--dataset", "synthetic:8192:64:8", "--cv", "--test_cv",
                "--degree", "1", "--test_degree", "1", "--hidden1", "64",
                "--batch_size", "256", "--test_batch_size", "1024",
-               "--epochs", "2", "--seed", "1"]
+               "--epochs", "2", "--seed", "1",
+               "--scatter_cap_mult", str(NO_DROP["scatter_cap_mult"])]
 COORD_TIMEOUT = 300
 # the tp arm: held steps in f32 histories and dedup fields (duplicate
 # history writes race on CUDA), timed steps at the recipe and at hidden 512
-TP_HELD = {"history_dtype": "float32", "field_dedup": True}
+TP_HELD = {"history_dtype": "float32", "field_dedup": True, **NO_DROP}
 TP_HIDDENS = (128, 512)
 TP_WARMUP_STEPS = 16
 TP_TIMED_STEPS = 64
@@ -3479,9 +3513,10 @@ def _epoch_losses(tr: Trainer, steps: int = 0) -> list:
 
 
 def _dp_first_epoch(ds, device: str, cfg_kw: dict) -> None:
-    """The first epoch of CV+PP on ``ds`` with dedup-compacted fields and
-    no dropout, data-parallel, against two one-process runs of the same
-    seed on rank 0's card, step by step.  The fanout backward's atomics add
+    """The first epoch of CV+PP on ``ds`` with dedup-compacted fields, no
+    dropout and a scatter capacity that drops nothing (``NO_DROP``),
+    data-parallel, against two one-process runs of the same seed on rank
+    0's card, step by step.  The fanout backward's atomics add
     repeated positions in an order that depends on the layout (the dp path
     runs it on a gathered buffer), so the runs part at the float32 rounding
     of a sum after a few steps, and the bf16 history makes that grow to
@@ -3490,7 +3525,7 @@ def _dp_first_epoch(ds, device: str, cfg_kw: dict) -> None:
     whole epoch's largest differences are printed, the one-process runs'
     own beside them."""
     cfg = Config(**{**cfg_kw, "field_dedup": True, "dropout": 0.0,
-                    "dp": torch.distributed.get_world_size()})
+                    "dp": torch.distributed.get_world_size(), **NO_DROP})
     tr = Trainer(cfg, ds, device=device)
     got = np.array(_epoch_losses(tr))
     f1 = tr.evaluate(ds.val_d)[2]
@@ -3577,6 +3612,20 @@ def _wire_per_step(res: dict) -> str:
             f"{cross / steps:.0f} cross hosts")
 
 
+def _turns(arm: str) -> str:
+    pair = next(p for p in DP_PAIRS if arm in p)
+    return "/".join(pair[i] for i in DP_TIMED_TURNS)
+
+
+def _transport(arm: str) -> str:
+    return ("exact splits, --halo_exchange false" if "exact" in arm
+            else "static-capacity scatter")
+
+
+def _syncs(res: dict) -> str:
+    return "rank 0 only" if res["syncs"] is None else f"{res['syncs']:.1f}"
+
+
 def _shares(routed: dict) -> dict:
     """The share of each kind of routed rows that the rank owns itself."""
     return {k: round(mine / live, 4) if live else None
@@ -3628,7 +3677,8 @@ def _aligned_step(tr: Trainer, blocks: int) -> dict:
 
 def _timed_epoch(label: str, tr: Trainer) -> dict:
     """One epoch of ``tr`` with the launch, wire and routed-row counters
-    reset just before it; launches checked exactly per rank."""
+    reset just before it; launches checked exactly per rank.  Also the
+    epoch's ``hist_dropped`` (``Trainer.epoch_stats``)."""
     from stochastic_gcn_tpu_torch.parallel import mesh as PM
     device = tr.device
     _sync(device)
@@ -3651,18 +3701,22 @@ def _timed_epoch(label: str, tr: Trainer) -> dict:
     return dict(steps=steps, secs=secs, loss=loss, edges=tr.amt_data - amt0,
                 launches=launches, wire=dict(PM.WIRE),
                 wire_cross=dict(PM.WIRE_CROSS_HOST),
-                routed={k: list(v) for k, v in PM.ROUTED.items()},
+                routed=PM.routed_counts(),
+                hist_dropped=tr.epoch_stats["hist_dropped"],
                 peak_gib=_peak_gib(device))
 
 
-def _dp_profile(label: str, tr: Trainer,
-                steps: int = PROFILE_STEPS) -> None:
+def _dp_profile(label: str, tr: Trainer, steps: int = PROFILE_STEPS,
+                detail: bool = True):
     """``steps`` train steps of ``tr`` on every rank, timed on the host
     clock, then ``steps`` more with rank 0 under ``torch.profiler``: rank
-    0 prints the device's busy share of the unprofiled steps, the device
-    kernels and the host operators of most time (the host's profiled, so
-    inflated; a collective's kernel counts its wait for the other ranks)
-    and the CUDA runtime calls that wait for the device."""
+    0 prints the device's busy share of the unprofiled steps, with
+    ``detail`` the device kernels and the host operators of most time
+    (the host's profiled, so inflated; a collective's kernel counts its
+    wait for the other ranks), and the CUDA runtime calls that wait for
+    the device.  Returns rank 0's stream syncs a step
+    (``cudaStreamSynchronize`` and ``cudaDeviceSynchronize`` calls), None
+    on the other ranks and off the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     bs = tr.cfg.batch_size
@@ -3683,7 +3737,7 @@ def _dp_profile(label: str, tr: Trainer,
     wall_ms = 1e3 * (time.perf_counter() - t0)
     if torch.distributed.get_rank() != 0 or tr.device.type != "cuda":
         run(bm[steps:])
-        return
+        return None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run(bm[steps:])
@@ -3701,56 +3755,122 @@ def _dp_profile(label: str, tr: Trainer,
           f"{busy:.3f} ms/step ({100 * busy * steps / wall_ms:.1f}% of the "
           f"wall time); {sum(e.count for e in kernels) / steps:.1f} device "
           f"kernels per step", flush=True)
-    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
-        print(f"dp profile:   device {dev_us(e) / steps:9.1f} us/step "
-              f"{e.count / steps:6.1f}x  {e.key[:80]}", flush=True)
     host = [e for e in events if e.device_type == DeviceType.CPU]
-    for e in sorted(host, key=lambda e: e.self_cpu_time_total,
-                    reverse=True)[:8]:
-        print(f"dp profile:   host {e.self_cpu_time_total / steps:9.1f} "
-              f"us/step {e.count / steps:6.1f}x  {e.key[:80]}", flush=True)
+    if detail:
+        for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+            print(f"dp profile:   device {dev_us(e) / steps:9.1f} us/step "
+                  f"{e.count / steps:6.1f}x  {e.key[:80]}", flush=True)
+        for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:8]:
+            print(f"dp profile:   host {e.self_cpu_time_total / steps:9.1f} "
+                  f"us/step {e.count / steps:6.1f}x  {e.key[:80]}",
+                  flush=True)
     waits = {e.key: e.count / steps for e in host
              if "Synchronize" in e.key or "Memcpy" in e.key}
     print(f"dp profile:   runtime calls that wait, per step: {waits}",
           flush=True)
+    return sum(n for k, n in waits.items() if "Synchronize" in k)
 
 
 def _dp_arms(ds, cfg, device: str) -> dict:
-    """The Reddit-shaped recipe twice, as it is (``plain``) and
-    owner-batched with ``--partition_nodes rcm`` (``owner``): each
-    Trainer warmed up (a whole epoch; the owner arm ``DP_WARMUP_STEPS``
-    steps), then timed epochs in turns, plain, owner, owner, plain, so
-    the host's drift falls on both (``DP_TIMED_TURNS``); each arm's
-    results are its first timed epoch's, with every epoch's seconds
-    beside them; then the four kernels on each arm's inputs, and
+    """The Reddit-shaped recipe four times (``DP_ARMS``): as it is
+    (``plain``) and owner-batched with ``--partition_nodes rcm``
+    (``owner``), each with the default halo (the history scatter at its
+    static capacity) and with ``--halo_exchange false`` (exact splits), a
+    pair at a time
+    (``DP_PAIRS``): each Trainer warmed up (a whole epoch; the owner arms
+    ``DP_WARMUP_STEPS`` steps), then timed epochs in turns
+    (``DP_TIMED_TURNS``, each arm twice, so the host's drift falls on
+    both); each arm's results are its first timed epoch's, with every
+    epoch's seconds beside them, and the stream syncs a step of a 10-step
+    profile; then the four kernels on the default arm's inputs, and
     :func:`_aligned_step` from the owner arm's state."""
     world = torch.distributed.get_world_size()
-    trs, res = {}, {}
-    for arm, over in (("plain", {}), ("owner", OWNER_OVER)):
-        t0 = time.perf_counter()
-        trs[arm] = tr = Trainer(cfg.replace(**over), ds, device=device)
-        res[arm] = {"setup_s": time.perf_counter() - t0,
-                    "batch": cfg.batch_size,
-                    "hist_bytes": sum(h.numel() * h.element_size()
-                                      for hl in (*tr.state.histories,
-                                                 *tr.eval_histories)
-                                      for h in hl)}
-        if arm == "owner":
-            _epoch_losses(tr, DP_WARMUP_STEPS)
-        else:
-            tr.train_epoch()
     labels = {"plain": "CV+PP", "owner": "owner-batched CV+PP"}
-    for arm in DP_TIMED_TURNS:
-        got = _timed_epoch(labels[arm], trs[arm])
-        if "secs_turns" not in res[arm]:
-            res[arm].update(got, secs_turns=[])
+    res = {}
+    for pair in DP_PAIRS:
+        trs = {}
+        for arm in pair:
+            t0 = time.perf_counter()
+            trs[arm] = tr = Trainer(cfg.replace(**DP_ARMS[arm]), ds,
+                                    device=device)
+            res[arm] = {"setup_s": time.perf_counter() - t0,
+                        "batch": cfg.batch_size,
+                        "hist_bytes": sum(h.numel() * h.element_size()
+                                          for hl in (*tr.state.histories,
+                                                     *tr.eval_histories)
+                                          for h in hl)}
+            if arm.startswith("owner"):
+                _epoch_losses(tr, DP_WARMUP_STEPS)
+            else:
+                tr.train_epoch()
+        for i in DP_TIMED_TURNS:
+            arm = pair[i]
+            got = _timed_epoch(arm, trs[arm])
+            if "secs_turns" not in res[arm]:
+                res[arm].update(got, secs_turns=[])
+            res[arm]["secs_turns"].append(got["secs"])
+        for arm in pair:
+            res[arm]["syncs"] = _dp_profile(arm, trs[arm],
+                                            detail=arm in labels)
+        main = pair[0]
+        res[main]["kernels"] = _dp_kernels(trs[main], f"{labels[main]}, ")
+        if main == "owner":
+            res[main]["aligned_step"] = _aligned_step(
+                trs[main], max(world, DP_ALIGNED_BLOCKS))
+        del trs, tr
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
+def _timed_steps(tr: Trainer, steps: int) -> dict:
+    """``steps`` train steps of ``tr``'s shuffled batches with the wire
+    counters reset just before them and no host read between them:
+    ms/step, collective bytes a step (all and all-to-all) and
+    ``hist_dropped`` over the steps."""
+    from stochastic_gcn_tpu_torch.parallel import mesh as PM
+    tr.train_iter.shuffle()
+    bm = torch.from_numpy(tr._epoch_matrix(
+        tr.train_iter.data, tr.cfg.batch_size)[:steps]).to(tr.device)
+    step = St.build_train_step(tr.cfg, tr.train_spec, tr.train_degrees,
+                               tr.ds.num_data, tr.mesh)
+    _sync(tr.device)
+    PM.reset_wire()
+    drops = []
+    t0 = time.perf_counter()
+    for ids in bm:
+        tr.state, m = step(tr.state, tr.graph_train, tr.train_features,
+                           tr.labels, ids, tr.gen)
+        drops.append(m["hist_dropped"])
+    _sync(tr.device)
+    n = len(drops)
+    return {"steps": n, "ms": 1e3 * (time.perf_counter() - t0) / n,
+            "wire": sum(PM.WIRE.values()) / n,
+            "all_to_all": PM.WIRE["all_to_all"] / n,
+            "hist_dropped": int(torch.stack(drops).sum())}
+
+
+def _dp_sbm_owner(ds, device: str, cfg_kw: dict, hosts: int) -> dict:
+    """World > 1: CV+PP on the community SBM (a graph with locality) as it
+    is and owner-batched with ``--partition_nodes rcm``, a warm-up epoch
+    each, then timed epochs in turns (``DP_SBM_TURNS``): ms/step, the
+    routed rows' rank-local shares, ``hist_dropped`` per epoch, collective
+    bytes, and the stream syncs a step of a 10-step profile."""
+    world = torch.distributed.get_world_size()
+    cfg = Config(**{**cfg_kw, "dp": world, "dp_hosts": hosts})
+    trs = {"plain": Trainer(cfg, ds, device=device),
+           "owner": Trainer(cfg.replace(**OWNER_OVER), ds, device=device)}
+    res = {}
+    for tr in trs.values():
+        tr.train_epoch()
+    for arm in DP_SBM_TURNS:
+        got = _timed_epoch(f"SBM {arm}", trs[arm])
+        if arm not in res:
+            res[arm] = dict(got, secs_turns=[])
         res[arm]["secs_turns"].append(got["secs"])
-    for arm in ("plain", "owner"):
-        _dp_profile(labels[arm], trs[arm])
     for arm, tr in trs.items():
-        res[arm]["kernels"] = _dp_kernels(tr, f"{labels[arm]}, ")
-    res["owner"]["aligned_step"] = _aligned_step(
-        trs["owner"], max(world, DP_ALIGNED_BLOCKS))
+        res[arm]["syncs"] = _dp_profile(f"SBM {arm}", tr, detail=False)
     return res
 
 
@@ -3762,7 +3882,7 @@ def _dp_shares(ds, cfg, device: str, steps: int) -> dict:
     PM.reset_wire()
     _epoch_losses(tr, steps)
     _sync(device)
-    return {"shares": _shares(PM.ROUTED),
+    return {"shares": _shares(PM.routed_counts()),
             "wire_per_step": sum(PM.WIRE.values()) / steps}
 
 
@@ -3812,6 +3932,20 @@ def _dp_edgelist(device: str, sbm_kw: dict, cfg_kw: dict,
         fail(f"dp edge list's first steps {got} differ from the padded "
              f"graph's {want}")
     del padded
+    exact = Trainer(cfg.replace(graph_format="edgelist",
+                                fadj_edge_mult=COVER_EDGE_MULT, **EXACT_OVER),
+                    ds, device=device)
+    trs = {"default": edge, "exact": exact}
+    res["halo"] = {}
+    for arm in DP_EDGE_TURNS:
+        got = _timed_steps(trs[arm], DP_EDGE_STEPS)
+        if arm not in res["halo"]:
+            res["halo"][arm] = dict(got, ms_turns=[])
+        res["halo"][arm]["ms_turns"].append(got["ms"])
+    for arm, tr in trs.items():
+        res["halo"][arm]["syncs"] = _dp_profile(f"edge list, {arm} halo",
+                                                tr, detail=False)
+    del exact
     res["kernels"] = _dp_kernels(edge, "edge list, ")
     return res
 
@@ -3828,12 +3962,18 @@ def _dp_rank(out_dir: str, device: str, sbm_kw: dict, reddit_kw: dict,
     res = {"halo": checks.halo_primitives(**DP_HALO)}
     _dp_log(f"dp: halo primitives against whole-table gathers and scatters "
             f"on the card (f32 and bf16, duplicate, sentinel and parked ids, "
-            f"the gather's gradient, the owner-routed full term): max abs "
-            f"err {res['halo']}")
+            f"the gather's gradient, the owner-routed full term; the "
+            f"scatter's static capacity: scatters that drop, held bitwise "
+            f"with the count reckoned from the ids, that drop nothing, and "
+            f"the skewed ones under exact splits; the capacity scatters and "
+            f"world-1 gathers with any synchronising call an error): max "
+            f"abs err or dropped count {res['halo']}")
 
     sbm = community_sbm_dataset(**sbm_kw)
     _dp_first_epoch(sbm, device, converge_cfg)
     res["curve"] = _dp_converge(sbm, out_dir, device, converge_cfg, target)
+    if world > 1:
+        res["sbm_owner"] = _dp_sbm_owner(sbm, device, converge_cfg, hosts)
     del sbm
 
     ds = reddit_like(**reddit_kw)
@@ -4231,8 +4371,11 @@ def phase_dp(results: dict, device: str = "cuda", world: int = 0,
     inputs this path gives them, against their plain versions and timed
     on rank 0; (e) the owner arm, (c) with ``--owner_batching
     --partition_nodes rcm`` (and at world > 1 each flag alone, shares
-    only); (f) the edge-list arm (``_dp_edgelist``).  Any rank's failure
-    fails the run.  Then (g) the coordinator arm (``_dp_coordinator``).
+    only); each arm against ``--halo_exchange false`` in turns, a pair
+    at a time, and at world > 1 the SBM with and without owner batching
+    (``_dp_sbm_owner``); (f) the edge-list arm (``_dp_edgelist``), against
+    its exact transport in turns.  Any rank's failure fails the run.
+    Then (g) the coordinator arm (``_dp_coordinator``).
     Folds the kernels' cases into ``results`` (``dp_case``,
     ``dp_owner_case``, ``dp_edgelist_case``) and returns rank 0's launch
     counts of each counted path."""
@@ -4255,16 +4398,16 @@ def phase_dp(results: dict, device: str = "cuda", world: int = 0,
         t_ranks = time.perf_counter() - t0
         _dp_coordinator(tmp, device, world, hosts, coord_flags)
     for r, res in enumerate(ranks):
-        for arm in ("plain", "owner"):
+        for arm in DP_ARMS:
             a = res[arm]
             steps = a["steps"]
             turns = ", ".join(f"{1e3 * x / steps:.3f}"
                               for x in a["secs_turns"])
             print(f"dp: rank {r} of {world}, Reddit-shaped "
-                  f"{'owner-batched (rcm) ' if arm == 'owner' else ''}CV+PP "
-                  f"at global batch {a['batch']}: Trainer set-up "
-                  f"{a['setup_s']:.2f} s; timed epochs (in turns "
-                  f"{'/'.join(DP_TIMED_TURNS)}) {turns} ms/step over "
+                  f"{'owner-batched (rcm) ' if 'owner' in arm else ''}CV+PP "
+                  f"({_transport(arm)}) at global batch {a['batch']}: "
+                  f"Trainer set-up {a['setup_s']:.2f} s; timed epochs (in "
+                  f"turns {_turns(arm)}) {turns} ms/step over "
                   f"{steps} steps; the first: "
                   f"{a['edges'] / a['secs']:.0f} sampled edges/s "
                   f"(global); last loss {a['loss']:.5f}; peak device memory "
@@ -4272,6 +4415,37 @@ def phase_dp(results: dict, device: str = "cuda", world: int = 0,
                   f" (train and eval blocks); {_wire_per_step(a)}; routed "
                   f"rows the rank owns {_shares(a['routed'])}; launches per "
                   f"step { {k: v / steps for k, v in a['launches'].items()} }")
+            print(f"dp halo: world {world}, rank {r}, {arm} "
+                  f"({_transport(arm)}): ms/step {turns}; stream syncs a "
+                  f"step {_syncs(a)}; collective bytes a step "
+                  f"{sum(a['wire'].values()) / steps:.0f} (all-to-all "
+                  f"{a['wire']['all_to_all'] / steps:.0f}); per epoch "
+                  f"hist_dropped {a['hist_dropped']}")
+        if world == 1:
+            a2a = sum(res[arm]["wire"]["all_to_all"] for arm in DP_ARMS)
+            every = sum(sum(res[a]["wire"].values()) for a in DP_ARMS)
+            print(f"dp halo: world 1: the halo's all-to-all bytes over the "
+                  f"{len(DP_ARMS)} arms' first timed epochs {a2a} (all "
+                  f"collective bytes {every}); "
+                  f"its gathers and scatters ran with any synchronising "
+                  f"call an error (checks.halo_capacity): no host read")
+            if a2a:
+                fail(f"dp world 1: the halo put {a2a} bytes on the wire")
+        if "sbm_owner" in res:
+            for arm in DP_SBM_TURNS[:2]:
+                a = res["sbm_owner"][arm]
+                steps = a["steps"]
+                turns = ", ".join(f"{1e3 * x / steps:.3f}"
+                                  for x in a["secs_turns"])
+                flags = (" (--owner_batching --partition_nodes rcm)"
+                         if arm == "owner" else "")
+                print(f"dp halo: world {world}, rank {r}, community SBM "
+                      f"CV+PP {arm}{flags}: "
+                      f"ms/step {turns} over {steps} steps (in turns "
+                      f"{'/'.join(DP_SBM_TURNS)}); stream syncs a step "
+                      f"{_syncs(a)}; routed rows the rank owns "
+                      f"{_shares(a['routed'])}; per epoch hist_dropped "
+                      f"{a['hist_dropped']}; {_wire_per_step(a)}")
         al = res["owner"]["aligned_step"]
         print(f"dp: rank {r} of {world}, an owner-aligned train step "
               f"({al['blocks']} blocks, no dropout) against the classic one "
@@ -4289,6 +4463,16 @@ def phase_dp(results: dict, device: str = "cuda", world: int = 0,
               f"{e['steps']} steps against the row-sharded padded graph "
               f"within {e['rel_diff']:.3e} (rtol {DP_FIRST_EPOCH_RTOL}); "
               f"launches {e['launches']}")
+        for arm in DP_EDGE_TURNS[:2]:
+            h = e["halo"][arm]
+            print(f"dp halo: world {world}, rank {r}, edge list "
+                  f"({_transport(arm)}): ms/step "
+                  f"{', '.join(f'{x:.3f}' for x in h['ms_turns'])} over "
+                  f"{h['steps']} steps a turn (in turns "
+                  f"{'/'.join(DP_EDGE_TURNS)}); stream syncs a step "
+                  f"{_syncs(h)}; collective bytes a step {h['wire']:.0f} "
+                  f"(all-to-all {h['all_to_all']:.0f}); over the first turn "
+                  f"hist_dropped {h['hist_dropped']}")
     rank0 = ranks[0]
     for key, arm in (("dp_case", ("plain",)), ("dp_owner_case", ("owner",)),
                      ("dp_edgelist_case", ("edgelist",))):

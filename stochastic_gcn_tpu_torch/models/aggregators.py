@@ -362,13 +362,13 @@ class _HaloReader:
     its block of the output field.  The input rows its slots and self rows
     name (each once: the live slots' positions and the output rows' input
     positions, the prefix's or ``self_pos``'s, sorted) are gathered into
-    an ``[R, d]`` buffer through one :class:`~..parallel.halo.Route`, and
-    the slot positions are remapped into it (dead slots park at ``R``), so
-    the hand-written kernels run on the buffer unchanged.  The history
-    rows of the buffer's node ids come from their owners into a buffer of
-    the same rows, read by the CV kernel through an identity field of
-    sentinel ``R``.  Under the owner-aligned layout the buffer's rows are
-    mostly the rank's own block, so the route moves little."""
+    an ``[R, d]`` buffer through one route (:func:`~..parallel.halo.route`),
+    and the slot positions are remapped into it (dead slots park at
+    ``R``), so the hand-written kernels run on the buffer unchanged.  The
+    history rows of the buffer's node ids come from their owners into a
+    buffer of the same rows, read by the CV kernel through an identity
+    field of sentinel ``R``.  Under the owner-aligned layout the buffer's
+    rows are mostly the rank's own block, so the routes move little."""
 
     def __init__(self, ls: LayerSample, f_in: int, mesh, field_in=None,
                  field_out=None, n: int = -1):
@@ -400,7 +400,7 @@ class _HaloReader:
         self.aw = None if ls.slot_aw is None else ls.slot_aw.narrow(0, lo, m)
         self.scales = ls.scales.narrow(0, lo, m)
         self.field_in = field_in
-        self.route = halo.Route(need, f_in, mesh, count="field rows")
+        self.route = halo.route(need, f_in, mesh, count="field rows")
         self.n, self.mesh, self.need = n, mesh, need
         if field_in is not None:
             self.field_out = field_out.narrow(0, lo, m)
@@ -419,7 +419,7 @@ class _HaloReader:
         # the buffer rows' history rows, from their owners: one route for
         # every history table of the layer (they share the row layout)
         if self._hist_route is None:
-            self._hist_route = halo.Route(
+            self._hist_route = halo.route(
                 self.field_in.index_select(0, self.need),
                 table.shape[0] * self.mesh.size, self.mesh, self.n,
                 count="history reads")

@@ -12,6 +12,7 @@ them, one after another, in one group (one spawn for a whole test module).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -132,7 +133,8 @@ def halo_primitives(seed: int = 0, rows_per_rank: int = 40, d: int = 12,
         torch.int32).to(dev)
     new = torch.randn(mine.shape[0], d, generator=g).to(dev)
     target = local.clone()
-    halo.row_scatter(target, mine, new, mesh, sentinel)
+    halo.row_scatter(target, mine, new, dataclasses.replace(
+        mesh, scatter_cap_mult=float(p)), sentinel)     # drops nothing
     every = whole(mine.long().reshape(1, -1), mesh).reshape(-1)
     rows_new = whole(new, mesh)
     keep = every < sentinel
@@ -152,6 +154,98 @@ def halo_primitives(seed: int = 0, rows_per_rank: int = 40, d: int = 12,
         want = K.hbm_gather_aggregate_ref(table.to(dtype).float(), nbr, w)
         errs[f"owner_routed {dtype}"] = _same(
             f"owner_routed full term {dtype}", got, want, CONTRACT_TOL)
+    errs.update(halo_capacity(mesh, table, sentinel, seed, n_req))
+    return errs
+
+
+def _no_host_read(fn):
+    """``fn()`` on the card with any synchronising CUDA call an error
+    (``torch.cuda.set_sync_debug_mode``); on the CPU ``fn()`` as it is."""
+    if not torch.cuda.is_available() or dist.get_backend() != "nccl":
+        return fn()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def halo_capacity(mesh, table: torch.Tensor, sentinel: int, seed: int,
+                  n_req: int) -> dict:
+    """The history scatter's static capacity against the plain write on
+    the whole ``table``, every rank's ids built from ``seed``: scatters
+    that drop (skewed, ``scatter_cap_mult`` 1: the table held bitwise
+    against the writes the buckets keep, the count against the one
+    reckoned from the ids), all-local ones at 0.01 that drop nothing,
+    sentinel ids that take no slot, and the skewed ones again under exact
+    splits (``halo_exchange`` off), which drop nothing.  The scatters, and
+    at world 1 a gather too, run where a synchronising call is an error
+    (on the card).  Returns ``{case: max abs err or count}``; raises on a
+    mismatch."""
+    dev, p, q = table.device, mesh.size, mesh.rank
+    rows, d = table.shape
+    n_loc = rows // p
+    local = mesh.local(table)
+    g = torch.Generator().manual_seed(seed + 31)
+    errs = {}
+    if p == 1:
+        ids = _ids(g, rows, n_req, sentinel, dev)
+        got = _no_host_read(lambda: halo.row_gather(local, ids, mesh,
+                                                    sentinel))
+        errs["world-1 gather, no host read"] = _same(
+            "world-1 gather", got, row_gather(table, ids, sentinel))
+
+    # scatters: each rank its own unique ids (disjoint across ranks)
+    n_s = min(n_req // 8, n_loc // p)
+    perm = torch.randperm(min(n_loc, sentinel), generator=g)[:p * n_s]
+    skew = perm.reshape(p, n_s)                   # all in rank 0's block
+    local_ids = torch.stack([r * n_loc + torch.randperm(
+        n_loc, generator=g)[:n_s] for r in range(p)])
+    live = torch.randperm(sentinel, generator=g)[:p * 8].reshape(p, 8)
+    parked = torch.full((p, n_s - 8), sentinel)
+    parked[:, ::2] = 1 << 30
+    with_sentinel = torch.cat([live, parked], 1)
+    new = torch.randn(p, n_s, d, generator=g)
+    exact = dataclasses.replace(mesh, halo_exchange=False)
+    for label, ids, m in (
+            ("skewed, cap_mult 1", skew,
+             dataclasses.replace(mesh, scatter_cap_mult=1.0)),
+            ("all local, cap_mult 0.01", local_ids,
+             dataclasses.replace(mesh, scatter_cap_mult=0.01)),
+            ("sentinels, cap_mult 0.01", with_sentinel,
+             dataclasses.replace(mesh, scatter_cap_mult=0.01)),
+            ("skewed, exact splits", skew, exact)):
+        cap = halo.scatter_capacity(p * n_s, p, m.scatter_cap_mult) \
+            if m.halo_exchange else n_s
+        # each rank's own rows are written, and of its remote writes the
+        # first cap to each owner, in the order of its ids
+        written, dropped_want = [], 0
+        for r in range(p):
+            seen = [0] * p
+            for i, v in enumerate(ids[r].tolist()):
+                if v >= sentinel:
+                    continue
+                if v // n_loc != r:
+                    seen[v // n_loc] += 1
+                    if seen[v // n_loc] > cap:
+                        dropped_want += 1
+                        continue
+                written.append(r * n_s + i)
+        at = torch.tensor(written, dtype=torch.int64)
+        want = table.clone()
+        want[ids.reshape(-1)[at].to(dev)] = new.reshape(-1, d)[at].to(dev)
+        target = local.clone()
+        mine = ids[q].to(torch.int32).to(dev)
+        rows_q = new[q].to(dev)
+        _, dropped = (_no_host_read if m.halo_exchange else
+                      lambda fn: fn())(lambda: halo.row_scatter(
+                          target, mine, rows_q, m, sentinel))
+        errs[f"capacity scatter {label}"] = _same(
+            f"capacity scatter, {label}", target, mesh.local(want))
+        if int(dropped) != dropped_want:
+            _fail(f"capacity scatter, {label}: dropped {int(dropped)}, the "
+                  f"ids give {dropped_want}")
+        errs[f"capacity scatter {label}: dropped"] = int(dropped)
     return errs
 
 
@@ -227,14 +321,19 @@ def train_steps(npz_in: str, npz_out: str, fields: dict) -> None:
     ``s<s>:aw<l>``, ``s<s>:scales<l>``, and under the owner-aligned layout
     ``s<s>:self<l>``).  Dropout masks and noise are
     :func:`shape_seeded_noise`'s; ``fields`` are the configuration's.
-    Rank 0 writes each step's loss and the final params, Adam first
+    Rank 0 writes each step's loss and ``hist_dropped``
+    (``loss<s>``, ``dropped<s>``) and the final params, Adam first
     moments (``mu:<layer>/<name>``, a decaying sum of the gradients) and
-    whole histories to ``npz_out``.  With ``tp > 1`` in ``fields`` each
-    rank takes its columns of the params and histories, and the results
-    are gathered whole."""
+    whole histories to ``npz_out``.  With ``eval_steps`` (E) in
+    ``npz_in`` the port's evaluation epoch then runs on the trained params
+    and histories over the E schedules ``e<s>:...`` (keys as above), and
+    rank 0 writes its class probabilities (``pred``, [E, B, C]) and the
+    refreshed histories (``ehist:<l>/<j>``).  With ``tp > 1`` in
+    ``fields`` each rank takes its columns of the params and histories,
+    and the results are gathered whole."""
     shape_seeded_noise()
     cfg = from_fields(fields)
-    mesh = make_mesh(cfg.shard_graph, tp=cfg.tp)
+    mesh = halo.halo_spec(cfg, make_mesh(cfg.shard_graph, tp=cfg.tp))
     dev = _device()
     z = np.load(npz_in)
 
@@ -265,21 +364,27 @@ def train_steps(npz_in: str, npz_out: str, fields: dict) -> None:
                                            device=dev))
     degrees = (cfg.degree,) * spec.num_agg_layers
     step = St.build_train_step(cfg, spec, degrees, n, mesh)
-    out = {}
-    for s in range(int(z["steps"])):
+
+    def pack_of(pre):
         layers = tuple(LayerSample(
-            slot_pos=T(f"s{s}:pos{l}"), slot_w=T(f"s{s}:w{l}"),
-            slot_aw=T(f"s{s}:aw{l}") if f"s{s}:aw{l}" in z.files else None,
-            scales=T(f"s{s}:scales{l}"),
-            self_pos=T(f"s{s}:self{l}") if f"s{s}:self{l}" in z.files
+            slot_pos=T(f"{pre}:pos{l}"), slot_w=T(f"{pre}:w{l}"),
+            slot_aw=T(f"{pre}:aw{l}") if f"{pre}:aw{l}" in z.files
+            else None,
+            scales=T(f"{pre}:scales{l}"),
+            self_pos=T(f"{pre}:self{l}") if f"{pre}:self{l}" in z.files
             else None) for l in range(spec.num_agg_layers))
-        pack = BatchFields(
-            fields=tuple(T(f"s{s}:field{i}")
+        return BatchFields(
+            fields=tuple(T(f"{pre}:field{i}")
                          for i in range(spec.num_agg_layers + 1)),
             layers=layers)
+
+    out = {}
+    for s in range(int(z["steps"])):
+        pack = pack_of(f"s{s}")
         state, m = step(state, graph, feats, labels, pack.fields[-1],
                         torch.Generator(device=dev), pack=pack)
         out[f"loss{s}"] = m["loss"].cpu().numpy()
+        out[f"dropped{s}"] = m["hist_dropped"].cpu().numpy()
     mu = M.gather_param_tree(state.opt_state.mu, spec, mesh)
     for layer, p in M.gather_param_tree(state.params, spec, mesh).items():
         for name, t in p.items():
@@ -288,7 +393,92 @@ def train_steps(npz_in: str, npz_out: str, fields: dict) -> None:
     for l, hl in enumerate(M.whole_histories(state.histories, spec, mesh)):
         for j, h in enumerate(hl):
             out[f"hist:{l}/{j}"] = h.float().cpu().numpy()
+    if "eval_steps" in z.files:
+        packs = [pack_of(f"e{s}") for s in range(int(z["eval_steps"]))]
+        run = St.build_eval_epoch(cfg, spec, degrees, n, with_preds=True,
+                                  mesh=mesh)
+        hists, res = run(state.params, state.histories, graph, feats, labels,
+                         torch.stack([p.fields[-1] for p in packs]),
+                         torch.Generator(device=dev), packs=packs)
+        out["pred"] = res["preds"].cpu().numpy()
+        for l, hl in enumerate(M.whole_histories(hists, spec, mesh)):
+            for j, h in enumerate(hl):
+                out[f"ehist:{l}/{j}"] = h.float().cpu().numpy()
     _save(npz_out, out)
+
+
+def halo_runs(npz_in: str, npz_out: str) -> None:
+    """The halo transports on the inputs of ``npz_in``, this rank taking
+    its slice ``q`` of every ``[P * c]`` id list, as a sharded program
+    does.  Scatter case ``<c>`` (``scatter:<c>:table`` [R, d], ``:ids``,
+    ``:rows``, ``:mult``, ``:sentinel``): the whole table after
+    :func:`.halo.row_scatter` at scatter capacity ``mult`` and the dropped
+    count.  Gather case ``<c>`` (``gather:<c>:table``, ``:ids``,
+    ``:coef``): the whole result of :func:`.halo.row_gather` (float32 and
+    bfloat16), of :func:`.halo.row_gather2` of the table's int32 cast and
+    itself, and the whole-table gradient of ``sum(coef * gathered)``.
+    Rank 0 writes them to ``npz_out`` under the same keys."""
+    mesh = make_mesh()
+    dev = _device()
+    z = np.load(npz_in)
+    out = {}
+
+    def mine(key):
+        return mesh.local(torch.from_numpy(z[key]).to(dev))
+
+    for key in z.files:
+        kind, case, leaf = key.split(":")
+        if leaf != "table":
+            continue
+        pre = f"{kind}:{case}"
+        local = mine(key).clone()
+        ids = mine(f"{pre}:ids")
+        if kind == "scatter":
+            m = dataclasses.replace(mesh, scatter_cap_mult=float(
+                z[f"{pre}:mult"]))
+            _, dropped = halo.row_scatter(local, ids, mine(f"{pre}:rows"), m,
+                                          int(z[f"{pre}:sentinel"]))
+            out[f"{pre}:table"] = whole(local, mesh).cpu().numpy()
+            out[f"{pre}:dropped"] = dropped.cpu().numpy()
+            continue
+        for dt in ("float32", "bfloat16"):
+            got = halo.row_gather(local.to(getattr(torch, dt)), ids, mesh)
+            out[f"{pre}:{dt}"] = whole(got, mesh).float().cpu().numpy()
+        gi, gf = halo.row_gather2(local.to(torch.int32), local, ids, mesh)
+        out[f"{pre}:int32"] = whole(gi, mesh).cpu().numpy()
+        out[f"{pre}:pair_f"] = whole(gf, mesh).cpu().numpy()
+        leaf = local.clone().requires_grad_()
+        (halo.row_gather(leaf, ids, mesh) * mine(f"{pre}:coef")).sum(
+            ).backward()
+        out[f"{pre}:grad"] = whole(leaf.grad, mesh).cpu().numpy()
+    _save(npz_out, out)
+
+
+def scatter_no_host_read(npz_out: str) -> None:
+    """A static-capacity scatter that drops, run with ``Tensor.tolist``,
+    ``item``, ``cpu``, ``numpy`` and the scalar conversions made to raise:
+    it must not read the device.  Rank 0 writes ``dropped`` (read after)
+    to ``npz_out``."""
+    mesh = dataclasses.replace(make_mesh(), scatter_cap_mult=1.0)
+    n_loc, d, n = 64, 4, 32
+    table = torch.zeros(n_loc, d)
+    # all in rank 0's block, disjoint across the first two ranks
+    ids = ((torch.arange(n) + mesh.rank * n) % n_loc).to(torch.int32)
+    rows = torch.ones(n, d)
+    names = ("tolist", "item", "cpu", "numpy", "__bool__", "__int__",
+             "__float__", "__index__")
+    saved = {k: getattr(torch.Tensor, k) for k in names}
+
+    def refuse(*_, **__):
+        raise AssertionError("the scatter read the device")
+    try:
+        for k in names:
+            setattr(torch.Tensor, k, refuse)
+        _, dropped = halo.row_scatter(table, ids, rows, mesh)
+    finally:
+        for k, f in saved.items():
+            setattr(torch.Tensor, k, f)
+    _save(npz_out, {"dropped": dropped.numpy()})
 
 
 def run_jobs(jobs: list) -> None:

@@ -37,12 +37,17 @@ its layout as shardings (``state_shardings``, ``data_shardings``,
   every model rank.
 
 Rows held elsewhere come through the owner-routed transports of
-:mod:`.halo`.  Every collective goes through the wrappers here, which add
-the bytes this rank puts on the wire to :data:`WIRE` (the collective bytes
-per step that chip_smoke.py reports): an all-to-all counts the rows it
-sends to other ranks, an all-gather ``(P - 1)`` copies of the local block,
-a reduce-scatter and an all-reduce the ring algorithm's ``(P - 1) / P``
-and ``2 (P - 1) / P`` of the tensor.
+:mod:`.halo`, whose knobs the mesh carries (``halo_exchange``,
+``scatter_cap_mult``: :func:`.halo.halo_spec`).  Every collective goes
+through the wrappers here, which add the bytes this rank puts on the wire
+to :data:`WIRE` (the collective bytes per step that chip_smoke.py
+reports): an all-to-all counts the rows it sends to other ranks (of the
+equal-split one, :func:`all_to_all_equal`, its whole static buckets, live
+or not), an all-gather ``(P - 1)`` copies of the local block, a
+reduce-scatter and an all-reduce the ring algorithm's ``(P - 1) / P`` and
+``2 (P - 1) / P`` of the tensor.  Every count is host arithmetic on
+shapes or split sizes the host already holds: no counter reads the
+device.
 
 Ranks may span hosts (``--dp_hosts H``, :mod:`.distributed`): the ranks
 are host-major, ``H`` hosts of ``P / H`` consecutive ranks each
@@ -79,8 +84,9 @@ WIRE = {"all_to_all": 0, "all_gather": 0, "reduce_scatter": 0,
 # the part of each WIRE count addressed to ranks on other hosts
 WIRE_CROSS_HOST = dict.fromkeys(WIRE, 0)
 # rows this rank requested through owner-routed exchanges since the last
-# reset_wire(), by what they read or wrote (parallel/halo.py::Route's
-# ``count``): [rows it owns itself, all live rows]
+# reset_wire(), by what they read or wrote (parallel/halo.py's ``count``):
+# an int64 device tensor [rows it owns itself, all live rows], added to on
+# the device and read only by routed_counts()
 ROUTED: dict = {}
 
 
@@ -88,6 +94,22 @@ def reset_wire() -> None:
     for k in WIRE:
         WIRE[k] = WIRE_CROSS_HOST[k] = 0
     ROUTED.clear()
+
+
+def count_routed(name: str, own, live, device) -> None:
+    """Add ``own`` of ``live`` routed rows (scalars on ``device``, or ints,
+    which a fill kernel puts there: no copy) to ``ROUTED[name]``."""
+    def scalar(x):
+        return x.to(torch.int64) if torch.is_tensor(x) else torch.full(
+            (), x, dtype=torch.int64, device=device)
+    got = torch.stack([scalar(own), scalar(live)])
+    ROUTED[name] = got if name not in ROUTED else ROUTED[name] + got
+
+
+def routed_counts() -> dict:
+    """``ROUTED`` read to the host: ``{name: [own, live]}`` (one device
+    read for each name; call it where the counts are reported)."""
+    return {k: [int(x) for x in v.tolist()] for k, v in ROUTED.items()}
 
 
 _all_gather = getattr(dist, "all_gather_single", None) \
@@ -115,6 +137,11 @@ class Mesh:
     model_size: int = 1
     data_group: Any = field(default=None, compare=False, repr=False)
     model_group: Any = field(default=None, compare=False, repr=False)
+    # the history scatter's transport (parallel/halo.py::halo_spec): static
+    # capacity (True) or exact splits (False, --halo_exchange false), and
+    # the capacity multiplier (the JAX package's default, 2.0)
+    halo_exchange: bool = True
+    scatter_cap_mult: float = 2.0
 
     @property
     def global_rank(self) -> int:
@@ -319,6 +346,23 @@ def all_to_all(t: torch.Tensor, send: list, recv: list,
     me = mesh.host(mesh.rank)
     WIRE_CROSS_HOST["all_to_all"] += row * sum(
         n for r, n in enumerate(send) if mesh.host(r) != me)
+    return out
+
+
+def all_to_all_equal(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Send block ``r`` of ``t`` ([size, cap, ...], a static bucket for each
+    data rank) to data rank ``r``; returns the ``[size, cap, ...]`` blocks
+    received, by source rank.  Equal splits: no split sizes, so nothing is
+    read on the host.  Counts every bucket sent to another rank, live rows
+    or not."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=mesh.data_group)
+    per = _nbytes(t) // mesh.size
+    WIRE["all_to_all"] += per * (mesh.size - 1)
+    me = mesh.host(mesh.rank)
+    WIRE_CROSS_HOST["all_to_all"] += per * sum(
+        1 for r in range(mesh.size) if mesh.host(r) != me)
     return out
 
 

@@ -52,6 +52,7 @@ from ..data.preprocess import (cap_adj_degree, locality_permutation,
                                relabel_dataset)
 from ..models import gcn as M
 from ..parallel import distributed as D
+from ..parallel.halo import halo_spec
 from ..parallel.mesh import (Mesh, make_mesh, owner_grouped_batch_matrix,
                              row_multiple, shard_rows)
 from ..sampler.scheduler import MinibatchIterator, compute_importance
@@ -120,8 +121,9 @@ def _mesh_for(cfg, distributed: Optional[bool]) -> Optional[Mesh]:
     """The Trainer's mesh: the default process group's when there is one
     (``distributed=None``) or when asked for (``True``); its size must be
     ``cfg.dp * cfg.tp``, and its data axis host-major over the hosts of
-    ``cfg``.  None runs on one device, which ``cfg.dp * cfg.tp > 1`` or a
-    multi-host launch never does."""
+    ``cfg``; it carries ``cfg``'s halo transport (``--halo_exchange``,
+    ``--scatter_cap_mult``).  None runs on one device, which ``cfg.dp *
+    cfg.tp > 1`` or a multi-host launch never does."""
     if distributed is None:
         distributed = torch.distributed.is_initialized()
     hosts = _hosts(cfg)
@@ -135,7 +137,7 @@ def _mesh_for(cfg, distributed: Optional[bool]) -> Optional[Mesh]:
     if D.process_count() != world:
         raise ValueError(f"--dp {cfg.dp} --tp {cfg.tp} but the process "
                          f"group has {D.process_count()} ranks")
-    return make_mesh(cfg.shard_graph, hosts, cfg.tp)
+    return halo_spec(cfg, make_mesh(cfg.shard_graph, hosts, cfg.tp))
 
 
 class Trainer:
@@ -369,12 +371,13 @@ class Trainer:
         g_ops = (adj + fadj nnz) * dim * 4, dense ops nn_ops =
         sum(layer_comp * field size) * 4, each doubled under cvd.  Also
         keeps ``is_dropped``, the selected IS slots the slot cap dropped
-        over the epoch."""
+        over the epoch, and ``hist_dropped``, the history writes the
+        mesh's scatter capacity dropped (0 without a mesh)."""
         spec = self.train_spec
-        field_sizes, adj_sizes, fadj_sizes, is_dropped = (
+        field_sizes, adj_sizes, fadj_sizes, is_dropped, hist_dropped = (
             metrics[k].cpu().numpy()
             for k in ("field_sizes", "adj_sizes", "fadj_sizes",
-                      "is_dropped"))
+                      "is_dropped", "hist_dropped"))
         mult = 2 if spec.cvd else 1      # CVD runs two streams
         g_ops = 0.0
         for l in range(spec.num_agg_layers):
@@ -385,7 +388,8 @@ class Trainer:
         self.epoch_stats = dict(run_t=run_t, g_t=0.0, g_ops=g_ops,
                                 nn_ops=nn_ops, field_sizes=field_sizes,
                                 adj_sizes=adj_sizes, fadj_sizes=fadj_sizes,
-                                is_dropped=int(is_dropped))
+                                is_dropped=int(is_dropped),
+                                hist_dropped=int(hist_dropped))
 
     def _run(self, epoch, data_ids, owner_grouped: bool = False):
         bm = self._epoch_matrix(data_ids, self.cfg.test_batch_size) \
@@ -637,6 +641,8 @@ class Trainer:
                     f"field sizes = {es['field_sizes']}, "
                     f"adj sizes = {es['adj_sizes']}, "
                     f"fadj sizes = {es['fadj_sizes']}")
+                if self.mesh is not None:
+                    log(f"halo: hist_dropped = {es['hist_dropped']}")
             if cfg.ckpt_every and (epoch + 1) % cfg.ckpt_every == 0:
                 self.save()
             # preemption notice (install_preemption_handler): leave the

@@ -20,7 +20,11 @@ divided by the whole batch's count (the weight decay on rank 0 only), so
 the gradients ``all_reduce``d (summed) over the ranks are those of the
 global loss, and every rank applies the same Adam update to its copy of
 the params.  Histories are row-sharded and written through the
-owner-routed scatter; the metrics every step returns are the global ones.
+owner-routed scatter, whose static capacity (the mesh's
+``scatter_cap_mult``, parallel/halo.py::halo_spec) may drop writes,
+counted in ``hist_dropped``, and which takes exact splits under
+``--halo_exchange false``; the metrics every step returns are the global
+ones.
 With ``cfg.owner_batching`` the schedules of the train step, the eval
 epoch, pred-and-grad and the activation taps take the owner-aligned field
 layout (``owner_blocks = cfg.dp``, sampler/scheduler.py), so a rank's
@@ -161,32 +165,45 @@ def init_train_state(gen: torch.Generator, cfg, spec: M.ModelSpec,
 def scatter_histories(histories, new_histories, fields, num_nodes: int,
                       mesh=None):
     """history[field_l] <- new rows, for the input-side fields
-    ``fields[:-1]``; updates the history tensors IN PLACE and returns them.
-    With a ``mesh`` the new rows are this rank's block of each field and
-    the histories its blocks: the rows go to their owners
-    (parallel/halo.py::row_scatter), sentinel writes skipped.
+    ``fields[:-1]``; updates the history tensors IN PLACE.  Returns
+    ``(histories, dropped)``: ``dropped``, an int32 device scalar, sums
+    the writes the mesh's scatter dropped over the layers and over every
+    history tensor of a layer (CVD's two tables count twice); 0 without a
+    mesh.
 
-    Sentinel-padded field entries write into row N, which is safe: every
-    read of row N is masked by a zero edge weight or a sentinel gather.
-    Dedup-compacted fields hold each real id once.  Under the no-dedup
-    layout a field may repeat an id; each duplicate carries an equally
-    valid sample of the same activation, and which write wins is
-    unspecified (on CUDA it varies from run to run).  ``index_copy_``
-    serves both, so the JAX function's ``unique`` hint has no counterpart
-    here."""
+    With a ``mesh`` the new rows are this rank's block of each field and
+    the histories its blocks: each rank writes the rows it owns locally
+    and sends the others to their owners in ``[P, cap]`` buckets, ``cap =
+    scatter_capacity(F, P, mesh.scatter_cap_mult)``
+    (parallel/halo.py::row_scatter), sentinel writes skipped.  A write
+    the buckets cannot hold is dropped: that history row stays one step
+    staler, which the control variate tolerates by construction.  No
+    host read.  At world 1, and under ``--halo_exchange false`` (exact
+    splits), nothing is dropped.
+
+    Sentinel-padded field entries write into row N on one device, which
+    is safe: every read of row N is masked by a zero edge weight or a
+    sentinel gather.  Dedup-compacted fields hold each real id once.
+    Under the no-dedup layout a field may repeat an id; each duplicate
+    carries an equally valid sample of the same activation, and which
+    write wins is unspecified (on CUDA it varies from run to run).
+    ``index_copy_`` serves both, so the JAX function's ``unique`` hint has
+    no counterpart here."""
+    dropped = torch.zeros((), dtype=torch.int32, device=fields[-1].device)
     for hist_l, new_l, field_l in zip(histories, new_histories, fields[:-1]):
         if new_l is None:
             continue
         if mesh is not None:
             ids = mesh.local(field_l)
             for h, nh in zip(hist_l, new_l):
-                halo.row_scatter(h, ids, nh, mesh, sentinel=num_nodes,
-                                 count="history writes")
+                dropped = dropped + halo.row_scatter(
+                    h, ids, nh, mesh, sentinel=num_nodes,
+                    count="history writes")[1]
             continue
         ids = field_l.to(torch.int64)
         for h, nh in zip(hist_l, new_l):
             h.index_copy_(0, ids, nh.to(h.dtype))
-    return histories
+    return histories, dropped
 
 
 def _labels_gather(labels: torch.Tensor, batch_field: torch.Tensor,
@@ -331,7 +348,8 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
     CV anchor, :func:`lazy_anchor`), loss, backward, Adam, then the
     history scatter of the detached new rows.  ``state`` is updated in
     place and returned; the metrics (loss, accuracy, amt_data,
-    field/adj/fadj sizes, ``is_dropped``) stay on the device.
+    field/adj/fadj sizes, ``hist_dropped``: the history writes the mesh's
+    scatter dropped, ``is_dropped``) stay on the device.
 
     The params enter the forward as fresh ``requires_grad`` aliases and the
     gradients come from ``torch.autograd.grad``, so no ``.grad`` buffers
@@ -378,8 +396,8 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                                           for l, n in keys], alpha=1 - d)
             new_h = tuple(None if hl is None else
                           tuple(h.detach() for h in hl) for hl in new_h)
-            scatter_histories(state.histories, new_h, pack.fields,
-                              num_nodes, mesh)
+            _, dropped = scatter_histories(state.histories, new_h,
+                                           pack.fields, num_nodes, mesh)
             state.step += 1
         amt, field_sizes, adj_sizes, fadj_sizes = _batch_stats(
             pack, graph, num_nodes, spec.cv)
@@ -389,7 +407,7 @@ def build_train_step(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
         return state, {"loss": reported, "accuracy": acc,
                        "amt_data": amt, "field_sizes": field_sizes,
                        "adj_sizes": adj_sizes, "fadj_sizes": fadj_sizes,
-                       "is_dropped": is_dropped}
+                       "hist_dropped": dropped, "is_dropped": is_dropped}
 
     return _step
 
@@ -415,8 +433,8 @@ def build_train_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
     train step over the rows of an ``[S, B]`` batch-id matrix.  Returns the
     LAST step's loss and accuracy (the reference's window-1 Averager), the
     per-step ``amt_steps`` (the Trainer sums them on the host in int64),
-    and the summed ``amt_data``, field/adj/fadj sizes and ``is_dropped``;
-    all on the device.
+    and the summed ``amt_data``, field/adj/fadj sizes, ``hist_dropped``
+    and ``is_dropped``; all on the device.
 
     With ``cfg.lazy_fullterm`` and a CV model the epoch first takes the
     frozen anchor (:func:`lazy_anchor`), inside the epoch as in the JAX
@@ -445,7 +463,7 @@ def build_train_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
             "amt_steps": amts, "amt_data": amts.sum(),
             **{k: torch.stack([m[k] for m in ms]).sum(dim=0)
                for k in ("field_sizes", "adj_sizes", "fadj_sizes",
-                         "is_dropped")}}
+                         "hist_dropped", "is_dropped")}}
 
     return _epoch
 
@@ -454,18 +472,20 @@ def build_eval_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                      num_nodes: int, with_preds: bool = False, mesh=None):
     """Whole-evaluation runner over an [S, B] batch-id matrix:
     ``epoch(params, histories, graph, features, labels, batch_matrix, gen,
-    importance=None) -> (histories, out)`` with per-batch
+    importance=None, packs=None) -> (histories, out)`` with per-batch
     losses/accuracies, summed per-class F1 counters and, ``with_preds``,
     the [S, B, C] class probabilities and their [S, B] batch fields.
-    Histories are refreshed in place.  Under a ``mesh`` every output is
-    the whole batch's, the same on every rank."""
+    ``packs``: a prebuilt schedule for each row, as the train step's
+    ``pack``.  Histories are refreshed in place.  Under a ``mesh`` every
+    output is the whole batch's, the same on every rank."""
     wd = _weight_decay(cfg, mesh)
 
     def _eval_one(params, histories, graph, features, labels, batch_ids,
-                  gen, importance, rows):
-        pack = _schedule(cfg, spec, degrees, graph, batch_ids, gen,
-                         importance, train_mode=False,
-                         importance_rows=rows, mesh=mesh)
+                  gen, importance, rows, pack):
+        if pack is None:
+            pack = _schedule(cfg, spec, degrees, graph, batch_ids, gen,
+                             importance, train_mode=False,
+                             importance_rows=rows, mesh=mesh)
         b = _Batch(pack, labels, num_nodes, mesh)
         logits, new_h = M.forward(params, spec, pack, graph, histories,
                                   features, gen, cfg.keep_prob, train=False,
@@ -474,6 +494,7 @@ def build_eval_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
                                        wd, b.nvalid)
         tp, fp, fn = device_f1_counts(logits, b.y, b.valid, spec.multitask,
                                       mesh)
+        # the same capacity as training; the count is not reported
         scatter_histories(histories, new_h, pack.fields, num_nodes, mesh)
         out = (_reported_loss(loss, params, spec, cfg, mesh),
                _global(acc, mesh), tp, fp, fn,
@@ -484,11 +505,11 @@ def build_eval_epoch(cfg, spec: M.ModelSpec, degrees: Tuple[int, ...],
         return out
 
     def _epoch(params, histories, graph, features, labels, batch_matrix,
-               gen, importance=None):
+               gen, importance=None, packs=None):
         rows = _row_table(cfg, graph, importance, cfg.test_importance)
         ys = [_eval_one(params, histories, graph, features, labels, b, gen,
-                        importance, rows)
-              for b in batch_matrix]
+                        importance, rows, None if packs is None else pk)
+              for b, pk in zip(batch_matrix, packs or batch_matrix)]
         cols = [torch.stack(c) for c in zip(*ys)]
         losses, accs, tps, fps, fns, nvalid = cols[:6]
         out = {"losses": losses, "accs": accs,

@@ -449,13 +449,14 @@ def test_scatter_histories_unique_ids():
     fields = (field0, field0[:4])
     rows = rng.normal(size=(12, 5)).astype(np.float32)
     th = (T(hist),)
-    got = St.scatter_histories((th,), ((T(rows),),),
-                               tuple(T(f) for f in fields), 20)
+    got, dropped = St.scatter_histories((th,), ((T(rows),),),
+                                        tuple(T(f) for f in fields), 20)
     assert got[0][0] is th[0]                  # updated in place
-    want, _ = JStep.scatter_histories(
+    want, jdropped = JStep.scatter_histories(
         ((jnp.asarray(hist),),), ((jnp.asarray(rows),),),
         tuple(jnp.asarray(f) for f in fields), 20)
     np.testing.assert_array_equal(N(got[0][0]), np.asarray(want[0][0]))
+    assert dropped.dtype == torch.int32 and int(dropped) == int(jdropped) == 0
 
 
 @pytest.mark.parametrize("multitask", [False, True])

@@ -14,7 +14,20 @@ JAX step runs on the first 2 virtual devices (dp=2, owner-aligned packs
 from ``JS.schedule(owner_blocks=2)`` of owner-grouped batches) against the
 port's dp=2 step: the losses, the params, the Adam first moments (a
 decaying sum of the gradients) and the histories within rtol 1e-5 / atol
-1e-6."""
+1e-6.  So do the halo transports' two other settings at dp=2, on shuffled
+packs: ``--scatter_cap_mult 0.25`` on the append-only layout (the input
+field's 48 rows a rank, in draw order, meet a capacity of 8, so the
+history scatter drops writes, the same ones in both packages; no dropout,
+so repeated ids write equal rows; a dedup-compacted field is sorted by id,
+so each rank's block is mostly its own and hardly drops) and
+``--halo_exchange false`` (exact accesses; JAX's step then takes no halo
+spec and GSPMD lowers every access, which writes the sentinel row N that
+the port's mesh skips, so the histories are held on their node rows);
+each step's ``hist_dropped`` must be equal too.  The capacity case then
+runs two evaluation steps on the first nodes in id order, as the CV
+refresh before a prediction walks them, where the eval-history scatter
+drops too: the class probabilities and refreshed histories within the
+same tolerance.  Every other case drops nothing."""
 
 import dataclasses
 
@@ -81,10 +94,30 @@ def jax_noise(monkeypatch):
                                 tuple(shape)).astype(np.float32)))
 
 
-def _jax_run(name, ds, jg, feats, out, dp=JAX_DP, owner=False):
-    """Three JAX steps at width ``dp`` (owner-aligned with ``owner``);
-    their inputs go to ``out`` for the port."""
-    cfg = _cfg(name).replace(dp=dp, owner_batching=owner)
+def _put_pack(arrays, pre, pack):
+    for i, f in enumerate(pack.fields):
+        arrays[f"{pre}:field{i}"] = np.asarray(f)
+    for l, ls in enumerate(pack.layers):
+        arrays[f"{pre}:pos{l}"] = np.asarray(ls.slot_pos)
+        arrays[f"{pre}:w{l}"] = np.asarray(ls.slot_w)
+        arrays[f"{pre}:scales{l}"] = np.asarray(ls.scales)
+        if ls.slot_aw is not None:
+            arrays[f"{pre}:aw{l}"] = np.asarray(ls.slot_aw)
+        if ls.self_pos is not None:
+            arrays[f"{pre}:self{l}"] = np.asarray(ls.self_pos)
+
+
+def _jax_run(name, ds, jg, feats, out, dp=JAX_DP, owner=False, over=None,
+             evals=0):
+    """Three JAX steps at width ``dp`` (owner-aligned with ``owner``; the
+    config's fields ``over`` replaced), then with ``evals`` that many
+    evaluation steps of the trained state (JAX ``build_eval_epoch``'s
+    forward and history scatter) on the first nodes in id order, as the
+    CV refresh before a prediction walks them; their inputs go to ``out``
+    for the port.  Returns the config, each step's loss and
+    ``hist_dropped``, the state, and the evaluation's class probabilities
+    ([E, B, C]), refreshed histories and dropped counts."""
+    cfg = _cfg(name).replace(dp=dp, owner_batching=owner, **(over or {}))
     n = ds.num_data
     spec = JM.build_model_spec(cfg, ds.feature_dim, ds.num_classes,
                                cfg.preprocess, cfg.cv, cfg.cvd)
@@ -117,16 +150,16 @@ def _jax_run(name, ds, jg, feats, out, dp=JAX_DP, owner=False):
                            round_multiple=dp, dedup=cfg.field_dedup,
                            owner_blocks=dp if owner else 0)
         packs.append(pack)
-        for i, f in enumerate(pack.fields):
-            arrays[f"s{s}:field{i}"] = np.asarray(f)
-        for l, ls in enumerate(pack.layers):
-            arrays[f"s{s}:pos{l}"] = np.asarray(ls.slot_pos)
-            arrays[f"s{s}:w{l}"] = np.asarray(ls.slot_w)
-            arrays[f"s{s}:scales{l}"] = np.asarray(ls.scales)
-            if ls.slot_aw is not None:
-                arrays[f"s{s}:aw{l}"] = np.asarray(ls.slot_aw)
-            if ls.self_pos is not None:
-                arrays[f"s{s}:self{l}"] = np.asarray(ls.self_pos)
+        _put_pack(arrays, f"s{s}", pack)
+    eval_packs = [JS.schedule(
+        jax.random.PRNGKey(50 + s), jg,
+        jnp.arange(32 * s, 32 * (s + 1), dtype=jnp.int32), degrees,
+        cv=cfg.cv, need_aw=cfg.det_dropout, round_multiple=dp,
+        dedup=cfg.field_dedup) for s in range(evals)]
+    for s, pack in enumerate(eval_packs):
+        _put_pack(arrays, f"e{s}", pack)
+    if evals:
+        arrays["eval_steps"] = evals
     np.savez(out, **arrays)
 
     mesh = make_mesh(dp)
@@ -137,8 +170,9 @@ def _jax_run(name, ds, jg, feats, out, dp=JAX_DP, owner=False):
     data = (JG.pad_graph_rows(jg, dp),
             JG.pad_table_rows(jnp.asarray(feats), dp),
             JG.pad_table_rows(JG.dense_rows(ds.labels, n), dp))
-    inner = JStep.build_train_step(cfg, spec, degrees, n,
-                                   mesh=_halo_spec(cfg, mesh))
+    inner = JStep.build_train_step(
+        cfg, spec, degrees, n,
+        mesh=_halo_spec(cfg, mesh) if cfg.halo_exchange else None)
     repl = NamedSharding(mesh, P())
     st_sh = state_shardings(mesh, state, True)
     step = jax.jit(lambda st, g, f, l, imp, b, k, pk: inner(
@@ -148,13 +182,35 @@ def _jax_run(name, ds, jg, feats, out, dp=JAX_DP, owner=False):
         out_shardings=(st_sh, repl))
     state = jax.device_put(state, st_sh)
     data = jax.device_put(data, data_shardings(mesh, data, True))
-    losses = []
+    losses, drops = [], []
     for pack in packs:
         state, m = step(state, *data, jnp.zeros((n + 1,)),
                         pack.fields[-1], jax.random.PRNGKey(0), pack)
-        assert int(m["hist_dropped"]) == 0
+        drops.append(int(m["hist_dropped"]))
         losses.append(float(m["loss"]))
-    return cfg, losses, state
+    if not evals:
+        return cfg, losses, drops, state, None
+    hmesh = _halo_spec(cfg, mesh)
+
+    def ev(params, hist, g, f, pk):
+        logits, new_h = JM.forward(params, spec, pk, g, hist, f,
+                                   jax.random.PRNGKey(0), cfg.keep_prob,
+                                   train=False, mesh=hmesh)
+        hist, dropped = JStep.scatter_histories(
+            hist, new_h, pk.fields, n, mesh=hmesh,
+            scatter_cap_mult=cfg.scatter_cap_mult, unique=cfg.field_dedup)
+        return hist, JM.predict(spec, logits), dropped
+
+    dsh = data_shardings(mesh, data, True)
+    ev = jax.jit(ev, in_shardings=(st_sh.params, st_sh.histories, dsh[0],
+                                   dsh[1], repl),
+                 out_shardings=(st_sh.histories, repl, repl))
+    hist, preds, eval_drops = state.histories, [], []
+    for pack in eval_packs:
+        hist, pred, dropped = ev(state.params, hist, data[0], data[1], pack)
+        preds.append(np.asarray(pred))
+        eval_drops.append(int(dropped))
+    return cfg, losses, drops, state, (np.stack(preds), hist, eval_drops)
 
 
 @pytest.fixture(scope="module")
@@ -165,15 +221,21 @@ def dataset():
     return ds, JG.pad_csr(ds.train_adj)
 
 
-def _port_against_jax(dataset, tmp_path, name, dp, owner, tol):
+def _port_against_jax(dataset, tmp_path, name, dp, owner, tol, over=None,
+                      hist_rows=None, evals=0):
+    """Returns each step's ``hist_dropped`` (the port's and JAX's are
+    held equal), and with ``evals`` JAX's dropped counts of that many
+    evaluation steps after them, whose class probabilities and refreshed
+    histories are held equal too.  ``hist_rows``: the histories' rows
+    held (all of them by default)."""
     ds, jg = dataset
     n = ds.num_data
     cfg = _cfg(name)
     feats = (np.hstack((ds.feats, ds.train_feats)) if cfg.preprocess
              else ds.feats).astype(np.float32)
     feats = np.asarray(JG.dense_rows(feats, n))
-    cfg, losses, jstate = _jax_run(name, ds, jg, feats, tmp_path / "in.npz",
-                                   dp, owner)
+    cfg, losses, drops, jstate, jeval = _jax_run(
+        name, ds, jg, feats, tmp_path / "in.npz", dp, owner, over, evals)
     fields = {**dataclasses.asdict(cfg), "dp": PORT_DP}
     launch.spawn(checks.train_steps, PORT_DP,
                  (str(tmp_path / "in.npz"), str(tmp_path / "out.npz"),
@@ -181,6 +243,7 @@ def _port_against_jax(dataset, tmp_path, name, dp, owner, tol):
     got = np.load(tmp_path / "out.npz")
     np.testing.assert_allclose([float(got[f"loss{s}"]) for s in range(STEPS)],
                                losses, **tol)
+    assert [int(got[f"dropped{s}"]) for s in range(STEPS)] == drops
     for l, p in jstate.params.items():
         for k, v in p.items():
             np.testing.assert_allclose(got[f"param:{l}/{k}"], np.asarray(v),
@@ -190,13 +253,23 @@ def _port_against_jax(dataset, tmp_path, name, dp, owner, tol):
                                        **tol)
     for l, hl in enumerate(jstate.histories):
         for j, h in enumerate(hl):
-            np.testing.assert_allclose(got[f"hist:{l}/{j}"], np.asarray(h),
+            np.testing.assert_allclose(got[f"hist:{l}/{j}"][:hist_rows],
+                                       np.asarray(h)[:hist_rows], **tol)
+    if not evals:
+        return drops
+    preds, hist, eval_drops = jeval
+    np.testing.assert_allclose(got["pred"], preds, **tol)
+    for l, hl in enumerate(hist):
+        for j, h in enumerate(hl):
+            np.testing.assert_allclose(got[f"ehist:{l}/{j}"], np.asarray(h),
                                        **tol)
+    return drops, eval_drops
 
 
 @pytest.mark.parametrize("name", list(ESTIMATORS))
 def test_port_dp2_step_matches_jax_dp8(dataset, jax_noise, tmp_path, name):
-    _port_against_jax(dataset, tmp_path, name, JAX_DP, False, TOL)
+    drops = _port_against_jax(dataset, tmp_path, name, JAX_DP, False, TOL)
+    assert drops == [0] * STEPS
 
 
 @pytest.mark.parametrize("name", ["cv_pp", "cvd_pp"])
@@ -205,4 +278,40 @@ def test_port_owner_batched_dp2_step_matches_jax(dataset, jax_noise,
     """``--dp 2 --owner_batching``: the port's step on JAX's owner-aligned
     packs (``self_pos`` set, fields not prefixes) equals JAX's dp=2
     owner-batched step."""
-    _port_against_jax(dataset, tmp_path, name, PORT_DP, True, OWNER_TOL)
+    drops = _port_against_jax(dataset, tmp_path, name, PORT_DP, True,
+                              OWNER_TOL)
+    assert drops == [0] * STEPS
+
+
+@pytest.mark.parametrize("over", [
+    {"scatter_cap_mult": 0.25, "field_dedup": False, "dropout": 0.0},
+    {"halo_exchange": False}], ids=["scatter_cap_0.25", "halo_exchange_false"])
+def test_port_dp2_halo_transport_matches_jax(dataset, jax_noise, tmp_path,
+                                             over):
+    """CV+PP at dp=2 on shuffled packs: with a scatter capacity that
+    binds, the histories keep the same stale rows in both packages; with
+    exact accesses nothing is dropped."""
+    exact = over.get("halo_exchange") is False
+    drops = _port_against_jax(dataset, tmp_path, "cv_pp", PORT_DP, False,
+                              OWNER_TOL, over,
+                              hist_rows=dataset[0].num_data if exact
+                              else None)
+    if exact:
+        assert drops == [0] * STEPS
+    else:
+        assert all(d > 0 for d in drops)
+
+
+def test_port_dp2_eval_at_binding_scatter_capacity_matches_jax(
+        dataset, jax_noise, tmp_path):
+    """The evaluation that refreshes the histories before a prediction,
+    at dp=2 with ``--scatter_cap_mult 0.25``, after the three train
+    steps: its batches are the first nodes in id order, so both ranks'
+    blocks of a field are mostly rank 0's rows and the eval-history
+    scatter drops writes.  The class probabilities and the refreshed
+    histories equal JAX's, which drops the same writes."""
+    drops, eval_drops = _port_against_jax(
+        dataset, tmp_path, "cv_pp", PORT_DP, False, OWNER_TOL,
+        {"scatter_cap_mult": 0.25, "field_dedup": False, "dropout": 0.0},
+        evals=2)
+    assert all(d > 0 for d in drops) and all(d > 0 for d in eval_drops)
