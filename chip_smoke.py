@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (stochastic_gcn_tpu_torch) on one GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
+    python3 chip_smoke.py --phase kernels   # card, build and kernels phases
 
 Phases, one or more lines each:
 
@@ -100,12 +101,25 @@ Phases, one or more lines each:
 
    The kernels phase also runs every entry on rows that are not whole
    16-byte chunks or wider than 2048 bytes (d = 602 with float32 and
-   bfloat16 tables, d = 1, 513 and 1433: the same functions by element),
+   bfloat16 tables, d = 1, 513 and 1433: by unit, or by element where the
+   plan gives a row one warp),
    timed like the rest, on append-only and on dedup-compacted slots
    (repeated positions, ``PARKED_POS``); the standalone fanout at the Exact
    training shape (x [98816, 602], F = 33,280, K = 64), where the plain
    version would materialise 5 GB, is held against it on 1024 of its rows
    (and again in phase 7 on the first layer of a real Exact train batch).
+   The full term on 1024- and 2048-byte rows at the training shape (f32
+   d=256 and 512, bf16 d=512); the gather's edge cases at every row kind
+   (``EDGE_ROWS``); the backward with many slots on few rows (W [500,32],
+   F=15,000, K=333, seeded) beside ``index_add_`` and ``torch.sparse.mm``.
+   Each redesigned case also goes into the kernels JSON line under
+   ``redesigned_cases``; the PPI phase adds the full term on 4 real PPI
+   batches (bf16 train and f32 eval histories, ``ppi_cases``), with every
+   split.  ``--phase kernels`` adds the sweeps that chose the wide rows'
+   plans and do not run in the whole smoke: every split at those widths
+   and at Exact training's first layer, and where the many-slot backward's
+   time goes (the same call on dead slots, on half and 25 of the rows, on
+   uniform rows; the compacted backward on dead slots).
 7. estimators — on the same SBM, at full width (hidden 128, 602 features):
    CVD+PP (``cvd``, ``test_cvd``) up to 15 epochs and Exact (exhaustive
    degree, no preprocessing, no control variate: dedup-compacted fields are
@@ -226,6 +240,8 @@ from the four artifacts and the full-term phase's epochs, and apart per
 train step of each estimator and per request of each serving path; the
 sparse first layer's cases under ``sparse_layer_batches``; the full-term
 phase's kernel cases under ``fullterm_cases`` with ``launch_floor_ms``,
+the redesigned branches' synthetic cases under ``redesigned_cases`` and the
+PPI batches under ``ppi_cases``,
 the tier's host-clock times under ``tier_wall_ms`` and the a-bar builds
 under ``lazy_anchor_ms``); the last is ``{"ok": true, "device":
 {...}}``.  Any failed check exits non-zero.
@@ -323,8 +339,7 @@ SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's ~2 GHz SM clock
 # float32 rate outside the tensor cores (the kernels' multiply-adds)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-SPLITS = (1, 2, 4, 8)        # warps per output row of the split kernel
-SPLIT_MAX_ROW_BYTES = 512    # the widest rows the split kernel takes
+SPLITS = (1, 2, 4, 8)        # warps per output row of the split kernels
 # widths the kernels take by element: raw Reddit-shaped features, one
 # column, one column past 128 chunks, Cora's features
 WIDE_WIDTHS = (602, 1, 513, 1433)
@@ -443,7 +458,7 @@ EMA_ALPHA = 0.3
 TP_KERNEL_WIDTHS = {64: "hidden 128 over 2 model ranks",
                     256: "hidden 512 over 2 model ranks"}
 CKPT_EVERY = (1, 10)         # epochs a --ckpt_every cycle the save joins
-CYCLE_EPOCHS = 3             # epochs of a timed --ckpt_every 1 run
+CYCLE_EPOCHS = 2             # epochs of a timed --ckpt_every 1 run
 SAVE_TURNS = (False, True, True, False)   # sync, async, async, sync
 
 
@@ -519,8 +534,9 @@ def phase_build() -> None:
     kernel = "?"         # the entry function the next ptxas lines describe
     for line in log.splitlines():
         m = re.search(r"(wide_row_gather_kernel|row_gather_kernel|"
-                      r"split_gather_kernel|fanout_backward_coop_kernel|"
-                      r"fanout_backward_wide_kernel)(?:I(\S*))?", line)
+                      r"wide_split_kernel|wide_tma_kernel|"
+                      r"split_gather_kernel|"
+                      r"fanout_backward_coop_kernel)(?:I(\S*))?", line)
         if "Compiling entry function" in line:
             kernel = "empty_kernel" if "empty_kernel" in line else "?"
             if m and m.group(2) is None:
@@ -579,10 +595,11 @@ def _live(idx, w, rows: int):
     return (w != 0) & (idx >= 0) & (idx < rows)
 
 
-def _agree(name: str, got, want, atol: float, rtol: float) -> float:
+def _agree(name: str, got, want, atol: float, rtol: float,
+           slack=0.0) -> float:
     err = (got.float() - want).abs()
     if not (torch.isfinite(got).all()
-            and (err <= atol + rtol * want.abs()).all()):
+            and (err <= atol + rtol * want.abs() + slack).all()):
         fail(f"{name}: disagrees with the plain version, max abs err "
              f"{err.max().item():.3e}")
     return err.max().item()
@@ -638,7 +655,7 @@ def _library_backward(rows: int):
 
 def _compare(name, kernel, ref, table, sets, timing: bool,
              kind: str = "gather", rows: int | None = None, library=None,
-             sentinel: int | None = None, replaced=None):
+             sentinel: int | None = None, replaced=None, slack=None):
     """Kernel vs plain version on every ``(idx, w, *more)`` of ``sets``,
     called as ``kernel(table, idx, w, *more)``; timed calls cycle through
     the sets, so consecutive calls read other rows.  ``rows`` bounds a live
@@ -651,14 +668,17 @@ def _compare(name, kernel, ref, table, sets, timing: bool,
     float32 rate), the time of ``library(table, sets, wants)``'s call (or,
     for a string, that note and no time), and the time of ``replaced``,
     the composition the kernel took over, held against the plain version
-    like the kernel."""
+    like the kernel.  ``slack(table, *args)``, where given, is added to the
+    tolerance (``_order_slack``)."""
     rows = table.shape[0] if rows is None else rows
     worst, wants = 0.0, []
     for args in sets:
         out = kernel(table, *args)
         want = ref(table.float(), *args)
         torch.cuda.synchronize()
-        worst = max(worst, _agree(name, out, want, *KERNEL_TOL))
+        worst = max(worst, _agree(name, out, want, *KERNEL_TOL,
+                                  slack=0.0 if slack is None
+                                  else slack(table, *args)))
         if replaced is not None:
             _agree(f"{name}, the replaced composition",
                    replaced(table, *args), want, *KERNEL_TOL)
@@ -739,9 +759,20 @@ def _report(results: dict, kname: str, case: str, res: dict,
           f"{res['max_abs_err']:.3e}{times}")
 
 
+def _kept_case(results: dict, kname: str, key: str, case: str,
+               res: dict) -> None:
+    """Print a case and keep it under ``key`` of the kernels JSON line."""
+    _report(results, kname, case, res)
+    results[kname].setdefault(key, []).append({
+        "case": case, **{k: res.get(k) for k in
+                         ("max_abs_err", *MAIN_KEYS, "library", "plan",
+                          "sparse_mm_ms") if k in res}})
+
+
 def _gather_splits(label: str, table, sets) -> None:
-    """Every split of the gather kernel on ``sets`` (0: one warp per row):
-    held against the plain version, then timed like the public function."""
+    """Every split of the gather kernels on ``sets`` (0: one warp per row),
+    at any width: held against the plain version, then timed like the
+    public function."""
     f, k = sets[0][0].shape
     wants = [K.hbm_gather_aggregate_ref(table.float(), idx, w)
              for idx, w in sets]
@@ -759,15 +790,25 @@ def _gather_splits(label: str, table, sets) -> None:
           f"{K.gather_plan(table, f, k)} (0 = row)")
 
 
+# rows of every kind the gather kernels take: whole 16-byte chunks of 128,
+# 256 and 512 bytes (split_gather_kernel), 1024 and 2048 bytes
+# (wide_tma_kernel), and rows by 8-, 4- and 2-byte units (602 float32 and
+# bfloat16 columns, 301 bfloat16; 13 float32 by element)
+EDGE_ROWS = ((64, torch.bfloat16), (64, torch.float32), (128, torch.bfloat16),
+             (128, torch.float32), (256, torch.float32),
+             (512, torch.bfloat16), (512, torch.float32),
+             (602, torch.float32), (602, torch.bfloat16),
+             (301, torch.bfloat16), (13, torch.float32))
+
+
 def _gather_edge_cases(rng, dev) -> float:
     """Every split, and the public function, on the shapes the split must
     get right: K not a multiple of the split, K below the
     warps per row, K = 1, a row whose slots are all dead, F = 1, and
-    F = 132 * 8 + 1, at 128-, 256- and 512-byte rows.  Returns the worst
-    error."""
+    F = 132 * 8 + 1, at every row kind of ``EDGE_ROWS``.  Returns the
+    worst error."""
     worst = 0.0
-    for d, dtype in [(64, torch.bfloat16), (64, torch.float32),
-                     (128, torch.bfloat16), (128, torch.float32)]:
+    for d, dtype in EDGE_ROWS:
         table = torch.from_numpy(rng.normal(size=(5008, d)).astype(
             np.float32)).to(dev, dtype)
         table[5000] = float("nan")        # a dead slot must never be read
@@ -791,6 +832,110 @@ def _gather_edge_cases(rng, dev) -> float:
             if outs[0][f // 2].abs().max().item() != 0.0:
                 fail("an all-dead row did not come out zero")
     return worst
+
+
+def _device_table(rows: int, d: int, dtype, sentinel: int, seed: int):
+    """A seeded normal ``[rows, d]`` table made on the card, NaN from row
+    ``sentinel`` on (a dead slot must never read it)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    table[sentinel:] = float("nan")
+    return table
+
+
+def _order_slack(g, pos, w, rows: int):
+    """The most two float32 sums of the same n terms can differ by when
+    they add them in different orders: 2 n 2^-24 times the sum of the
+    terms' magnitudes, per element of ``grad_x`` (n the most live slots on
+    one of its rows).  Atomics, ``index_add_`` and a sparse product each
+    add a row's slots in an order of their own; where a row of grad_x
+    gathers ~150 slots of unit scale, that is ~1e-5, the size of
+    ``KERNEL_TOL`` itself."""
+    n = int(torch.bincount(pos[_live(pos, w, rows)].long(),
+                           minlength=rows).max())
+    return 2 * n * 2.0 ** -24 * K.fanout_aggregate_backward_ref(
+        g.abs(), pos, w.abs(), rows)
+
+
+def _sparse_mm_ms(g, sets, rows: int, order_bound: bool = False) -> float:
+    """``torch.sparse.mm(X^T, g)``, the one PyTorch call for the gradient in
+    W of a padded-sparse layer: each set's live slots as a CSR ``X^T
+    [rows, F]``, built outside the timed window and held against the plain
+    backward at ``KERNEL_TOL``, with ``order_bound`` plus
+    ``_order_slack``."""
+    f = sets[0][0].shape[0]
+    xts = []
+    with warnings.catch_warnings():      # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        for i, v in sets:
+            m = _live(i, v, rows)
+            r = torch.arange(f, device=i.device)[:, None].expand_as(i)[m]
+            xts.append(torch.sparse_coo_tensor(
+                torch.stack([i[m].long(), r]), v[m], (rows, f),
+                check_invariants=True).coalesce().to_sparse_csr())
+    for j, xt in enumerate(xts):
+        i, v = sets[j]
+        _agree("library torch.sparse.mm", torch.sparse.mm(xt, g),
+               K.fanout_aggregate_backward_ref(g, i, v, rows), *KERNEL_TOL,
+               slack=_order_slack(g, i, v, rows) if order_bound else 0.0)
+    return _device_ms(lambda i: torch.sparse.mm(xts[i % len(xts)], g))
+
+
+def _many_slots_case(rng, dev, results: dict, sweeps: bool) -> None:
+    """The backward with many slots on few rows at the padded-sparse first
+    layer's shape on PubMed-sized data (W [500, 32], F = 15,000 field rows
+    of nnz_cap = 333 slots, ~3.9 live a row on average as the first slots
+    of the row, clustered as on a real field: a fifth of the rows hold
+    them, with a geometric tail, the others none; positions skewed as word
+    counts are): against its plain version and timed beside ``index_add_``
+    and ``torch.sparse.mm``; with ``sweeps``, where its time goes."""
+    rows, d, f, k = 500, 32, 15_000, 333
+    weights = 1.0 / (np.arange(rows) + 10.0)
+    sets = []
+    for _ in range(4):
+        n_live = np.where(rng.random(f) < 0.2,
+                          np.minimum(rng.geometric(1 / 19.5, f), k), 0)
+        idx = np.zeros((f, k), np.int32)
+        w = np.zeros((f, k), np.float32)
+        live = np.arange(k)[None, :] < n_live[:, None]
+        idx[live] = rng.choice(rows, int(live.sum()), p=weights / weights.sum())
+        w[live] = rng.uniform(0.01, 0.2, int(live.sum()))
+        sets.append((torch.from_numpy(idx).to(dev),
+                     torch.from_numpy(w).to(dev)))
+    g = torch.from_numpy(rng.standard_normal((f, d), dtype=np.float32)).to(dev)
+    bwd, bwd_ref = K.fanout_aggregate_backward, K.fanout_aggregate_backward_ref
+    case = (f"many slots on few rows: W [{rows},{d}] F={f} K={k}, ~3.9 live "
+            f"a row, clustered (plan {K.backward_plan(f, k)})")
+    # held at KERNEL_TOL plus the float32 summation-order bound: ~118 live
+    # slots of unit scale gather on a row of W
+    res = _compare(f"backward {case}", lambda g_, p, w: bwd(g_, p, w, rows),
+                   lambda g_, p, w: bwd_ref(g_, p, w, rows), g, sets, True,
+                   kind="backward", rows=rows, library=_library_backward(rows),
+                   slack=lambda g_, p, w: _order_slack(g_, p, w, rows))
+    res["sparse_mm_ms"] = _sparse_mm_ms(g, sets, rows, order_bound=True)
+    res["plan"] = K.backward_plan(f, k)
+    _kept_case(results, "fanout_aggregate_backward", "redesigned_cases", case,
+               res)
+    print(f"kernels: fanout_aggregate_backward {case}: torch.sparse.mm of "
+          f"X^T (CSR) {res['sparse_mm_ms']:.5f} ms/call")
+    if not sweeps:
+        return
+    # where its time goes: the same call with every slot dead, on half and
+    # on 1/600 of the rows (the stream against the fixed cost), and with
+    # the live slots on uniform rows (the atomics' contention)
+    idx0, w0 = sets[0]
+    dead = torch.zeros_like(w0)
+    uniform = torch.randint(0, rows, idx0.shape, dtype=torch.int32,
+                            device=dev)
+    parts = {"every slot dead": (g, idx0, dead),
+             "half the rows, dead": (g[:f // 2], idx0[:f // 2],
+                                     dead[:f // 2]),
+             "25 rows, dead": (g[:25], idx0[:25], dead[:25]),
+             "the live slots on uniform rows": (g, uniform, w0)}
+    times = "; ".join(
+        f"{name} {_device_ms(lambda i, a=args: bwd(*a, rows)):.5f}"
+        for name, args in parts.items())
+    print(f"kernels: fanout_aggregate_backward {case}: {times} ms/call")
 
 
 def _cv_calls(sentinel: int):
@@ -989,12 +1134,32 @@ def _fanout_on_row_subset(results: dict, case: str, x, pos, w,
           f"{plain_ms:.5f} ms/call; bitwise reproducible")
 
 
-def phase_wide_kernels(rng, dev, results: dict) -> None:
-    """Every entry at widths that go by element (``WIDE_WIDTHS``; at 602
-    also a bfloat16 table), against its plain version and timed with its
-    bound and library call; the fanout forward and backward on compacted
-    slots; and the standalone fanout at the Exact training shape, held
-    against the plain version on a subset of its rows."""
+def _subset_splits(label: str, x, pos, w, sub: int = 1024) -> None:
+    """Every split of the gather kernels at a shape too large for the plain
+    version: each held against it on the first ``sub`` rows, then timed on
+    every row."""
+    want = K.fanout_aggregate_ref(x, pos[:sub], w[:sub])
+    cells = []
+    for split in (0, *SPLITS):
+        _agree(f"{label} split {split}", K.gather_aggregate_split(
+            x, pos[:sub].contiguous(), w[:sub].contiguous(), split), want,
+            *KERNEL_TOL)
+        ms = _device_ms(lambda i, s=split: K.gather_aggregate_split(
+            x, pos, w, s), calls=8, reps=3)
+        cells.append(f"{'row' if split == 0 else f'x{split}'} {ms:.5f}")
+    print(f"kernels: splits, {label}, device ms/call: {'; '.join(cells)}; "
+          f"the public function plans split "
+          f"{K.gather_plan(x, *pos.shape)} (0 = row)")
+
+
+def phase_wide_kernels(rng, dev, results: dict, sweeps: bool) -> None:
+    """Every entry at widths that do not go by 16-byte chunks
+    (``WIDE_WIDTHS``; at 602 also a bfloat16 table), against its plain
+    version and timed with its bound and library call; the fanout forward
+    and backward on compacted slots; the standalone fanout at the Exact
+    training shape, held against the plain version on a subset of its
+    rows; and the backward with many slots on few rows.  With ``sweeps``,
+    every split of the gathers too."""
     floor_ms = _device_ms(lambda i: K.empty_launch(dev))
     print(f"kernels: rows of any width (by element): launch_floor_ms "
           f"{floor_ms:.5f} in this part's windows")
@@ -1025,10 +1190,17 @@ def phase_wide_kernels(rng, dev, results: dict) -> None:
                 idx[w == 0] = n
                 sets.append((torch.from_numpy(idx).to(dev),
                              torch.from_numpy(w).to(dev)))
-            _report(results, "hbm_gather_aggregate",
-                    f"{name} [{n + 8},{d}] F=512 K=64 (by element)",
-                    _compare(f"full term d={d} {name}", hbm, hbm_ref, hist,
-                             sets, True, library=_library_gather))
+            label = (f"{name} [{n + 8},{d}] F=512 K=64 (plan "
+                     f"{K.gather_plan(hist, 512, 64)})")
+            res = _compare(f"full term d={d} {name}", hbm, hbm_ref, hist,
+                           sets, True, library=_library_gather)
+            if d == 602:
+                _kept_case(results, "hbm_gather_aggregate",
+                           "redesigned_cases", label, res)
+            else:
+                _report(results, "hbm_gather_aggregate", label, res)
+            if sweeps:
+                _gather_splits(label, hist, sets)
             # the CV kernel on top of it: C = 1024, F = 512, K = 1
             kernel, ref, replaced = _cv_calls(n)
             _report(results, "cv_fanout_aggregate",
@@ -1054,12 +1226,14 @@ def phase_wide_kernels(rng, dev, results: dict) -> None:
             # evaluation's width, F = 2048, K = 64, 25/64 live
             f, k, c = (2048, 64, 67_584) if d == 602 else (512, 64, 33_280)
             x = normal(c, d).to(dtype)
-            _report(results, "fanout_aggregate",
-                    f"{name} C={c} F={f} K={k} d={d}, compacted slots "
-                    f"(by element)",
+            fan_sets = [_compacted_slots(rng, dev, f, k, c, 25 / 64)]
+            label = (f"{name} C={c} F={f} K={k} d={d}, compacted slots "
+                     f"(plan {K.gather_plan(x, f, k)})")
+            _report(results, "fanout_aggregate", label,
                     _compare(f"fanout d={d} {name}", fan, fan_ref, x,
-                             [_compacted_slots(rng, dev, f, k, c, 25 / 64)],
-                             True, library=_library_gather))
+                             fan_sets, True, library=_library_gather))
+            if sweeps and d == 602:
+                _gather_splits(label, x, fan_sets)
             del x, hist
         del hist32
         # the backward: the training shape's iota, then compacted slots
@@ -1069,16 +1243,20 @@ def phase_wide_kernels(rng, dev, results: dict) -> None:
         w1 = torch.from_numpy(rng.uniform(0.5, 1.5, (512, 1)).astype(
             np.float32)).to(dev)
         for case, c, slots, timing in [
-                (f"C=1024 F=512 K=1 d={d} (by element)", 1024, (iota, w1),
+                (f"C=1024 F=512 K=1 d={d} (by unit)", 1024, (iota, w1),
                  True),
                 (f"C=1024 F=512 K=8 d={d}, compacted slots", 1024,
                  _compacted_slots(rng, dev, 512, 8, 1024, 0.7), False)]:
-            _report(results, "fanout_aggregate_backward", case,
-                    _compare(f"backward {case}",
-                             lambda g_, p, w, c=c: bwd(g_, p, w, c),
-                             lambda g_, p, w, c=c: bwd_ref(g_, p, w, c), g,
-                             [slots], timing, kind="backward", rows=c,
-                             library=_library_backward(c)))
+            res = _compare(f"backward {case}",
+                           lambda g_, p, w, c=c: bwd(g_, p, w, c),
+                           lambda g_, p, w, c=c: bwd_ref(g_, p, w, c), g,
+                           [slots], timing, kind="backward", rows=c,
+                           library=_library_backward(c))
+            if timing:
+                _kept_case(results, "fanout_aggregate_backward",
+                           "redesigned_cases", case, res)
+            else:
+                _report(results, "fanout_aggregate_backward", case, res)
 
     # compacted slots at the chunked width: Exact training's second layer
     # (x [33280, 128], F = 512, K = 64), forward and backward
@@ -1089,27 +1267,40 @@ def phase_wide_kernels(rng, dev, results: dict) -> None:
             f"layer 1)",
             _compare("fanout compacted d=128", fan, fan_ref, normal(c, d),
                      slots, True, library=_library_gather))
-    _report(results, "fanout_aggregate_backward",
-            f"C={c} F={f} K={k} d={d}, compacted slots (Exact training, "
-            f"layer 1)",
-            _compare("backward compacted d=128",
-                     lambda g_, p, w: bwd(g_, p, w, c),
-                     lambda g_, p, w: bwd_ref(g_, p, w, c), normal(f, d),
-                     slots, True, kind="backward", rows=c,
-                     library=_library_backward(c)))
+    g = normal(f, d)
+    _kept_case(results, "fanout_aggregate_backward", "redesigned_cases",
+               f"C={c} F={f} K={k} d={d}, compacted slots (Exact training, "
+               f"layer 1; plan {K.backward_plan(f, k)})",
+               _compare("backward compacted d=128",
+                        lambda g_, p, w: bwd(g_, p, w, c),
+                        lambda g_, p, w: bwd_ref(g_, p, w, c), g,
+                        slots, True, kind="backward", rows=c,
+                        library=_library_backward(c)))
+    if sweeps:
+        dead = torch.zeros_like(slots[0][1])
+        print(f"kernels: fanout_aggregate_backward C={c} F={f} K={k} d={d}, "
+              f"every slot dead (the zero-fill and the barrier alone): "
+              f"device {_device_ms(lambda i: bwd(g, slots[0][0], dead, c)):.5f}"
+              f" ms/call")
 
     # Exact training's first layer at the capacities a pad degree of 64
     # gives: x [98816, 602], F = 33,280, K = 64, ~17 of 64 slots live (the
     # estimators phase repeats this on a real batch of the run)
     c, f, k, d = 98_816, 33_280, 64, 602
     pos, w = _compacted_slots(rng, dev, f, k, c, 17 / 64)
-    _fanout_on_row_subset(
-        results, f"f32 C={c} F={f} K={k} d={d}, compacted slots (Exact "
-        f"training, layer 0; by element)", normal(c, d), pos, w)
+    x = normal(c, d)
+    label = (f"f32 C={c} F={f} K={k} d={d}, compacted slots (Exact "
+             f"training, layer 0; plan {K.gather_plan(x, f, k)})")
+    _fanout_on_row_subset(results, label, x, pos, w)
+    if sweeps:
+        _subset_splits(label, x, pos, w)
+    del x
+    _many_slots_case(rng, dev, results, sweeps)
 
 
-def phase_kernels(seed: int = 0) -> dict:
-    """Kernel vs plain version on the card; returns per-kernel results."""
+def phase_kernels(seed: int = 0, sweeps: bool = False) -> dict:
+    """Kernel vs plain version on the card; returns per-kernel results.
+    ``sweeps`` adds the split sweeps that chose the wide rows' plans."""
     rng = np.random.default_rng(seed)
     dev = "cuda"
     results = {name: {} for name in REPLACES}
@@ -1180,6 +1371,21 @@ def phase_kernels(seed: int = 0) -> dict:
                f"{str(dtype)[6:]} [5008,{wide_d}] F=64 K=64",
                _compare("full wide", hbm, hbm_ref, wide,
                         full_term_inputs(64, 64, 5000), False))
+    # rows above 512 bytes at the training shape (F=512, K=64): 1024-byte
+    # f32 rows (hidden 256+ served in f32), 1024-byte bf16 and 2048-byte
+    # f32 rows (PPI's hidden 512); with sweeps, every split
+    for wide_d, dtype in [(256, torch.float32), (512, torch.bfloat16),
+                          (512, torch.float32)]:
+        wide = _device_table(HIST_ROWS, wide_d, dtype, n_nodes, seed=wide_d)
+        label = (f"{str(dtype)[6:]} [233008,{wide_d}] F=512 K=64 "
+                 f"({wide_d * wide.element_size()}-byte rows, plan "
+                 f"{K.gather_plan(wide, 512, 64)})")
+        _kept_case(results, "hbm_gather_aggregate", "redesigned_cases", label,
+                   _compare(f"full {label}", hbm, hbm_ref, wide, train_sets,
+                            True, library=_library_gather))
+        if sweeps:
+            _gather_splits(label, wide, train_sets)
+        del wide
 
     fan, fan_ref = K.fanout_aggregate, K.fanout_aggregate_ref
     # training: x [C=1024, 128], F = 512, K = 1, the no-dedup iota 512 + f
@@ -1279,7 +1485,7 @@ def phase_kernels(seed: int = 0) -> dict:
           f"forward: max abs err {err.max().item():.3e}")
     phase_cv_kernel(rng, dev, results, bf16)
     del table, bf16
-    phase_wide_kernels(rng, dev, results)
+    phase_wide_kernels(rng, dev, results, sweeps)
     return results
 
 
@@ -1441,10 +1647,7 @@ def phase_train_kernels(tr: Trainer, results: dict, batches: int = 4,
 def _tp_case(results: dict, kname: str, case: str, res: dict) -> None:
     """Print a tensor-parallel width case and keep it under ``tp_cases``
     of the kernels JSON line."""
-    _report(results, kname, case, res)
-    results[kname].setdefault("tp_cases", []).append({
-        "case": case, **{k: res.get(k) for k in
-                         ("max_abs_err", *MAIN_KEYS, "library")}})
+    _kept_case(results, kname, "tp_cases", case, res)
 
 
 def phase_tp_kernels(tr: Trainer, results: dict, batches: int = 4,
@@ -1459,9 +1662,8 @@ def phase_tp_kernels(tr: Trainer, results: dict, batches: int = 4,
     history (256-byte rows, serving's); at d = 256 seeded tables of the
     same rows, bf16 and f32.  Each case held against its plain version and
     timed as in phase 3 (bound, plain version, library call), the full
-    term with every split where its rows allow one (the split kernel takes
-    rows of up to ``SPLIT_MAX_ROW_BYTES``); the cases go into the kernels
-    JSON line under ``tp_cases``."""
+    term with every split; the cases go into the kernels JSON line under
+    ``tp_cases``."""
     bs, n, dev = tr.cfg.batch_size, tr.ds.num_data, tr.device
     bm = torch.from_numpy(tr._batch_matrix(
         tr.train_iter.data[:batches * bs], bs, n)).to(dev)
@@ -1506,15 +1708,8 @@ def phase_tp_kernels(tr: Trainer, results: dict, batches: int = 4,
                               K.hbm_gather_aggregate,
                               K.hbm_gather_aggregate_ref, hist, full, True,
                               library=_library_gather))
-            label = f"{tag}: {dt} {kind} history d={d} F={f} K={k_full}"
-            if d * hist.element_size() <= SPLIT_MAX_ROW_BYTES:
-                _gather_splits(label, hist, full)
-            else:
-                print(f"kernels: splits, {label}: rows of "
-                      f"{d * hist.element_size()} bytes, past the split "
-                      f"kernel's {SPLIT_MAX_ROW_BYTES}; the public function "
-                      f"plans split {K.gather_plan(hist, f, k_full)} "
-                      f"(0 = row)")
+            _gather_splits(f"{tag}: {dt} {kind} history d={d} F={f} "
+                           f"K={k_full}", hist, full)
         _tp_case(results, "fanout_aggregate",
                  f"{tag}: f32 C={c} F={f} K={k_fan}",
                  _compare(f"fanout tp d={d}", K.fanout_aggregate,
@@ -2265,7 +2460,8 @@ def phase_estimators(ds, cv_tr: Trainer, cv_curve, device: str = "cuda",
         pos, w = pack.layers[0].slot_pos, pack.layers[0].slot_w
         _fanout_on_row_subset(
             results, f"Exact train batch, layer 0: f32 C={x.shape[0]} "
-            f"F={pos.shape[0]} K={pos.shape[1]} d={x.shape[1]} (by element)",
+            f"F={pos.shape[0]} K={pos.shape[1]} d={x.shape[1]} (plan "
+            f"{K.gather_plan(x, *pos.shape)})",
             x, pos, w)
         del x, pack
         phase_profile(exact, label="Exact")
@@ -2483,32 +2679,20 @@ def _sparse_layer_kernels(tr: Trainer, results: dict, batches: int = 4,
                    lambda g_, p, v: K.fanout_aggregate_backward_ref(
                        g_, p, v, dim), g, sets, True, kind="backward",
                    rows=dim, library=_library_backward(dim))
-    # torch.sparse.mm(X_field^T, g): the field's rows as a CSR matrix,
-    # built outside the timed window
-    xts = []
-    with warnings.catch_warnings():      # "sparse CSR support is in beta"
-        warnings.simplefilter("ignore", UserWarning)
-        for i, v in sets:
-            m = _live(i, v, dim)
-            r = torch.arange(f, device=i.device)[:, None].expand_as(i)[m]
-            xts.append(torch.sparse_coo_tensor(
-                torch.stack([i[m].long(), r]), v[m], (dim, f),
-                check_invariants=True).coalesce().to_sparse_csr())
-    for j, xt in enumerate(xts):
-        _agree("library torch.sparse.mm", torch.sparse.mm(xt, g),
-               K.fanout_aggregate_backward_ref(g, *sets[j], dim),
-               *KERNEL_TOL)
-    bwd["sparse_mm_ms"] = _device_ms(
-        lambda i: torch.sparse.mm(xts[i % len(xts)], g))
+    # torch.sparse.mm(X_field^T, g): the field's rows as a CSR matrix
+    bwd["sparse_mm_ms"] = _sparse_mm_ms(g, sets, dim)
+    bwd["plan"] = K.backward_plan(f, k)
     for kname, res in (("fanout_aggregate", fwd),
                        ("fanout_aggregate_backward", bwd)):
         _report(results, kname, case, res)
         results[kname].setdefault("sparse_layer_batches", {})[case] = {
             key: res.get(key)
-            for key in (*MAIN_KEYS, "live", "distinct", "sparse_mm_ms")
+            for key in (*MAIN_KEYS, "live", "distinct", "sparse_mm_ms",
+                        "plan")
             if key in res}
     print(f"kernels: fanout_aggregate_backward {case}: torch.sparse.mm of "
-          f"the field's X^T (CSR) {bwd['sparse_mm_ms']:.5f} ms/call")
+          f"the field's X^T (CSR) {bwd['sparse_mm_ms']:.5f} ms/call; plan "
+          f"{bwd['plan']} (warps a row)")
     _gather_splits(case, w, sets)
 
 
@@ -2583,13 +2767,41 @@ def phase_pubmed(tmp: str, results: dict, epochs: int = PUBMED_EPOCHS,
     return paths, per_step, per_request
 
 
+def _ppi_kernels(tr: Trainer, results: dict, batches: int = 4) -> None:
+    """The full term on ``batches`` real PPI train batches (the train
+    graph's rows of the output field, F = batch 512, K = its pad degree)
+    over the trained bf16 train history and the f32 eval history, rows of
+    1024 and 2048 bytes: against the plain version, timed with its bound
+    and ``embedding_bag``, with every split; kept under ``ppi_cases``."""
+    bs, n = tr.cfg.batch_size, tr.ds.num_data
+    bm = torch.from_numpy(tr._batch_matrix(
+        tr.train_iter.data[:batches * bs], bs, n)).to(tr.device)
+    packs = [schedule(tr.gen, tr.graph_train, ids, tr.train_degrees, True,
+                      dedup=tr.cfg.field_dedup) for ids in bm]
+    full = [graph_rows(tr.graph_train, p.fields[1])[:2] for p in packs]
+    f, k = full[0][0].shape
+    for hist, kind in ((tr.state.histories[0][0], "train"),
+                       (tr.eval_histories[0][0], "eval")):
+        label = (f"PPI train batch: {str(hist.dtype)[6:]} {kind} history "
+                 f"{list(hist.shape)} F={f} K={k} "
+                 f"({hist.shape[1] * hist.element_size()}-byte rows, plan "
+                 f"{K.gather_plan(hist, f, k)})")
+        _kept_case(results, "hbm_gather_aggregate", "ppi_cases", label,
+                   _compare(f"full term {label}", K.hbm_gather_aggregate,
+                            K.hbm_gather_aggregate_ref, hist, full, True,
+                            library=_library_gather))
+        _gather_splits(label, hist, full)
+
+
 def phase_ppi(tmp: str, device: str = "cuda", fixture=PPI_FIXTURE,
-              cfg_kw=PPI_CFG, serve_ids: int = PPI_SERVE_IDS):
+              cfg_kw=PPI_CFG, serve_ids: int = PPI_SERVE_IDS,
+              results: dict | None = None):
     """The GraphSAGE JSON format at PPI's size (multi-label, 121 labels):
     ``configs/ppi.sh``'s flags with the CV recipe for one timed epoch (the
     CV kernels on 2048-byte float32 eval rows), its launches a step checked
     exactly; then the trained model exported and ``PPI_SERVE_IDS`` test
-    ids served from the artifact.  Returns ({path: launches}, launches a
+    ids served from the artifact; with ``results``, the full term on real
+    batches (``_ppi_kernels``).  Returns ({path: launches}, launches a
     step, launches per request)."""
     os.makedirs(tmp, exist_ok=True)
     prefix = os.path.join(tmp, "ppi")
@@ -2637,6 +2849,8 @@ def phase_ppi(tmp: str, device: str = "cuda", fixture=PPI_FIXTURE,
     served, per_request, _ = _serve_from_artifact(
         "PPI CV+PP artifact", tr, [ids] * REQUESTS, [live] * REQUESTS, tmp,
         exact_ids=ids)
+    if results is not None:
+        _ppi_kernels(tr, results)
     return ({"PPI CV+PP train epoch": launches,
              "PPI served requests (artifact)": served},
             {k: v / steps for k, v in launches.items()}, per_request)
@@ -4501,9 +4715,11 @@ def phase_dp(results: dict, device: str = "cuda", world: int = 0,
 def main(argv=None) -> None:
     import argparse
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--phase", choices=("all", "dp"), default="all",
+    p.add_argument("--phase", choices=("all", "dp", "kernels"),
+                   default="all",
                    help="dp: the card, build and dp phases alone (one rank "
-                        "per card of the machine)")
+                        "per card of the machine); kernels: the card, build "
+                        "and kernels phases alone, on seeded inputs")
     only = p.parse_args(argv).phase
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
@@ -4523,7 +4739,15 @@ def main(argv=None) -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
-    kernels = phase_kernels()
+    kernels = phase_kernels(sweeps=only == "kernels")
+    if only == "kernels":
+        print(json.dumps({"kernel_cases": {
+            name: {key: res[key] for key in ("redesigned_cases",) if key in res}
+            for name, res in kernels.items()}}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     t0 = time.perf_counter()
     ds = reddit_like()
     t_graph = time.perf_counter() - t0
@@ -4565,7 +4789,7 @@ def main(argv=None) -> None:
         pubmed_paths, pubmed_steps, pubmed_request = phase_pubmed(
             os.path.join(tmp, "pubmed"), kernels)
         ppi_paths, ppi_step, ppi_request = phase_ppi(
-            os.path.join(tmp, "ppi"))
+            os.path.join(tmp, "ppi"), results=kernels)
     dp_paths = phase_dp(kernels)
     per_step["CV+PP"] = {name: count / steps
                          for name, count in launches.items()}
@@ -4603,7 +4827,8 @@ def main(argv=None) -> None:
          "sparse_layer_batches": res.get("sparse_layer_batches", {}),
          **{key: res[key] for key in ("fullterm_cases", "tier_wall_ms",
                                       "tier_sweep", "lazy_anchor_ms",
-                                      "tp_cases", "dp_case", "dp_owner_case",
+                                      "tp_cases", "redesigned_cases",
+                                      "ppi_cases", "dp_case", "dp_owner_case",
                                       "dp_edgelist_case",
                                       "dp_launches_per_step_per_rank")
             if key in res}}

@@ -45,9 +45,10 @@
 //   launch for 1.8 us of traffic; the serving shape (F = 2048, ~76,000
 //   distinct rows under ~92,000 live slots) reaches 0.7 of its bound in
 //   float32 and in bfloat16 (chip_smoke.py, PERF.md).
-//   Rows wider than 512 bytes, and any call for which the plan is one full
-//   warp per row, run row_gather_kernel: one warp per output row, up to 4
-//   chunks per lane, kUnroll live slots in flight.
+//   Any call for which the plan is one full warp per row runs
+//   row_gather_kernel: one warp per output row, up to 4 chunks per lane,
+//   kUnroll live slots in flight.  Rows wider than 512 bytes run
+//   wide_split_kernel (below, "Rows of any width") when their plan splits.
 //
 // sgt_fanout_aggregate replaces
 //   stochastic_gcn_tpu/ops/pallas_spmm.py::fanout_aggregate (_fanout_kernel):
@@ -120,41 +121,75 @@
 //   between them; a cudaMemsetAsync ahead of a plain launch on the same
 //   stream (two device operations) measured slower at the training shape
 //   (PERF.md) and is not built.
+//   Two other shapes are bound by bytes, and the kernel deals with each:
+//   * many slots on a row (compacted fields, K = 64 over a grad_x of
+//     17 MB at Exact training's layer 1): plan_backward deals a g row's
+//     slots over up to 8 warps, so that the rows of a small F fill the
+//     grid after the zero-fill; at K = 1 it is one warp per row, as above;
+//   * many slots on few rows (the padded-sparse first layer's gradient in
+//     W [500, 32]: F = 15,000 rows of 333 slots, 1.2% of them live, up to
+//     149 on one row of W; the bound is reading the 40 MB of slot
+//     arrays): one warp per row, as at K = 1.  It loses to
+//     torch.sparse.mm of the field's X^T; a private copy of grad_x per
+//     block in shared memory, and loading a long row's weights before its
+//     positions, were measured and are not built (PERF.md).
 //
-// Rows of any width.  The kernels above read rows as whole 16-byte chunks,
-//   at most 128 of them: 4 to 512 floats in steps of 4.  A model without
-//   feature preprocessing aggregates the raw features first (602 columns on
-//   the Reddit-shaped graphs, 1433 on Cora, 3703 on Citeseer: 2408-byte
-//   float32 rows are 8-byte aligned only, 1204-byte bfloat16 history rows
-//   4-byte), and the JAX model computes these sums at any width.  Every
-//   entry therefore chooses from the shape and the pointers: rows of whole
-//   16-byte chunks, at most 128, behind 16-byte aligned pointers take the
-//   chunked kernels above, unchanged; every other width takes
-//   wide_row_gather_kernel / fanout_backward_wide_kernel, the same functions
-//   by element: one warp per output row, lanes striding the columns in
-//   tiles of 32 * kWideCols, float or bfloat16 element loads (a warp's load
-//   is 128 or 64 contiguous bytes), scalar atomicAdd in the backward.  The
-//   control-variate source pairs the x row and the history row by column.
-//   Same liveness rules, same float32 fixed-order sums (bitwise reproducible
-//   forward), same cooperative zero-fill in the backward.
-//   Bound: bytes, as above (Exact training on the 65,536-node SBM reads
-//   ~25 live 2408-byte rows for each of 33,280 output rows, 2 GB a step).
-//   What this path gives up is the 16-byte load: a lane has kWideCols
-//   4-byte (or 2-byte) loads in flight per slot, kUnroll slots at a time,
-//   instead of one to four 16-byte ones, and re-reads the row's slots once
-//   per column tile.  Times in PERF.md.
+// Rows of any width.  The chunked kernels read rows as whole 16-byte
+//   chunks, at most 128 of them (4 to 512 floats in steps of 4).  A model
+//   without feature preprocessing aggregates the raw features first (602
+//   columns on the Reddit-shaped graphs, 1433 on Cora, 3703 on Citeseer:
+//   2408-byte float32 rows are 8-byte aligned only, 1204-byte bfloat16
+//   history rows 4-byte), and the JAX model computes these sums at any
+//   width.  Every entry therefore chooses from the shape and the pointers
+//   alone: rows of at most 32 whole 16-byte chunks behind 16-byte aligned
+//   pointers take the kernels above, unchanged, and every other row goes
+//   by units: the widest of 16, 8, 4 or 2 bytes that its width and its
+//   pointers' alignment allow.
+//   * The gather: wide_split_kernel.  Bound: bytes, as above (the full
+//     term of CV without preprocessing, bf16 [65544, 602] at F = 512,
+//     K = 64: ~23,000 distinct live rows of 1204 bytes, 27 MB).  A lane
+//     holds a pass of up to 24 floats (602 columns of pairs) in
+//     registers, so the slot list is walked once per row at these widths;
+//     several warps per output row (the split rule above, with the warp's
+//     slots in flight in place of kDepth) and sums added in a fixed order
+//     through shared memory, as in split_gather_kernel.  Where a float32
+//     row plans one warp per row (F of 1057 rows or more at 602 columns,
+//     as at Exact training's first layer, F = 33,280; K too small to
+//     split; rows of fewer than 32 units) the by-element
+//     wide_row_gather_kernel<TableElems> runs instead: its 59 registers
+//     leave room for 4 blocks an SM against wide_split_kernel's 2, and
+//     wide_split_kernel at split 1 measured 3-46% slower there (PERF.md).
+//   * Rows of 33-128 whole 16-byte chunks (528-2048 bytes: hidden 256+
+//     served in float32, PPI's hidden 512) take wide_tma_kernel, the same
+//     walk and sums with each slot's row brought into shared memory by one
+//     TMA bulk copy (rows of 1-2 KB are the unit such a copy suits), three
+//     rows in flight a warp.  It measured 2-13% faster than
+//     wide_split_kernel by 16-byte units at F = 512, K = 64 and on the
+//     PPI batches at their best splits, and as fast on PPI's bf16 train
+//     batch (PERF.md).  Where such rows plan one warp per row they keep
+//     row_gather_kernel.
+//   * The backward: the cooperative scatter by unit, 4-, 8- or 16-byte
+//     atomics (float2 and float4 forms of compute capability 9.0).
+//   * The control-variate delta: wide_row_gather_kernel<CvElems>, one warp
+//     per output row, lanes striding the columns in tiles of 32 *
+//     kWideCols, element loads; its x row and history row paired by
+//     column.
+//   Same liveness rules, same float32 fixed-order sums (bitwise
+//   reproducible forward).  Times in PERF.md.
 //
 // sgt_empty launches an empty kernel: the floor under any single launch.
 //
 // sgt_gather_aggregate_split runs the gather with a named split, for
-// measurement: plan_split is chosen from its times.  The other entries
-// choose for themselves.
+// measurement: plan_split and plan_wide are chosen from its times.
+// sgt_gather_plan and sgt_backward_plan report what the other entries,
+// which choose for themselves, choose.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -169,7 +204,7 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMaxDevices = 64;  // cards of one process the backward serves
 // split arguments of gather_aggregate besides 1, 2, 4, 8 warps per row
 constexpr int kPlanSplit = -1;   // choose with plan_split
-constexpr int kRowKernel = 0;    // row_gather_kernel
+constexpr int kRowKernel = 0;    // one warp per row
 
 // A 16-byte chunk of a table row, accumulated into float registers.
 template <int kBf16>
@@ -495,7 +530,7 @@ split_gather_kernel(const Src src, int chunks,
   }
 }
 
-// ---- rows of any width: the same sums by element ----
+// ---- rows of any width ----
 
 constexpr int kWideCols = 8;                 // columns a lane holds per tile
 constexpr int kWideTile = 32 * kWideCols;    // columns a warp covers per pass
@@ -509,23 +544,9 @@ __device__ __forceinline__ float load_elem(const void* p, int64_t at) {
   return __ldg(static_cast<const float*>(p) + at);
 }
 
-// The slot sources by element: at() is one column of what a live slot
-// reads, add_base() what meets a finished sum.  limit() and resolve() as
-// above.
-template <int kBf16>
-struct TableElems {
-  static constexpr bool kResolves = false;
-  const void* table;
-  int64_t rows;
-
-  __device__ __forceinline__ int64_t limit() const { return rows; }
-  __device__ __forceinline__ int resolve(int) const { return 0; }
-  __device__ __forceinline__ float at(int row, int, int d, int col) const {
-    return load_elem<kBf16>(table, static_cast<int64_t>(row) * d + col);
-  }
-  __device__ __forceinline__ void add_base(float&, int64_t) const {}
-};
-
+// The control-variate source by element: at() is one column of what a
+// live slot reads (the x row less the history row), add_base() what meets
+// a finished sum.  limit() and resolve() as in CvSource.
 template <int kBf16>
 struct CvElems {
   static constexpr bool kResolves = true;
@@ -551,10 +572,27 @@ struct CvElems {
   }
 };
 
+// One table row per slot, by element.
+template <int kBf16>
+struct TableElems {
+  static constexpr bool kResolves = false;
+  const void* table;
+  int64_t rows;
+
+  __device__ __forceinline__ int64_t limit() const { return rows; }
+  __device__ __forceinline__ int resolve(int) const { return 0; }
+  __device__ __forceinline__ float at(int row, int, int d, int col) const {
+    return load_elem<kBf16>(table, static_cast<int64_t>(row) * d + col);
+  }
+  __device__ __forceinline__ void add_base(float&, int64_t) const {}
+};
+
 // One warp per output row, any d >= 1: for each tile of kWideTile columns
 // the warp walks the row's live slots (the same ballot as
 // row_gather_kernel), kUnroll at a time, with kUnroll * kWideCols element
-// loads in flight per lane.
+// loads in flight per lane.  The control-variate delta's kernel at widths
+// that do not go by 16-byte chunks, and the gather's where a row that does
+// not go by chunks plans one warp per row.
 template <class Src>
 __global__ void __launch_bounds__(kThreads)
 wide_row_gather_kernel(const Src src, int d, const int32_t* __restrict__ idx,
@@ -638,6 +676,374 @@ int run_wide(const Src& src, int d, const int32_t* idx, const float* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A unit of kUB bytes of a table row (kUB = 2 only for bfloat16), widened
+// to kVals floats: a float32 unit holds kUB / 4 floats, a bfloat16 unit
+// kUB / 2 values, element 0 first (the low half of each 32-bit word).
+template <int kBf16, int kUB>
+struct Unit {
+  static_assert(kUB == 2 || kUB == 4 || kUB == 8 || kUB == 16, "unit bytes");
+  static_assert(kBf16 || kUB >= 4, "a float32 unit holds whole floats");
+  static constexpr int kVals = kUB / (kBf16 ? 2 : 4);
+  using Raw = typename std::conditional<
+      kUB == 2, unsigned short,
+      typename std::conditional<
+          kUB == 4, unsigned,
+          typename std::conditional<kUB == 8, uint2,
+                                    uint4>::type>::type>::type;
+
+  __device__ __forceinline__ static Raw load(const void* table, int64_t at) {
+    return __ldg(static_cast<const Raw*>(table) + at);
+  }
+  // one 32-bit word: a float32, or two bfloat16
+  __device__ __forceinline__ static void word(float* acc, unsigned u,
+                                              float w) {
+    if constexpr (kBf16) {
+      acc[0] = fmaf(w, __uint_as_float(u << 16), acc[0]);
+      acc[1] = fmaf(w, __uint_as_float(u & 0xffff0000u), acc[1]);
+    } else {
+      acc[0] = fmaf(w, __uint_as_float(u), acc[0]);
+    }
+  }
+  __device__ __forceinline__ static void fma(float* acc, const Raw& v,
+                                             float w) {
+    constexpr int kW = kBf16 ? 2 : 1;  // floats a word widens to
+    if constexpr (kUB == 2) {
+      acc[0] = fmaf(w, __uint_as_float(static_cast<unsigned>(v) << 16),
+                    acc[0]);
+    } else if constexpr (kUB == 4) {
+      word(acc, v, w);
+    } else if constexpr (kUB == 8) {
+      word(acc, v.x, w);
+      word(acc + kW, v.y, w);
+    } else {
+      word(acc, v.x, w);
+      word(acc + kW, v.y, w);
+      word(acc + 2 * kW, v.z, w);
+      word(acc + 3 * kW, v.w, w);
+    }
+  }
+};
+
+// Slots a warp of wide_split_kernel keeps in flight: as many (2 or 4) as
+// keep a lane's row loads within 64 registers.
+__host__ __device__ constexpr int wide_depth(int unit_bytes, int upl) {
+  return upl * (unit_bytes >= 4 ? unit_bytes / 4 : 1) * 4 <= 64 ? 4 : 2;
+}
+
+// Units a lane holds per pass of wide_split_kernel: 4 of 16 bytes (rows
+// of 16-byte units reach it only past 2048 bytes: narrower ones take
+// wide_tma_kernel), narrower units as many as make 24 floats a lane.
+int wide_upl(int bf16, int unit_bytes) {
+  if (unit_bytes == 16) return 4;
+  return 24 / (unit_bytes / (bf16 ? 2 : 4));
+}
+
+// The gather for rows wider than 512 bytes and for rows that do not go by
+// 16-byte chunks.  A row is `units` units of kUB bytes (the widest unit
+// its width and the table's alignment allow: 8-byte float32 pairs for
+// 602 raw features, 4-byte bfloat16 pairs for their history); a lane
+// holds kUpl units a pass, so one walk of the slot list covers 32 kUpl
+// units (602 columns in one pass, 1433 in two).  `split` warps per output
+// row (1, 2, 4 or 8), as in split_gather_kernel: warp `part` takes slots
+// part, part + split, ...; its live slots are compacted into shared memory
+// and wide_depth() of them are loaded at once, a whole row per slot.  The
+// warps' float sums meet in shared memory and are added in a fixed order
+// (part 0 first), so the result is bitwise the same from run to run.
+template <int kBf16, int kUB, int kUpl>
+__global__ void __launch_bounds__(kThreads)
+wide_split_kernel(const void* __restrict__ table, int64_t rows, int units,
+                  const int32_t* __restrict__ idx,
+                  const float* __restrict__ w, int n_out, int k, int split,
+                  float* __restrict__ out) {
+  using U = Unit<kBf16, kUB>;
+  constexpr int V = U::kVals;
+  constexpr int kD = wide_depth(kUB, kUpl);
+  constexpr int kPass = 32 * kUpl;
+  __shared__ int2 slots[kWarpsPerBlock][32];          // a warp's live slots
+  __shared__ float partial[kUpl * V * kThreads];      // every lane's sums
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rows_per_block = kWarpsPerBlock / split;
+  const int part = warp % split;
+  const int f0 = blockIdx.x * rows_per_block;
+  const int f = f0 + warp / split;
+  const int64_t d = static_cast<int64_t>(units) * V;
+
+  for (int u0 = 0; u0 < units; u0 += kPass) {  // block-uniform
+    float acc[kUpl][V];
+#pragma unroll
+    for (int q = 0; q < kUpl; ++q)
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[q][v] = 0.f;
+
+    if (f < n_out) {  // warp-uniform
+      const int32_t* idx_f = idx + static_cast<int64_t>(f) * k;
+      const float* w_f = w + static_cast<int64_t>(f) * k;
+      for (int base = 0; base < k; base += 32 * split) {
+        const int j = base + part + split * lane;
+        int my_i = 0;
+        float my_w = 0.f;
+        if (j < k) {
+          my_i = idx_f[j];
+          my_w = w_f[j];
+        }
+        const bool live = slot_live(j < k, my_i, my_w, rows);
+        const unsigned mask = __ballot_sync(kFullMask, live);
+        const int n_live = __popc(mask);
+        if (live)
+          slots[warp][__popc(mask & ((1u << lane) - 1u))] =
+              make_int2(my_i, __float_as_int(my_w));
+        __syncwarp();
+
+        for (int e0 = 0; e0 < n_live; e0 += kD) {
+          typename U::Raw vals[kD][kUpl];
+          float ws[kD];
+#pragma unroll
+          for (int s = 0; s < kD; ++s) {
+            const bool have = e0 + s < n_live;
+            const int2 sl = have ? slots[warp][e0 + s] : make_int2(0, 0);
+            ws[s] = __int_as_float(sl.y);  // 0 past the last live slot
+            const int64_t row_at = static_cast<int64_t>(sl.x) * units;
+#pragma unroll
+            for (int q = 0; q < kUpl; ++q) {
+              const int un = u0 + lane + 32 * q;
+              vals[s][q] = have && un < units ? U::load(table, row_at + un)
+                                              : typename U::Raw{};
+            }
+          }
+#pragma unroll
+          for (int s = 0; s < kD; ++s)
+#pragma unroll
+            for (int q = 0; q < kUpl; ++q) U::fma(acc[q], vals[s][q], ws[s]);
+        }
+        __syncwarp();  // all reads of slots[] done before the next round
+      }
+    }
+
+#pragma unroll
+    for (int q = 0; q < kUpl; ++q)
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        partial[(q * V + v) * kThreads + threadIdx.x] = acc[q][v];
+    __syncthreads();
+
+    // out[f, u0 * V + c] = sum over the row's parts, in order
+    const int pass_units = units - u0 < kPass ? units - u0 : kPass;
+    const int row_vals = pass_units * V;
+    for (int it = threadIdx.x; it < rows_per_block * row_vals;
+         it += kThreads) {
+      const int row_local = it / row_vals;
+      if (f0 + row_local >= n_out) break;
+      const int c = it - row_local * row_vals;
+      const int un = c / V;
+      const int v = c - un * V;
+      const float* src = partial + ((un >> 5) * V + v) * kThreads +
+                         row_local * split * 32 + (un & 31);
+      float sum = 0.f;
+      for (int p = 0; p < split; ++p) sum += src[p * 32];
+      out[(f0 + row_local) * d + static_cast<int64_t>(u0) * V + c] = sum;
+    }
+    __syncthreads();  // partial[] is written again by the next pass
+  }
+}
+
+// ---- rows of 33-128 chunks: through TMA ----
+
+// Rows of 528-2048 bytes of whole 16-byte chunks brought into shared
+// memory by the Tensor Memory Accelerator: one lane of each warp issues
+// 1-D bulk copies (cp.async.bulk) of whole rows into a ring of kTmaStages
+// row buffers, each completed on its own mbarrier, and the warp adds a
+// buffer once its copy has landed, then refills it with the row
+// kTmaStages slots on.  The slot walk, the split and the fixed-order sums
+// are wide_split_kernel's.
+constexpr int kTmaStages = 3;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bulk_row(void* dst, const void* src,
+                                         unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wait_row(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+template <int kBf16, int kUpl>
+__global__ void __launch_bounds__(kThreads)
+wide_tma_kernel(const void* __restrict__ table, int64_t rows, int units,
+                const int32_t* __restrict__ idx, const float* __restrict__ w,
+                int n_out, int k, int split, float* __restrict__ out) {
+  using U = Unit<kBf16, 16>;
+  constexpr int V = U::kVals;
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) uint64_t bars[kWarpsPerBlock][kTmaStages];
+  __shared__ int2 slots[kWarpsPerBlock][32];
+  __shared__ float partial[kUpl * V * kThreads];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rows_per_block = kWarpsPerBlock / split;
+  const int part = warp % split;
+  const int f0 = blockIdx.x * rows_per_block;
+  const int f = f0 + warp / split;
+  const unsigned row_bytes = static_cast<unsigned>(units) * 16u;
+  unsigned char* buf = ring + warp * kTmaStages * row_bytes;
+  const unsigned char* src = static_cast<const unsigned char*>(table);
+  if (lane == 0) {
+    for (int s = 0; s < kTmaStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_addr(&bars[warp][s]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+
+  float acc[kUpl][V];
+#pragma unroll
+  for (int q = 0; q < kUpl; ++q)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[q][v] = 0.f;
+
+  if (f < n_out) {  // warp-uniform
+    const int32_t* idx_f = idx + static_cast<int64_t>(f) * k;
+    const float* w_f = w + static_cast<int64_t>(f) * k;
+    unsigned used = 0;  // rows this warp has consumed: stage and parity
+    for (int base = 0; base < k; base += 32 * split) {
+      const int j = base + part + split * lane;
+      int my_i = 0;
+      float my_w = 0.f;
+      if (j < k) {
+        my_i = idx_f[j];
+        my_w = w_f[j];
+      }
+      const bool live = slot_live(j < k, my_i, my_w, rows);
+      const unsigned mask = __ballot_sync(kFullMask, live);
+      const int n_live = __popc(mask);
+      if (live)
+        slots[warp][__popc(mask & ((1u << lane) - 1u))] =
+            make_int2(my_i, __float_as_int(my_w));
+      __syncwarp();
+      if (lane == 0) {
+        // the buffers' last reads (generic proxy) before the copies
+        // (async proxy) write them again
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        for (int e = 0; e < n_live && e < kTmaStages; ++e) {
+          const int st = (used + e) % kTmaStages;
+          bulk_row(buf + st * row_bytes,
+                   src + static_cast<int64_t>(slots[warp][e].x) * row_bytes,
+                   row_bytes, &bars[warp][st]);
+        }
+      }
+      for (int e = 0; e < n_live; ++e, ++used) {
+        const int st = used % kTmaStages;
+        wait_row(&bars[warp][st], (used / kTmaStages) & 1u);
+        const uint4* row = reinterpret_cast<const uint4*>(buf + st * row_bytes);
+        const float ws = __int_as_float(slots[warp][e].y);
+#pragma unroll
+        for (int q = 0; q < kUpl; ++q) {
+          const int un = lane + 32 * q;
+          if (un < units) U::fma(acc[q], row[un], ws);
+        }
+        __syncwarp();  // every lane has read the buffer
+        if (lane == 0 && e + kTmaStages < n_live) {
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          bulk_row(buf + st * row_bytes,
+                   src + static_cast<int64_t>(slots[warp][e + kTmaStages].x) *
+                             row_bytes,
+                   row_bytes, &bars[warp][st]);
+        }
+      }
+      __syncwarp();  // all reads of slots[] done before the next round
+    }
+  }
+
+#pragma unroll
+  for (int q = 0; q < kUpl; ++q)
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      partial[(q * V + v) * kThreads + threadIdx.x] = acc[q][v];
+  __syncthreads();
+  const int row_vals = units * V;
+  for (int it = threadIdx.x; it < rows_per_block * row_vals; it += kThreads) {
+    const int row_local = it / row_vals;
+    if (f0 + row_local >= n_out) break;
+    const int c = it - row_local * row_vals;
+    const int un = c / V;
+    const int v = c - un * V;
+    const float* p = partial + ((un >> 5) * V + v) * kThreads +
+                     row_local * split * 32 + (un & 31);
+    float sum = 0.f;
+    for (int s = 0; s < split; ++s) sum += p[s * 32];
+    out[static_cast<int64_t>(f0 + row_local) * row_vals + c] = sum;
+  }
+}
+
+// The ring of rows of up to 2048 bytes: 48 KB of dynamic shared memory,
+// opted into once per device (a refusal is returned).
+constexpr int kTmaRingMax = kWarpsPerBlock * kTmaStages * 2048;
+
+template <int kBf16, int kUpl>
+int launch_tma(const void* table, int64_t rows, int units, const int32_t* idx,
+               const float* w, int n_out, int k, int split, float* out,
+               cudaStream_t stream) {
+  static bool opted[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess && (device < 0 || device >= kMaxDevices))
+    e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess && !opted[device]) {
+    e = cudaFuncSetAttribute(wide_tma_kernel<kBf16, kUpl>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kTmaRingMax);
+    opted[device] = e == cudaSuccess;
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int smem = kWarpsPerBlock * kTmaStages * units * 16;
+  const int rows_per_block = kWarpsPerBlock / split;
+  const int blocks = (n_out + rows_per_block - 1) / rows_per_block;
+  wide_tma_kernel<kBf16, kUpl><<<blocks, kThreads, smem, stream>>>(
+      table, rows, units, idx, w, n_out, k, split, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Runs wide_tma_kernel over rows of 33-128 chunks (16-byte aligned).
+int run_tma(const void* table, int bf16, int64_t rows, int chunks,
+            const int32_t* idx, const float* w, int n_out, int k, int split,
+            float* out, cudaStream_t s) {
+  if (chunks <= 32 || chunks > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!bf16)
+    return chunks <= 64
+               ? launch_tma<0, 2>(table, rows, chunks, idx, w, n_out, k, split, out, s)
+               : launch_tma<0, 4>(table, rows, chunks, idx, w, n_out, k, split, out, s);
+  return chunks <= 64
+             ? launch_tma<1, 2>(table, rows, chunks, idx, w, n_out, k, split, out, s)
+             : launch_tma<1, 4>(table, rows, chunks, idx, w, n_out, k, split, out, s);
+}
+
 // Whether rows of row_bytes behind these pointers can go by 16-byte
 // chunks, 1 to 4 a lane.
 bool chunked_rows(int64_t row_bytes, std::initializer_list<const void*> ptrs) {
@@ -646,6 +1052,19 @@ bool chunked_rows(int64_t row_bytes, std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   return true;
+}
+
+// The widest unit of 16, 8, 4 or 2 bytes, and no narrower than `elem`,
+// that divides row_bytes and to which every pointer is aligned; 0 if none.
+int row_unit(int64_t row_bytes, int elem,
+             std::initializer_list<const void*> ptrs) {
+  for (int unit = 16; unit >= elem; unit /= 2) {
+    bool fits = row_bytes % unit == 0;
+    for (const void* p : ptrs)
+      fits = fits && reinterpret_cast<uintptr_t>(p) % unit == 0;
+    if (fits) return unit;
+  }
+  return 0;
 }
 
 template <class Src, int kCpl>
@@ -673,15 +1092,14 @@ int groups_per_warp(int chunks) {
   return chunks <= 8 ? 4 : chunks <= 16 ? 2 : 1;
 }
 
-// Warps per output row, a fixed function of (F, K, row bytes); kRowKernel
-// stands for row_gather_kernel.  The split doubles while the launch stays
-// under kTargetWarps warps (one wave of 32 warps on each of 132 SMs) and
-// every group keeps at least kDepth of the row's K slots, one full round
-// of its pipeline.  Rows above 512 bytes, and a plan of one full warp per
-// row, are row_gather_kernel's.
+// Warps per output row for rows of at most 32 chunks, a fixed function of
+// (F, K, row bytes); kRowKernel stands for row_gather_kernel.  The split
+// doubles while the launch stays under kTargetWarps warps (one wave of 32
+// warps on each of 132 SMs) and every group keeps at least kDepth of the
+// row's K slots, one full round of its pipeline.  A plan of one full warp
+// per row is row_gather_kernel's.
 constexpr int kTargetWarps = 132 * 32;
 int plan_split(int n_out, int k, int chunks) {
-  if (chunks > 32) return kRowKernel;
   const int groups = groups_per_warp(chunks);
   int split = 1;
   while (split < kWarpsPerBlock &&
@@ -689,6 +1107,19 @@ int plan_split(int n_out, int k, int chunks) {
          k >= 2 * split * groups * kDepth)
     split *= 2;
   return split == 1 && groups == 1 ? kRowKernel : split;
+}
+
+// The same rule for the kernels of wider rows, whose warp should keep
+// `depth` slots, up to `max_split` warps per row and `target` warps a
+// launch (one wave of the blocks an SM holds at once).  A plan of one
+// warp per row is kRowKernel.
+int plan_wide(int n_out, int k, int depth, int max_split, int target) {
+  int split = 1;
+  while (split < max_split &&
+         static_cast<int64_t>(n_out) * split * 2 <= target &&
+         k >= 2 * split * depth)
+    split *= 2;
+  return split == 1 ? kRowKernel : split;
 }
 
 // Runs row_gather_kernel over `src`, whose rows are `chunks` 16-byte
@@ -705,18 +1136,11 @@ int run_row(const Src& src, int chunks, const int32_t* idx, const float* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Runs one gather over a table.  split: kPlanSplit, kRowKernel, or 1, 2,
-// 4, 8 warps per row of at most 32 chunks.
+// Runs split_gather_kernel over a table of rows of at most 32 chunks with
+// `split` 1, 2, 4 or 8 warps per row.
 template <class Src>
-int run_gather(const Src& src, int chunks, const int32_t* idx, const float* w,
-               int n_out, int k, float* out, cudaStream_t stream, int split) {
-  if (chunks < 1 || chunks > 128 || n_out <= 0 || k < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (split == kPlanSplit) split = plan_split(n_out, k, chunks);
-  if (split == kRowKernel)
-    return run_row(src, chunks, idx, w, n_out, k, out, stream);
-  if (chunks > 32 || (split != 1 && split != 2 && split != 4 && split != 8))
-    return static_cast<int>(cudaErrorInvalidValue);
+int run_split(const Src& src, int chunks, const int32_t* idx, const float* w,
+              int n_out, int k, float* out, cudaStream_t stream, int split) {
   if (chunks <= 8)
     launch_split<Src, 8>(src, chunks, idx, w, n_out, k, split, out, stream);
   else if (chunks <= 16)
@@ -726,32 +1150,143 @@ int run_gather(const Src& src, int chunks, const int32_t* idx, const float* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Rows of whole 16-byte chunks (at most
-// 128) behind 16-byte aligned pointers go by chunks; any other width goes
-// by element, one warp per row, which a named split other than kRowKernel
-// cannot run.  The wrapper has checked that n_out > 0.
+template <int kBf16, int kUB, int kUpl>
+void launch_wide_split(const void* table, int64_t rows, int units,
+                       const int32_t* idx, const float* w, int n_out, int k,
+                       int split, float* out, cudaStream_t stream) {
+  const int rows_per_block = kWarpsPerBlock / split;
+  const int blocks = (n_out + rows_per_block - 1) / rows_per_block;
+  wide_split_kernel<kBf16, kUB, kUpl><<<blocks, kThreads, 0, stream>>>(
+      table, rows, units, idx, w, n_out, k, split, out);
+}
+
+// Runs wide_split_kernel at the instantiation for (dtype, unit bytes,
+// units a lane).
+int run_wide_split(const void* table, int bf16, int64_t rows, int unit_bytes,
+                   int units, int upl, const int32_t* idx, const float* w,
+                   int n_out, int k, int split, float* out,
+                   cudaStream_t stream) {
+  using Launch = void (*)(const void*, int64_t, int, const int32_t*,
+                          const float*, int, int, int, float*, cudaStream_t);
+  Launch launch = nullptr;
+  if (!bf16) {
+    if (unit_bytes == 4 && upl == 24) launch = launch_wide_split<0, 4, 24>;
+    if (unit_bytes == 8 && upl == 12) launch = launch_wide_split<0, 8, 12>;
+    if (unit_bytes == 16 && upl == 4) launch = launch_wide_split<0, 16, 4>;
+  } else {
+    if (unit_bytes == 2 && upl == 24) launch = launch_wide_split<1, 2, 24>;
+    if (unit_bytes == 4 && upl == 12) launch = launch_wide_split<1, 4, 12>;
+    if (unit_bytes == 8 && upl == 6) launch = launch_wide_split<1, 8, 6>;
+    if (unit_bytes == 16 && upl == 4) launch = launch_wide_split<1, 16, 4>;
+  }
+  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  launch(table, rows, units, idx, w, n_out, k, split, out, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel a gather runs, from the shape and the alignment alone:
+// rows of at most 32 whole 16-byte chunks behind 16-byte aligned pointers
+// take split_gather_kernel / row_gather_kernel by plan_split; rows of
+// 33-128 such chunks wide_tma_kernel by plan_wide, or row_gather_kernel
+// where they plan one warp per row; every other row wide_split_kernel by
+// plan_wide, or wide_row_gather_kernel<TableElems> where it plans one warp
+// per row.
+struct GatherPlan {
+  int chunks;      // 16-byte chunks of a row, or 0 where not chunked_rows
+  int unit_bytes;  // the row's unit, or 0 for rows of <= 32 chunks
+  int units;
+  int upl;
+  int split;       // kRowKernel, or warps per row
+};
+
+GatherPlan plan_gather(int dtype, int d, int n_out, int k, bool chunked,
+                       int unit_bytes) {
+  const int64_t row_bytes = static_cast<int64_t>(d) * (dtype == 1 ? 2 : 4);
+  GatherPlan plan{chunked ? static_cast<int>(row_bytes / 16) : 0, 0, 0, 0, 0};
+  if (chunked && plan.chunks <= 32) {
+    plan.split = plan_split(n_out, k, plan.chunks);
+    return plan;
+  }
+  plan.unit_bytes = unit_bytes;
+  plan.units = static_cast<int>(row_bytes / unit_bytes);
+  plan.upl = wide_upl(dtype, unit_bytes);
+  if (chunked) {
+    // wide_tma_kernel: two rounds of its kTmaStages-row ring a warp (the
+    // PPI train batch, K = 41, measured faster at 4 warps per row than at
+    // 8, whose warps hold ~2 live slots); 2048-byte rows measured faster
+    // at 4 warps per row than at 8
+    plan.split = plan_wide(n_out, k, 2 * kTmaStages,
+                           plan.chunks > 64 ? 4 : kWarpsPerBlock,
+                           kTargetWarps);
+  } else if (plan.units < 32) {
+    plan.split = kRowKernel;  // a row narrower than a warp's lanes
+  } else {
+    // wide_split_kernel.  Where a lane holds 24 or more floats a pass
+    // the registers leave room for 2 blocks an SM, so the launch should
+    // fit 16 warps an SM, and the split stops at 4 (602 columns split 4
+    // ways measured faster than 8; at F = 2048 one warp per row measured
+    // faster than 2)
+    const int lane_floats = plan.upl * unit_bytes / (dtype == 1 ? 2 : 4);
+    const bool heavy = lane_floats >= 24;
+    plan.split = plan_wide(n_out, k, wide_depth(unit_bytes, plan.upl),
+                           heavy ? 4 : kWarpsPerBlock,
+                           heavy ? kTargetWarps / 2 : kTargetWarps);
+    // One warp per row goes by element (wide_row_gather_kernel
+    // <TableElems>, more warps resident) where an element is a 4-byte
+    // load; a bfloat16 row keeps wide_split_kernel at split 1, whose 4- or
+    // 8-byte units measured ~3x faster than 2-byte element loads.
+    if (plan.split == kRowKernel && dtype == 1) plan.split = 1;
+  }
+  return plan;
+}
+
+// dtype: 0 = float32, 1 = bfloat16.  split: kPlanSplit (the plan above),
+// kRowKernel (one warp per row: row_gather_kernel, or
+// wide_row_gather_kernel<TableElems> where rows do not go by chunks), or
+// 1, 2, 4, 8 warps per row.
+// The wrapper has checked that n_out > 0.
 int gather_aggregate(const void* table, int dtype, int64_t rows, int d,
                      const int32_t* idx, const float* w, int n_out, int k,
                      float* out, cudaStream_t stream, int split) {
   const int elem = dtype == 1 ? 2 : 4;
-  if ((dtype != 0 && dtype != 1) || d <= 0)
+  if ((dtype != 0 && dtype != 1) || d <= 0 || n_out <= 0 || k < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!chunked_rows(static_cast<int64_t>(d) * elem, {table, out})) {
-    if (split != kPlanSplit && split != kRowKernel)
-      return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t row_bytes = static_cast<int64_t>(d) * elem;
+  const int unit_bytes = row_unit(row_bytes, elem, {table});
+  if (unit_bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const GatherPlan plan = plan_gather(
+      dtype, d, n_out, k, chunked_rows(row_bytes, {table, out}), unit_bytes);
+  if (split == kPlanSplit) split = plan.split;
+  if (split != kRowKernel && split != 1 && split != 2 && split != 4 &&
+      split != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uint4* t = static_cast<const uint4*>(table);
+  if (split == kRowKernel && plan.chunks > 0) {
+    if (dtype == 0)
+      return run_row(TableSource<0>{t, rows}, plan.chunks, idx, w, n_out, k,
+                     out, stream);
+    return run_row(TableSource<1>{t, rows}, plan.chunks, idx, w, n_out, k,
+                   out, stream);
+  }
+  if (split == kRowKernel) {  // rows that do not go by chunks
     if (dtype == 0)
       return run_wide(TableElems<0>{table, rows}, d, idx, w, n_out, k, out,
                       stream);
     return run_wide(TableElems<1>{table, rows}, d, idx, w, n_out, k, out,
                     stream);
   }
-  const int chunks = d * elem / 16;
-  const uint4* t = static_cast<const uint4*>(table);
-  if (dtype == 0)
-    return run_gather(TableSource<0>{t, rows}, chunks, idx, w, n_out, k, out,
-                      stream, split);
-  return run_gather(TableSource<1>{t, rows}, chunks, idx, w, n_out, k, out,
-                    stream, split);
+  if (plan.unit_bytes == 0) {  // rows of at most 32 chunks
+    if (dtype == 0)
+      return run_split(TableSource<0>{t, rows}, plan.chunks, idx, w, n_out,
+                       k, out, stream, split);
+    return run_split(TableSource<1>{t, rows}, plan.chunks, idx, w, n_out, k,
+                     out, stream, split);
+  }
+  if (plan.chunks > 0)  // 33-128 chunks
+    return run_tma(table, dtype, rows, plan.chunks, idx, w, n_out, k, split,
+                   out, stream);
+  return run_wide_split(table, dtype, rows, plan.unit_bytes, plan.units,
+                        plan.upl, idx, w, n_out, k, split, out, stream);
 }
 
 // The control-variate delta, one warp per output row.  Columns go by x's
@@ -785,84 +1320,69 @@ int cv_fanout_aggregate(const float* x, int64_t c, int d, const void* hist,
                  chunks, pos, w, n_out, k, out, stream);
 }
 
-// Adds w[f, s] * g[f, :] to grad_x[pos[f, s], :] for every live slot of
-// row f; one warp, g row in registers.  kCpl: float4 chunks of a g row per
-// lane (chunks = d / 4 <= 32 * kCpl).
-template <int kCpl>
+// ---- the backward ----
+
+// A unit of a float32 g / grad_x row: 4, 8 or 16 bytes, scattered with
+// one atomicAdd (the float2 and float4 forms: compute capability 9.0).
+template <int kUB>
+struct GradUnit;
+template <>
+struct GradUnit<4> {
+  using T = float;
+  __device__ __forceinline__ static T scaled(T v, float s) { return s * v; }
+};
+template <>
+struct GradUnit<8> {
+  using T = float2;
+  __device__ __forceinline__ static T scaled(T v, float s) {
+    return make_float2(s * v.x, s * v.y);
+  }
+};
+template <>
+struct GradUnit<16> {
+  using T = float4;
+  __device__ __forceinline__ static T scaled(T v, float s) {
+    return make_float4(s * v.x, s * v.y, s * v.z, s * v.w);
+  }
+};
+
+// Zero-fills n floats of p from thread `at` of `stride` threads, 16 bytes
+// a store where p is 16-byte aligned.
+__device__ __forceinline__ void zero_fill(float* __restrict__ p, int64_t n,
+                                          int64_t at, int64_t stride) {
+  if (reinterpret_cast<uintptr_t>(p) % 16 == 0) {
+    float4* p4 = reinterpret_cast<float4*>(p);
+#pragma unroll 4
+    for (int64_t i = at; i < n / 4; i += stride)
+      p4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int64_t i = n / 4 * 4 + at; i < n; i += stride) p[i] = 0.f;
+  } else {
+    for (int64_t i = at; i < n; i += stride) p[i] = 0.f;
+  }
+}
+
+// Adds w[f, s] * g[f, :] to grad_x[pos[f, s], :] for the live slots part,
+// part + split, ... of row f; one warp, the g row's units in registers,
+// kUpl units a lane a pass (rows of more than 32 kUpl units take several
+// passes over the slots).
+template <int kUB, int kUpl>
 __device__ __forceinline__ void scatter_row(
-    int f, int lane, const float4* __restrict__ g, int chunks,
+    int f, int part, int split, int lane,
+    const typename GradUnit<kUB>::T* __restrict__ g, int units,
     const int32_t* __restrict__ pos, const float* __restrict__ w, int k,
-    int64_t c, float4* __restrict__ grad_x) {
-  float4 gv[kCpl];
-#pragma unroll
-  for (int q = 0; q < kCpl; ++q) {
-    const int ch = lane + q * 32;
-    gv[q] = ch < chunks ? g[static_cast<int64_t>(f) * chunks + ch]
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+    int64_t c, typename GradUnit<kUB>::T* __restrict__ grad_x) {
+  using T = typename GradUnit<kUB>::T;
   const int32_t* pos_f = pos + static_cast<int64_t>(f) * k;
   const float* w_f = w + static_cast<int64_t>(f) * k;
-  for (int base = 0; base < k; base += 32) {
-    const int j = base + lane;
-    int my_p = 0;
-    float my_w = 0.f;
-    if (j < k) {
-      my_p = pos_f[j];
-      my_w = w_f[j];
-    }
-    unsigned mask = __ballot_sync(kFullMask, slot_live(j < k, my_p, my_w, c));
-    while (mask) {  // warp-uniform
-      const int s = __ffs(mask) - 1;
-      mask &= mask - 1;
-      const int p = __shfl_sync(kFullMask, my_p, s);
-      const float ws = __shfl_sync(kFullMask, my_w, s);
-      float4* row = grad_x + static_cast<int64_t>(p) * chunks;
+  for (int u0 = 0; u0 < units; u0 += 32 * kUpl) {
+    T gv[kUpl];
 #pragma unroll
-      for (int q = 0; q < kCpl; ++q) {
-        const int ch = lane + q * 32;
-        if (ch < chunks)  // one 16-byte reduction (compute capability 9.0)
-          atomicAdd(row + ch, make_float4(ws * gv[q].x, ws * gv[q].y,
-                                          ws * gv[q].z, ws * gv[q].w));
-      }
+    for (int q = 0; q < kUpl; ++q) {
+      const int un = u0 + lane + q * 32;
+      gv[q] = un < units ? g[static_cast<int64_t>(f) * units + un] : T{};
     }
-  }
-}
-
-// One cooperative launch: zero-fill grad_x, grid-wide barrier, scatter.
-template <int kCpl>
-__global__ void __launch_bounds__(kThreads)
-fanout_backward_coop_kernel(const float4* __restrict__ g, int chunks,
-                            const int32_t* __restrict__ pos,
-                            const float* __restrict__ w, int n_out, int k,
-                            int64_t c, float4* __restrict__ grad_x) {
-  const int64_t total = c * chunks;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < total; i += stride)
-    grad_x[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  cg::this_grid().sync();
-  for (int f = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); f < n_out;
-       f += gridDim.x * kWarpsPerBlock)
-    scatter_row<kCpl>(f, threadIdx.x & 31, g, chunks, pos, w, k, c, grad_x);
-}
-
-// The same scatter for a g row of any width d, a tile of kWideTile columns
-// at a time in registers, one scalar atomicAdd per element.
-__device__ __forceinline__ void scatter_row_wide(
-    int f, int lane, const float* __restrict__ g, int d,
-    const int32_t* __restrict__ pos, const float* __restrict__ w, int k,
-    int64_t c, float* __restrict__ grad_x) {
-  const int32_t* pos_f = pos + static_cast<int64_t>(f) * k;
-  const float* w_f = w + static_cast<int64_t>(f) * k;
-  for (int c0 = 0; c0 < d; c0 += kWideTile) {
-    float gv[kWideCols];
-#pragma unroll
-    for (int q = 0; q < kWideCols; ++q) {
-      const int col = c0 + lane + 32 * q;
-      gv[q] = col < d ? g[static_cast<int64_t>(f) * d + col] : 0.f;
-    }
-    for (int base = 0; base < k; base += 32) {
-      const int j = base + lane;
+    for (int base = 0; base < k; base += 32 * split) {
+      const int j = base + part + split * lane;
       int my_p = 0;
       float my_w = 0.f;
       if (j < k) {
@@ -876,33 +1396,47 @@ __device__ __forceinline__ void scatter_row_wide(
         mask &= mask - 1;
         const int p = __shfl_sync(kFullMask, my_p, s);
         const float ws = __shfl_sync(kFullMask, my_w, s);
-        float* row = grad_x + static_cast<int64_t>(p) * d;
+        T* row = grad_x + static_cast<int64_t>(p) * units;
 #pragma unroll
-        for (int q = 0; q < kWideCols; ++q) {
-          const int col = c0 + lane + 32 * q;
-          if (col < d) atomicAdd(row + col, ws * gv[q]);
+        for (int q = 0; q < kUpl; ++q) {
+          const int un = u0 + lane + q * 32;
+          if (un < units)
+            atomicAdd(row + un, GradUnit<kUB>::scaled(gv[q], ws));
         }
       }
     }
   }
 }
 
-// fanout_backward_coop_kernel for rows of any width: zero-fill by float,
-// grid-wide barrier, scatter by element.
+// One cooperative launch: zero-fill grad_x, grid-wide barrier, scatter.
+// Warp `item` of the grid-stride loop takes row item / split, part
+// item % split of its slots.
+template <int kUB, int kUpl>
 __global__ void __launch_bounds__(kThreads)
-fanout_backward_wide_kernel(const float* __restrict__ g, int d,
-                            const int32_t* __restrict__ pos,
+fanout_backward_coop_kernel(const typename GradUnit<kUB>::T* __restrict__ g,
+                            int units, const int32_t* __restrict__ pos,
                             const float* __restrict__ w, int n_out, int k,
-                            int64_t c, float* __restrict__ grad_x) {
-  const int64_t total = c * d;
+                            int split, int64_t c,
+                            typename GradUnit<kUB>::T* __restrict__ grad_x) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < total; i += stride)
-    grad_x[i] = 0.f;
+  zero_fill(reinterpret_cast<float*>(grad_x), c * units * (kUB / 4),
+            static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x,
+            stride);
   cg::this_grid().sync();
-  for (int f = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); f < n_out;
-       f += gridDim.x * kWarpsPerBlock)
-    scatter_row_wide(f, threadIdx.x & 31, g, d, pos, w, k, c, grad_x);
+  // split > 1 only where n_out * split is at most kTargetWarps
+  const int items = n_out * split;
+  for (int item = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+       item < items; item += gridDim.x * kWarpsPerBlock)
+    scatter_row<kUB, kUpl>(item / split, item % split, split,
+                           threadIdx.x & 31, g, units, pos, w, k, c, grad_x);
+}
+
+// The current device, checked against kMaxDevices.
+cudaError_t current_device(int* device) {
+  const cudaError_t e = cudaGetDevice(device);
+  if (e != cudaSuccess) return e;
+  return *device < 0 || *device >= kMaxDevices ? cudaErrorInvalidDevice
+                                               : cudaSuccess;
 }
 
 // Blocks of the cooperative `kernel` that the current device holds at
@@ -911,9 +1445,8 @@ fanout_backward_wide_kernel(const float* __restrict__ g, int d,
 template <class Kernel>
 cudaError_t resident_blocks(Kernel kernel, int* counted, int* blocks) {
   int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
+  cudaError_t e = current_device(&device);
   if (e != cudaSuccess) return e;
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (counted[device] == 0) {
     int sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -928,62 +1461,88 @@ cudaError_t resident_blocks(Kernel kernel, int* counted, int* blocks) {
   return cudaSuccess;
 }
 
-// Launches a cooperative backward `kernel` over n_out rows of g that also
-// zero-fills `fill_items` stores (float4s or floats) of grad_x.
+// Launches a cooperative backward `kernel` whose grid-stride loop has
+// `warps` warps of work and which zero-fills `fill_floats` floats.
 template <class Kernel>
-cudaError_t launch_coop(Kernel kernel, int* counted, int n_out,
-                        int64_t fill_items, void** args,
+cudaError_t launch_coop(Kernel kernel, int* counted, int64_t warps,
+                        int64_t fill_floats, void** args,
                         cudaStream_t stream) {
-  const int row_blocks = (n_out + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int64_t warp_blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
   // cooperative: every block must be resident at once
   int resident = 0;
   const cudaError_t e = resident_blocks(kernel, counted, &resident);
   if (e != cudaSuccess) return e;
-  // a thread zero-fills kFillPerThread items: a smaller grid, whose
-  // barrier is cheaper, measured no slower to fill
-  constexpr int kFillPerThread = 4;
-  const int64_t fill_blocks = (fill_items + kThreads * kFillPerThread - 1) /
+  // a thread zero-fills kFillPerThread 16-byte stores: a smaller grid,
+  // whose barrier is cheaper
+  constexpr int kFillPerThread = 16;
+  const int64_t fill_blocks = (fill_floats / 4 + kThreads * kFillPerThread - 1) /
                               (kThreads * kFillPerThread);
-  int64_t blocks = row_blocks > fill_blocks ? row_blocks : fill_blocks;
+  int64_t blocks = warp_blocks > fill_blocks ? warp_blocks : fill_blocks;
   if (blocks > resident) blocks = resident;
+  if (blocks < 1) blocks = 1;
   return cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(kernel), dim3(static_cast<unsigned>(blocks)),
       dim3(kThreads), args, 0, stream);
 }
 
-template <int kCpl>
-cudaError_t launch_backward(const float* g, int chunks, const int32_t* pos,
-                            const float* w, int n_out, int k, int64_t c,
-                            float* grad_x, cudaStream_t stream) {
+template <int kUB, int kUpl>
+cudaError_t launch_backward(const float* g, int units, const int32_t* pos,
+                            const float* w, int n_out, int k, int split,
+                            int64_t c, float* grad_x, cudaStream_t stream) {
+  using T = typename GradUnit<kUB>::T;
   static int counted[kMaxDevices] = {};
-  const float4* g4 = reinterpret_cast<const float4*>(g);
-  float4* grad4 = reinterpret_cast<float4*>(grad_x);
-  void* args[] = {&g4, &chunks, &pos, &w, &n_out, &k, &c, &grad4};
-  return launch_coop(fanout_backward_coop_kernel<kCpl>, counted, n_out,
-                     c * chunks, args, stream);
+  const T* gu = reinterpret_cast<const T*>(g);
+  T* grad = reinterpret_cast<T*>(grad_x);
+  void* args[] = {&gu, &units, &pos, &w, &n_out, &k, &split, &c, &grad};
+  return launch_coop(fanout_backward_coop_kernel<kUB, kUpl>, counted,
+                     static_cast<int64_t>(n_out) * split,
+                     c * units * (kUB / 4), args, stream);
 }
 
-// Rows of whole 16-byte chunks (d a multiple of 4, at most 512) behind
-// 16-byte aligned pointers scatter 16 bytes an atomic; any other width
-// scatters by element.  The wrapper has checked that n_out > 0 and c > 0.
+// Warps per g row in the cooperative scatter, a fixed function of (F, K):
+// the split doubles while the launch stays under kTargetWarps warps and
+// each warp keeps at least 8 of the row's K slots (at K = 1 it is 1).
+int plan_backward(int n_out, int k) {
+  int split = 1;
+  while (split < kWarpsPerBlock &&
+         static_cast<int64_t>(n_out) * split * 2 <= kTargetWarps &&
+         k >= 2 * split * 8)
+    split *= 2;
+  return split;
+}
+
+// Units a lane holds per pass of the cooperative scatter: 16-byte chunks
+// 1, 2 or 4 (rows of up to 128 chunks in one pass), 8-byte pairs 12 and
+// floats 24 (602 columns in one pass).
+int backward_upl(int unit_bytes, int units) {
+  if (unit_bytes == 16) return units <= 32 ? 1 : units <= 64 ? 2 : 4;
+  return unit_bytes == 8 ? 12 : 24;
+}
+
+// The cooperative scatter by the widest unit (16, 8 or 4 bytes) that d
+// and both rows' alignment allow, plan_backward() warps per g row, from
+// the shape and the alignment alone.  The wrapper has checked that
+// n_out > 0 and c > 0.
 int fanout_backward(const float* g, const int32_t* pos, const float* w,
                     int n_out, int k, int64_t c, int d, float* grad_x,
                     cudaStream_t s) {
   if (d < 1 || n_out <= 0 || k < 0 || c <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int unit = row_unit(static_cast<int64_t>(d) * 4, 4, {g, grad_x});
+  const int units = d * 4 / unit;
+  const int upl = backward_upl(unit, units);
+  const int split = plan_backward(n_out, k);
   cudaError_t err;
-  if (!chunked_rows(static_cast<int64_t>(d) * 4, {g, grad_x})) {
-    static int counted[kMaxDevices] = {};
-    void* args[] = {&g, &d, &pos, &w, &n_out, &k, &c, &grad_x};
-    err = launch_coop(fanout_backward_wide_kernel, counted, n_out, c * d,
-                      args, s);
-  } else {
-    const int chunks = d / 4;
-    const int cpl = (chunks + 31) / 32;
-    if (cpl == 1) err = launch_backward<1>(g, chunks, pos, w, n_out, k, c, grad_x, s);
-    else if (cpl == 2) err = launch_backward<2>(g, chunks, pos, w, n_out, k, c, grad_x, s);
-    else err = launch_backward<4>(g, chunks, pos, w, n_out, k, c, grad_x, s);
-  }
+  if (unit == 16 && upl == 1)
+    err = launch_backward<16, 1>(g, units, pos, w, n_out, k, split, c, grad_x, s);
+  else if (unit == 16 && upl == 2)
+    err = launch_backward<16, 2>(g, units, pos, w, n_out, k, split, c, grad_x, s);
+  else if (unit == 16)
+    err = launch_backward<16, 4>(g, units, pos, w, n_out, k, split, c, grad_x, s);
+  else if (unit == 8)
+    err = launch_backward<8, 12>(g, units, pos, w, n_out, k, split, c, grad_x, s);
+  else
+    err = launch_backward<4, 24>(g, units, pos, w, n_out, k, split, c, grad_x, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1011,9 +1570,8 @@ int sgt_fanout_aggregate(const void* x, int dtype, int64_t c, int d,
                           static_cast<cudaStream_t>(stream), kPlanSplit);
 }
 
-// The same function with a named split: 0 one warp per row (any width), or
-// 1, 2, 4, 8 warps per row (rows of whole 16-byte chunks, at most 512
-// bytes).  For measurement.
+// The same function with a named split: 0 one warp per row, or 1, 2, 4, 8
+// warps per row, at any width.  For measurement.
 int sgt_gather_aggregate_split(const void* table, int dtype, int64_t rows,
                                int d, const int32_t* idx, const float* w,
                                int n_out, int k, float* out, void* stream,
@@ -1023,14 +1581,24 @@ int sgt_gather_aggregate_split(const void* table, int dtype, int64_t rows,
                           static_cast<cudaStream_t>(stream), split);
 }
 
-// The split sgt_hbm_gather_aggregate / sgt_fanout_aggregate choose, or 0
-// where they run one warp per row without the split kernel (also every
-// width that goes by element).
+// The split sgt_hbm_gather_aggregate / sgt_fanout_aggregate choose for
+// 16-byte aligned rows: 0 where they run one warp per row
+// (row_gather_kernel, or wide_row_gather_kernel<TableElems> for rows that
+// do not go by chunks), else the warps per row of split_gather_kernel
+// (rows of at most 512 bytes), wide_tma_kernel (528-2048 bytes of whole
+// chunks) or wide_split_kernel.
 int sgt_gather_plan(int dtype, int d, int n_out, int k) {
-  const int64_t row_bytes = static_cast<int64_t>(d) * (dtype == 1 ? 2 : 4);
-  if (!chunked_rows(row_bytes, {})) return kRowKernel;  // by element
-  return plan_split(n_out, k, static_cast<int>(row_bytes / 16));
+  const int elem = dtype == 1 ? 2 : 4;
+  const int64_t row_bytes = static_cast<int64_t>(d) * elem;
+  const int unit_bytes = row_unit(row_bytes, elem, {});
+  if ((dtype != 0 && dtype != 1) || d <= 0 || unit_bytes == 0) return -1;
+  return plan_gather(dtype, d, n_out, k, chunked_rows(row_bytes, {}),
+                     unit_bytes).split;
 }
+
+// The warps per g row sgt_fanout_aggregate_backward deals a row's slots
+// over.
+int sgt_backward_plan(int n_out, int k) { return plan_backward(n_out, k); }
 
 // Sampled term of the CV estimator on top of the full term: x [c, d]
 // float32, hist [hist_rows, d] float32 (hist_dtype 0) or bfloat16 (1),

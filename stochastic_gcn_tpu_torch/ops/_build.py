@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # (name, argtypes) of every extern "C" entry point; each returns an int,
-# the cudaError_t of its launch (sgt_gather_plan: a split)
+# the cudaError_t of its launch (the plans: a split)
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # (table, dtype, rows, d, idx, w, n_out, k, out, stream)
 _GATHER_ARGS = [_P, _I, _I64, _I, _P, _P, _I, _I, _P, _P]
@@ -42,6 +42,7 @@ _ENTRY_POINTS = {
     "sgt_fanout_aggregate": _GATHER_ARGS,
     "sgt_gather_aggregate_split": _GATHER_ARGS + [_I],  # split
     "sgt_gather_plan": [_I, _I, _I, _I],                # dtype, d, n_out, k
+    "sgt_backward_plan": [_I, _I],                      # n_out, k
     "sgt_cv_fanout_aggregate": _CV_ARGS,
     "sgt_fanout_aggregate_backward": _BACKWARD_ARGS,
     "sgt_empty": [_P],                                  # stream

@@ -35,14 +35,19 @@ its launches in ``LAUNCHES`` so a run can show that its main path went
 through the kernels.  The wrappers neither synchronise nor allocate
 outside PyTorch's allocator, so they can be captured in a CUDA graph.
 
-The C entries pick the kernel for a shape themselves (several warps per
-output row for the full term, one warp per row at K = 1, for rows above
-512 bytes and for the CV delta; a cooperative zero-fill-and-scatter for the
-backward).  Rows of any width ``d >= 1`` are taken: rows of whole 16-byte
-chunks, at most 2048 bytes, behind 16-byte aligned pointers run the chunked
-kernels, every other width (602 raw features, 1433, a single column) the
-same functions by element.  ``gather_aggregate_split`` runs the gather with
-a named split instead, for measurement.
+The C entries pick the kernel from the shape and the alignment alone
+(several warps per output row for the full term, one warp per row at K = 1
+and for the CV delta; for the backward a cooperative zero-fill-and-scatter
+with up to 8 warps per row of many slots).  Rows of any width ``d >= 1``
+are taken: rows of at most 512 bytes of whole 16-byte chunks behind
+16-byte aligned pointers run the chunked kernels, rows of 528-2048 bytes of
+whole chunks a kernel that copies rows with TMA, and every other row goes
+by the widest unit of 16, 8, 4 or 2 bytes its width and alignment allow
+(602 raw features by 8-byte float32 pairs, 1433 by element), or by
+element with one warp per row where the plan gives a row one warp.
+``gather_aggregate_split`` runs the gather with a named split instead, for
+measurement; ``gather_plan`` and ``backward_plan`` report what the entries
+choose.
 """
 
 from __future__ import annotations
@@ -370,8 +375,7 @@ def hbm_gather_aggregate(table: torch.Tensor, idx: torch.Tensor,
 def gather_aggregate_split(table: torch.Tensor, idx: torch.Tensor,
                            w: torch.Tensor, split: int) -> torch.Tensor:
     """The gather-aggregate with a named ``split``: 0 for one warp per
-    output row, or 1, 2, 4, 8 warps per row (rows of whole 16-byte chunks,
-    at most 512 bytes).
+    output row, or 1, 2, 4, 8 warps per row, at any width.
     The public functions choose the split themselves; this one is for
     holding every split against the plain version and timing it (the
     kernel's plan is chosen from these times), and does not count in
@@ -382,10 +386,17 @@ def gather_aggregate_split(table: torch.Tensor, idx: torch.Tensor,
 
 def gather_plan(table: torch.Tensor, f: int, k: int) -> int:
     """Warps per output row that :func:`hbm_gather_aggregate` and
-    :func:`fanout_aggregate` give a ``[f, k]`` slot array over ``table``;
-    0 where they run the one-warp-per-row kernel."""
+    :func:`fanout_aggregate` give a ``[f, k]`` slot array over a 16-byte
+    aligned ``table`` of this width and dtype; 0 where they run one warp
+    per row."""
     return _build.entry("sgt_gather_plan")(
         _DTYPE_CODE[table.dtype], table.shape[1], f, k)
+
+
+def backward_plan(f: int, k: int) -> int:
+    """Warps per gradient row over which :func:`fanout_aggregate_backward`
+    deals the slots of ``[f, k]`` slot arrays."""
+    return _build.entry("sgt_backward_plan")(f, k)
 
 
 def empty_launch(device: torch.device) -> None:

@@ -128,11 +128,16 @@ def test_rows_of_any_width_compute(cuda):
     for fn, ref in ((K.hbm_gather_aggregate, K.hbm_gather_aggregate_ref),
                     (K.fanout_aggregate, K.fanout_aggregate_ref)):
         torch.testing.assert_close(fn(odd, idx, w), ref(odd, idx, w), **TOL)
-    assert K.gather_plan(torch.zeros(8, 602, device=cuda), 512, 64) == 0
-    # the measuring entry: one warp per row at any width, a named split not
-    K.gather_aggregate_split(table[:, :3].contiguous(), idx, w, 0)
+    # rows by unit split like the rest: 602 float32 columns by 8-byte pairs
+    assert K.gather_plan(torch.zeros(8, 602, device=cuda), 512, 64) == 4
+    # the measuring entry: every split at any width, and no other
+    narrow = table[:, :3].contiguous()
+    for split in (0, 1, 2, 4, 8):
+        torch.testing.assert_close(
+            K.gather_aggregate_split(narrow, idx, w, split),
+            K.hbm_gather_aggregate_ref(narrow, idx, w), **TOL)
     with pytest.raises(RuntimeError, match="cudaError"):
-        K.gather_aggregate_split(table[:, :3].contiguous(), idx, w, 2)
+        K.gather_aggregate_split(narrow, idx, w, 3)
 
 
 @pytest.mark.requires_cuda
@@ -202,6 +207,12 @@ def _backward_inputs(seed, c, f, k, d):
 BACKWARD_CASES = [  # (C, F, K, d)
     (1024, 512, 1, 128),      # the training shape
     (1024, 512, 8, 128),      # repeats, parked, zero weights
+    # a g row's slots dealt over 2-8 warps: K not a multiple of the split,
+    # F = 1, rows by unit
+    (5000, 37, 50, 128),
+    (5000, 1, 64, 128),
+    (5000, 512, 64, 128),
+    (5000, 9, 50, 602),
     (300, 13, 8, 128),        # ragged F
     (300, 24, 8, 32),         # narrow rows
     (300, 24, 8, 256),        # 2 float4 chunks per lane
@@ -464,7 +475,13 @@ EDGE_SHAPES = [  # (F, K)
     (132 * 8 + 1, 64),    # one row more than 132 blocks of 8 rows
 ]
 EDGE_ROWS = [(64, torch.bfloat16), (64, torch.float32),    # 128, 256 B
-             (128, torch.bfloat16), (128, torch.float32)]  # 256, 512 B
+             (128, torch.bfloat16), (128, torch.float32),  # 256, 512 B
+             # wide_tma_kernel: 1024- and 2048-byte rows; wide_split_kernel
+             # by 8-byte (602 f32), 4-byte (602 and 301 bf16) and 2-byte
+             # units (37 bf16); 13 f32 by element, one warp per row
+             (256, torch.float32), (512, torch.bfloat16), (512, torch.float32),
+             (602, torch.float32), (602, torch.bfloat16), (301, torch.bfloat16),
+             (13, torch.float32), (37, torch.bfloat16)]
 
 
 @pytest.mark.requires_cuda
@@ -498,24 +515,28 @@ def test_every_gather_split_on_edge_cases(cuda, shape, row):
 def test_split_entry_refuses_what_it_does_not_take(cuda):
     table, idx, w = (torch.from_numpy(a).to(cuda)
                      for a in _inputs(14, 50, 256, 6, 4))     # 1024 B rows
-    K.gather_aggregate_split(table, idx, w, 0)
-    with pytest.raises(RuntimeError, match="cudaError"):      # rows > 512 B
-        K.gather_aggregate_split(table, idx, w, 2)
-    narrow = table[:, :64].contiguous()
-    for split in (3, -1, 16):
-        with pytest.raises(RuntimeError, match="cudaError"):
-            K.gather_aggregate_split(narrow, idx, w, split)
+    want = K.hbm_gather_aggregate_ref(table, idx, w)
+    for split in (0, 2):                                      # rows > 512 B
+        torch.testing.assert_close(
+            K.gather_aggregate_split(table, idx, w, split), want, **TOL)
+    for t in (table, table[:, :64].contiguous(), table[:, :3].contiguous()):
+        for split in (3, -1, 16):
+            with pytest.raises(RuntimeError, match="cudaError"):
+                K.gather_aggregate_split(t, idx, w, split)
 
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_full_term_is_bitwise_reproducible(cuda, dtype):
+@pytest.mark.parametrize("d", [128, 256, 602, 13])
+def test_full_term_is_bitwise_reproducible(cuda, dtype, d):
     """No atomics and a fixed split: the sum order, and so every bit of
-    the result, is the same from run to run."""
-    table, idx, w = _inputs(15, 20000, 128, 512, 64)
+    the result, is the same from run to run, in every gather kernel."""
+    table, idx, w = _inputs(15, 20000, d, 512, 64)
     table = torch.from_numpy(table).to(cuda, dtype)
     idx, w = torch.from_numpy(idx).to(cuda), torch.from_numpy(w).to(cuda)
-    assert K.gather_plan(table, 512, 64) > 1      # the split kernel runs
+    # a split kernel runs; 13 columns (fewer units than a warp's lanes)
+    # one warp per row
+    assert (K.gather_plan(table, 512, 64) > 1) == (d != 13)
     first = K.hbm_gather_aggregate(table, idx, w)
     for _ in range(5):
         assert torch.equal(K.hbm_gather_aggregate(table, idx, w), first)
@@ -523,14 +544,48 @@ def test_full_term_is_bitwise_reproducible(cuda, dtype):
 
 @pytest.mark.requires_cuda
 def test_plan_is_a_fixed_function_of_the_shape(cuda):
-    bf16 = torch.zeros(8, 128, device=cuda, dtype=torch.bfloat16)
-    f32 = torch.zeros(8, 128, device=cuda)
-    wide = torch.zeros(8, 256, device=cuda)
+    def table(d, dtype=torch.float32):
+        return torch.zeros(8, d, device=cuda, dtype=dtype)
+
+    bf16 = table(128, torch.bfloat16)
+    f32 = table(128)
+    wide = table(256)
+    # the main path's shapes keep their plans
     assert K.gather_plan(bf16, 512, 64) == 4      # the training shape
     assert K.gather_plan(f32, 2048, 64) == 2      # the serving shape
     assert K.gather_plan(f32, 512, 1) == 0        # K = 1: one warp per row
     assert K.gather_plan(f32, 2048, 1) == 0
-    assert K.gather_plan(wide, 512, 64) == 0      # rows above 512 bytes
+    assert K.backward_plan(512, 1) == 1           # one warp per g row
+    assert K.backward_plan(2048, 1) == 1
+    # rows above 512 bytes split where the row's slots allow it
+    # (wide_tma_kernel: two rounds of its 3-row ring a warp)
+    assert K.gather_plan(wide, 512, 64) == 8
+    assert K.gather_plan(table(512, torch.bfloat16), 512, 64) == 8
+    assert K.gather_plan(table(512, torch.bfloat16), 512, 41) == 4  # PPI
+    assert K.gather_plan(table(512), 512, 41) == 4
+    assert K.gather_plan(table(512), 2048, 64) == 2
+    assert K.gather_plan(wide, 512, 1) == 0       # rows of 64 chunks, K=1
+    assert K.gather_plan(wide, 33280, 64) == 0
+    # rows by unit: the full term of raw features, the Exact fanouts; one
+    # float32 row a warp by element where F fills the card alone (Exact
+    # training's first layer and evaluation), at K = 1, and on rows
+    # narrower than a warp; bfloat16 rows by unit at split 1 there
+    assert K.gather_plan(table(602, torch.bfloat16), 512, 64) == 4
+    assert K.gather_plan(table(602), 512, 64) == 4
+    assert K.gather_plan(table(602), 2048, 64) == 0
+    assert K.gather_plan(table(602, torch.bfloat16), 2048, 64) == 1
+    assert K.gather_plan(table(602, torch.bfloat16), 512, 1) == 1
+    assert K.gather_plan(table(602), 33280, 64) == 0
+    assert K.gather_plan(table(602), 27648, 53) == 0
+    assert K.gather_plan(table(602), 512, 1) == 0
+    assert K.gather_plan(table(1433), 512, 64) == 4
+    assert K.gather_plan(table(13), 512, 64) == 0
+    assert K.gather_plan(table(1), 512, 64) == 0
+    # the backward: slots dealt over warps at K = 64 (Exact layer 1), one
+    # warp a row of the sparse first layer's 15,000 rows
+    assert K.backward_plan(512, 64) == 8
+    assert K.backward_plan(15000, 333) == 1
+    assert K.backward_plan(4096, 64) == 1
 
 
 @pytest.mark.requires_cuda
@@ -553,6 +608,68 @@ def test_backward_zero_fills_on_edge_cases(cuda, case):
     torch.testing.assert_close(got, want, **TOL)
 
 
+def _many_slot_inputs(seed, c, f, k, d, live=0.05):
+    """Slots that outnumber the rows of grad_x: repeated positions, zero
+    weights, parked positions, and a row with no live slot whose g row is
+    NaN (it must never be read)."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(f, d)).astype(np.float32)
+    w = (rng.uniform(0.1, 1.0, (f, k)) * (rng.random((f, k)) < live)
+         ).astype(np.float32)
+    pos = rng.integers(0, c, (f, k)).astype(np.int32)
+    pos[rng.random((f, k)) < 0.05] = 1 << 30
+    w[f // 2] = 0.0
+    g[f // 2] = np.nan
+    return g, pos, w
+
+
+MANY_SLOT_CASES = [  # (C, F, K, d): slots many times the rows of grad_x
+    (500, 3000, 40, 32),              # the sparse layer's shape, cut down
+    (500, 3000, 333, 32),             # its 333 slots a row: one load round
+    (20, 300, 7, 32),                 # K below one round
+    (10, 1, 600, 32),                 # F = 1, K past 16 rounds
+    (300, 2500, 50, 128),             # 4 columns a lane
+    (50, 3000, 37, 13),               # d not a multiple of 4
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", MANY_SLOT_CASES, ids=str)
+def test_backward_on_many_slots_on_few_rows(cuda, case):
+    c, f, k, d = case
+    g, pos, w = (torch.from_numpy(a).to(cuda)
+                 for a in _many_slot_inputs(28, c, f, k, d))
+    want = K.fanout_aggregate_backward_ref(torch.nan_to_num(g), pos, w, c)
+    torch.full((c, d), 7.0, device=cuda)         # a dirty allocation
+    before = K.LAUNCHES["fanout_aggregate_backward"]
+    got = K.fanout_aggregate_backward(g, pos, w, c)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fanout_aggregate_backward"] == before + 1
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.requires_cuda
+def test_misaligned_views_go_by_element(cuda):
+    """Rows whose pointer is only 4-byte aligned take the 4-byte units of
+    the same kernels: a 1024-byte-row table, a 602-wide one, and the
+    backward's gradient rows."""
+    _, idx, w = (torch.from_numpy(a).to(cuda)
+                 for a in _inputs(30, 50, 8, 512, 64))
+    for d in (256, 602):
+        t = torch.randn(50 * d + 1, device=cuda)[1:].view(50, d)
+        assert t.data_ptr() % 8 == 4 and t.is_contiguous()
+        torch.testing.assert_close(K.hbm_gather_aggregate(t, idx, w),
+                                   K.hbm_gather_aggregate_ref(t, idx, w),
+                                   **TOL)
+    g, pos, pw = (torch.from_numpy(a).to(cuda)
+                  for a in _backward_inputs(31, 5000, 512, 64, 128))
+    odd = torch.empty(g.numel() + 1, device=cuda)[1:].view_as(g).copy_(g)
+    assert odd.data_ptr() % 16 == 4
+    torch.testing.assert_close(
+        K.fanout_aggregate_backward(odd, pos, pw, 5000),
+        K.fanout_aggregate_backward_ref(g, pos, pw, 5000), **TOL)
+
+
 @pytest.mark.requires_cuda
 def test_kernels_replay_in_a_cuda_graph(cuda):
     """The four wrappers captured once in a CUDA graph and replayed on
@@ -566,16 +683,27 @@ def test_kernels_replay_in_a_cuda_graph(cuda):
             np.float32)
         field_in = np.random.default_rng(seed + 50).integers(
             0, 20001, 1024).astype(np.int32)          # 20000: the sentinel
+        many = _many_slot_inputs(seed, 500, 3000, 40, 32)
+        many = (np.nan_to_num(many[0]),) + many[1:]
         return [torch.from_numpy(a).to(cuda)
-                for a in (table, idx, w, x, pos, pw, g, field_in)]
+                for a in (table, idx, w, x, pos, pw, g, field_in, *many)]
 
-    def run(table, idx, w, x, pos, pw, g, field_in):
+    def run(table, idx, w, x, pos, pw, g, field_in, mg, mpos, mw):
         hist = table.bfloat16()
         base = K.hbm_gather_aggregate(hist, idx, w)
         return (base, K.fanout_aggregate(x, pos, pw),
                 K.fanout_aggregate_backward(g, pos, pw, 1024),
                 K.cv_fanout_aggregate(x, hist, field_in, 20000, pos, pw,
-                                      base))
+                                      base),
+                # the redesigned branches: rows by unit
+                # (wide_split_kernel) and of 33-128 chunks
+                # (wide_tma_kernel), a g row's slots over 8 warps, rows of
+                # several load rounds
+                K.hbm_gather_aggregate(hist.repeat(1, 5)[:, :602]
+                                       .contiguous(), idx, w),
+                K.hbm_gather_aggregate(table.repeat(1, 2), idx, w),
+                K.fanout_aggregate_backward(g, idx, w, 20000),
+                K.fanout_aggregate_backward(mg, mpos, mw, 500))
 
     static = inputs(17)
     run(*static)                                     # build, warm up
@@ -584,9 +712,10 @@ def test_kernels_replay_in_a_cuda_graph(cuda):
     K.reset_launches()
     with torch.cuda.graph(graph):
         outs = run(*static)
-    assert K.LAUNCHES == {"fanout_aggregate": 1, "hbm_gather_aggregate": 1,
-                          "fanout_aggregate_backward": 1,
+    assert K.LAUNCHES == {"fanout_aggregate": 1, "hbm_gather_aggregate": 3,
+                          "fanout_aggregate_backward": 3,
                           "cv_fanout_aggregate": 1}
+    assert K.backward_plan(512, 64) == 8
     for seed in (18, 19):
         fresh = inputs(seed)
         for s, t in zip(static, fresh):
@@ -594,11 +723,11 @@ def test_kernels_replay_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         want = run(*fresh)
-        assert torch.equal(outs[0], want[0])         # fixed sum order
-        assert torch.equal(outs[1], want[1])
-        torch.testing.assert_close(outs[2], want[2], **TOL)
-        assert torch.equal(outs[3], want[3])
-    assert K.LAUNCHES["hbm_gather_aggregate"] == 3   # 1 capture + 2 eager
+        for i in (0, 1, 3, 4, 5):                    # fixed sum order
+            assert torch.equal(outs[i], want[i]), i
+        for i in (2, 6, 7):                          # atomics
+            torch.testing.assert_close(outs[i], want[i], **TOL)
+    assert K.LAUNCHES["hbm_gather_aggregate"] == 9   # 3 capture + 6 eager
 
 
 # ---- the CV estimator's sampled term ----

@@ -177,6 +177,77 @@ def test_backward_plain_on_edge_cases_matches_jax_vjp(shape):
     np.testing.assert_allclose(got, np.asarray(vjp(jnp.asarray(g))[0]), **TOL)
 
 
+# rows the chunked kernels of at most 512 bytes do not take: above 512
+# bytes (f32 d=160 and 256; bf16 d=384 and 512) and by element (bf16 d=37
+# and 301, f32 d=13)
+WIDE_ROWS = [(160, "float32"), (256, "float32"), (384, "bfloat16"),
+             (512, "bfloat16"), (37, "bfloat16"), (301, "bfloat16"),
+             (13, "float32")]
+
+
+@pytest.mark.parametrize("row", WIDE_ROWS, ids=lambda r: f"{r[0]}-{r[1]}")
+def test_hbm_gather_plain_matches_pallas_at_wide_rows(row):
+    """The plain gather at the widths ``wide_split_kernel`` takes, against
+    the JAX kernel (interpret mode) and its XLA reference: ragged F, K not
+    a multiple of any split, an all-dead row, a NaN sentinel under the dead
+    slots."""
+    d, dtype = row
+    table, idx, w = _edge_inputs(40 + d, 60, d, 13, 37)
+    if dtype == "bfloat16":
+        t_table, table = _bf16_pair(table)
+    else:
+        t_table = torch.from_numpy(table)
+    got = K.hbm_gather_aggregate(t_table, torch.from_numpy(idx),
+                                 torch.from_numpy(w)).numpy()
+    assert np.isfinite(got).all() and not got[13 // 2].any()
+    clean = jnp.asarray(np.nan_to_num(table))
+    pallas = PS.hbm_gather_aggregate(clean, jnp.asarray(idx), jnp.asarray(w),
+                                     interpret=True)
+    xla = PS.hbm_gather_aggregate_xla(clean, jnp.asarray(idx), jnp.asarray(w))
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(got, np.asarray(xla), **TOL)
+
+
+def _many_slots(seed, rows, f, k, live):
+    """Slots that outnumber the rows of grad_x: a ``live`` share with
+    weight, repeated positions, the rest dead (zero weight) at position 0
+    or, compacted, at the parked position."""
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, rows, (f, k)).astype(np.int32)
+    w = (rng.uniform(0.1, 1.0, (f, k)) * (rng.random((f, k)) < live)
+         ).astype(np.float32)
+    return pos, w
+
+
+@pytest.mark.parametrize("case", [
+    # (rows, d, F, K, live share, dead slots parked): many slots on few
+    # rows (the sparse first layer's gradient in W, cut down), and
+    # compacted slots at K = 64 (Exact training's layer 1)
+    (20, 32, 3000, 40, 0.01, False),
+    (500, 16, 64, 64, 17 / 64, True),
+], ids=["many-slots-few-rows", "compacted-k64"])
+def test_backward_plain_on_many_slots_matches_jax_vjp(case):
+    import jax
+    from stochastic_gcn_tpu_torch.sampler.scheduler import PARKED_POS
+    rows, d, f, k, live, parked = case
+    pos, w = _many_slots(41, rows, f, k, live)
+    if parked:
+        pos[w == 0] = PARKED_POS
+    x = np.random.default_rng(42).normal(size=(rows, d)).astype(np.float32)
+    g = np.random.default_rng(43).normal(size=(f, d)).astype(np.float32)
+    got = K.fanout_aggregate_backward(
+        torch.from_numpy(g), torch.from_numpy(pos), torch.from_numpy(w),
+        rows).numpy()
+    _, vjp = jax.vjp(lambda x_: PS.fanout_aggregate_xla(
+        x_, jnp.asarray(pos), jnp.asarray(w)), jnp.asarray(x))
+    np.testing.assert_allclose(got, np.asarray(vjp(jnp.asarray(g))[0]), **TOL)
+    # and the sum written out slot by slot
+    want = np.zeros((rows, d), np.float32)
+    for fi, s in zip(*np.nonzero((w != 0) & (pos < rows))):
+        want[pos[fi, s]] += w[fi, s] * g[fi]
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 # ---- the CV estimator's sampled term in one call ----
 
 def _cv_inputs(seed, n, c, d, f, k):
