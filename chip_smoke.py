@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
     python3 chip_smoke.py --phase kernels   # card, build and kernels phases
+    python3 chip_smoke.py --phase kernels --parent tmp/parent   # in turns
+                                   # with another tree's kernels (any phase)
 
 Phases, one or more lines each:
 
@@ -101,8 +103,9 @@ Phases, one or more lines each:
 
    The kernels phase also runs every entry on rows that are not whole
    16-byte chunks or wider than 2048 bytes (d = 602 with float32 and
-   bfloat16 tables, d = 1, 513 and 1433: by unit, or by element where the
-   plan gives a row one warp),
+   bfloat16 tables, d = 1, 513 and 1433: by unit, or where the plan gives
+   a float32 row one warp, and for the CV delta, by column range over
+   several warps),
    timed like the rest, on append-only and on dedup-compacted slots
    (repeated positions, ``PARKED_POS``); the standalone fanout at the Exact
    training shape (x [98816, 602], F = 33,280, K = 64), where the plain
@@ -111,15 +114,29 @@ Phases, one or more lines each:
    The full term on 1024- and 2048-byte rows at the training shape (f32
    d=256 and 512, bf16 d=512); the gather's edge cases at every row kind
    (``EDGE_ROWS``); the backward with many slots on few rows (W [500,32],
-   F=15,000, K=333, seeded) beside ``index_add_`` and ``torch.sparse.mm``.
+   F=15,000, K=333, seeded) given the rows' ends, against its plain
+   version with them, beside the same kernel with the ends left out,
+   ``index_add_`` and ``torch.sparse.mm``, and on adversarial layouts
+   (live slots not a prefix of the row, a live slot at K - 1, every live
+   slot on 4 columns of W).
    Each redesigned case also goes into the kernels JSON line under
    ``redesigned_cases``; the PPI phase adds the full term on 4 real PPI
    batches (bf16 train and f32 eval histories, ``ppi_cases``), with every
    split.  ``--phase kernels`` adds the sweeps that chose the wide rows'
    plans and do not run in the whole smoke: every split at those widths
    and at Exact training's first layer, and where the many-slot backward's
-   time goes (the same call on dead slots, on half and 25 of the rows, on
-   uniform rows; the compacted backward on dead slots).
+   time goes, with and without the ends (the same call with every weight
+   zero, on uniform rows, on 25 rows; the compacted backward on dead
+   slots); then the real batches of the formats and estimators phases
+   without their training (``phase_real_batches``: the sparse first
+   layer's kernels on 4 PubMed-sized batches with the same split of the
+   backward's time, the fanout on a real Exact batch's first layer).
+   ``--parent DIR`` (repeatable) loads another tree's ``ops.cuda_spmm``
+   under a package name of its own, builds its kernels beside this tree's
+   and times both in turns (theirs, ours, ours, theirs) wherever a case
+   names the other tree's kernel: the main path's shapes, the CV delta
+   and backward at every width, Exact layer 0 (seeded and real) and the
+   sparse layer's backward (seeded and real).
 7. estimators — on the same SBM, at full width (hidden 128, 602 features):
    CVD+PP (``cvd``, ``test_cvd``) up to 15 epochs and Exact (exhaustive
    degree, no preprocessing, no control variate: dedup-compacted fields are
@@ -155,9 +172,12 @@ Phases, one or more lines each:
    below the JAX package's on the CPU (``PUBMED_REFERENCE_F1``,
    scripts/formats_reference_f1.py) by more than 0.03.  The sparse first
    layer's two kernels on 4 real train batches (field 0 of the NS+PP
-   arm's sampled rows, ``nnz_cap`` slots a row, the trained ``[500, 32]``
-   W): against their plain versions on every row and timed beside ``embedding_bag``,
-   ``zeros().index_add_`` and ``torch.sparse.mm`` and their bound, with
+   arm's sampled rows, ``nnz_cap`` slots a row with the rows' ends, the
+   trained ``[500, 32]`` W): against their plain versions on every row and
+   timed beside ``embedding_bag``, ``zeros().index_add_`` and
+   ``torch.sparse.mm`` (a CSR built before, and built in the call) and
+   their bound, the backward also with the ends left out and on the first
+   25 and 2,000 rows of each batch (a small field of long rows), and
    every split of the gather.  The CV arm is exported
    (``export_predictor``) and served from a fresh ``load_predictor(...,
    device="cuda")``: its answers on the 1000 test ids must equal
@@ -273,7 +293,7 @@ from stochastic_gcn_tpu_torch.data.fixtures import (PlanetoidSpec,
 from stochastic_gcn_tpu_torch.data.graph import (FlatGraph,
                                                  PaddedSparseFeatures,
                                                  flat_row_windows,
-                                                 graph_rows,
+                                                 graph_rows, live_ends,
                                                  pad_sparse_features)
 from stochastic_gcn_tpu_torch.data.loaders import (community_sbm_dataset,
                                                    load_data, reddit_like)
@@ -317,6 +337,10 @@ SLICE_CFG = dict(dataset="reddit_like", batch_size=512, degree=1,
 HIST_ROWS = 233_008          # N + 1 rounded up to a multiple of 8
 REQUESTS, REQUEST_IDS = 3, 2048
 KERNEL_TOL = (1e-5, 1e-5)    # atol, rtol
+# other trees of the port (``--parent DIR``): (label, that tree's
+# ``ops.cuda_spmm``, its kernels built from its own sources), timed in turns
+# with this tree's on the cases that name their counterpart (``_in_turns``)
+TREES: list = []
 SLICE_ATOL = 1e-4
 # BASELINE.md: the reference's own C++ scheduler + feature slice + feed
 # copy take >= 1.31 ms per batch-512 step on the host, so the reference
@@ -332,15 +356,27 @@ CONVERGE_CFG = dict(dataset="sbm_reddit", batch_size=512, degree=1,
                     num_fc_layers=2, weight_decay=0.0, dropout=0.2,
                     test_batch_size=2048, pad_degree=64, seed=1)
 CONVERGE_EPOCHS, CONVERGE_F1 = 15, 0.90
+# Exact training on the convergence phase's SBM: every neighbour, no
+# preprocessing (its first layer gathers the raw 602-wide feature rows)
+EXACT_KW = dict(cv=False, test_cv=False, degree=10000, preprocess=False,
+                test_preprocess=False)
 EXACT_F1_ATOL = 0.01         # the Exact test against the CV evaluation
 NO_LIBRARY_CV = "none: no single PyTorch call computes this function"
-SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's ~2 GHz SM clock
+SPIN_CYCLES = 20_000_000     # ~10 ms at the H100's ~2 GHz SM clock; doubled
+                             # while a window's calls outlast it
 # the H100's published peaks (SXM data sheet): device memory rate, and
 # float32 rate outside the tensor cores (the kernels' multiply-adds)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 SPLITS = (1, 2, 4, 8)        # warps per output row of the split kernels
-# widths the kernels take by element: raw Reddit-shaped features, one
+# the padded-sparse first layer on PubMed-sized data: rows of W, its
+# width, field rows, nnz_cap slots a row
+MANY_SLOTS = (500, 32, 15_000, 333)
+# the sparse first layer's backward also on the first rows of each real
+# batch's field: a small field of long rows (the ends with rows split over
+# warps, 25 rows; and at 2,000 rows, split 2)
+SMALL_FIELDS = (25, 2000)
+# widths the kernels take by unit: raw Reddit-shaped features, one
 # column, one column past 128 chunks, Cora's features
 WIDE_WIDTHS = (602, 1, 513, 1433)
 CVD_EPOCHS, EXACT_EPOCHS = 15, 6
@@ -464,7 +500,7 @@ SAVE_TURNS = (False, True, True, False)   # sync, async, async, sync
 
 def kernel_bytes(kind: str, live_rows: float, row_bytes: int, f: int,
                  k: int, d: int, rows_out: int, hist_rows: float = 0.0,
-                 hist_row_bytes: int = 0) -> float:
+                 hist_row_bytes: int = 0, ranged: float = 0.0) -> float:
     """Bytes a kernel must move for one call, each input read once and each
     output written once.  ``kind`` "gather" (both forward kernels):
     ``live_rows`` table rows of ``row_bytes`` (the distinct rows under a
@@ -473,7 +509,11 @@ def kernel_bytes(kind: str, live_rows: float, row_bytes: int, f: int,
     index and float32 weight arrays ``[f, k]``, and the float32 output
     ``[rows_out, d]``.  ``kind`` "backward": the float32 gradient
     ``[f, d]``, the same slot arrays, and all of the float32
-    ``grad_x [rows_out, d]`` written once.  ``kind`` "cv" (the CV
+    ``grad_x [rows_out, d]`` written once.  ``kind`` "backward ends" (the
+    backward given each row's end of live slots): the int32 ends ``[f]``,
+    the ``ranged`` slots before the ends (8 bytes each), the ``live_rows``
+    rows of ``g`` that own a live slot, and ``grad_x`` written once.
+    ``kind`` "cv" (the CV
     estimator's sampled term): ``live_rows`` distinct rows of ``x`` under a
     live slot and the int32 ``field_in`` entry of each, ``hist_rows``
     distinct history rows of ``hist_row_bytes`` (the nodes at those
@@ -482,6 +522,8 @@ def kernel_bytes(kind: str, live_rows: float, row_bytes: int, f: int,
     slot_arrays = f * k * (4 + 4)
     if kind == "backward":
         return f * d * 4 + slot_arrays + rows_out * d * 4
+    if kind == "backward ends":
+        return f * 4 + ranged * 8 + live_rows * d * 4 + rows_out * d * 4
     if kind == "cv":
         return (live_rows * (row_bytes + 4) + hist_rows * hist_row_bytes
                 + slot_arrays + 2 * rows_out * d * 4)
@@ -526,24 +568,52 @@ def phase_card() -> None:
           f"{torch.cuda.get_device_name(0)}, TF32 off")
 
 
+def _load_tree(tree: str, i: int):
+    """``ops.cuda_spmm`` of the port in another tree, imported under the
+    package name ``sgt_tree<i>`` so that it lives beside this tree's."""
+    import importlib.util
+    import sys
+    pkg = Path(tree).resolve() / "stochastic_gcn_tpu_torch"
+    if not (pkg / "csrc").is_dir():
+        fail(f"--parent {tree}: no tree of the port there")
+    name = f"sgt_tree{i}"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{name}.ops.cuda_spmm")
+
+
 def phase_build() -> None:
+    """Build this tree's kernels and, side by side, those of ``TREES``."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from stochastic_gcn_tpu_torch.ops import _build
-    path, seconds, log = _build.build()
-    _build.library()
-    print(f"build: {seconds:.2f} s -> {path.relative_to(ROOT)}")
+    with ThreadPoolExecutor(max(1, len(TREES))) as pool:
+        others = [pool.submit(PK._build.build) for _, PK in TREES]
+        path, seconds, log = _build.build()
+        _build.library()
+        print(f"build: {seconds:.2f} s -> {path.relative_to(ROOT)}")
+        for (label, PK), built in zip(TREES, others):
+            other, other_s, _ = built.result()
+            PK._build.library()
+            print(f"build: {label}: {other_s:.2f} s -> {other}")
     kernel = "?"         # the entry function the next ptxas lines describe
     for line in log.splitlines():
-        m = re.search(r"(wide_row_gather_kernel|row_gather_kernel|"
+        m = re.search(r"(wide_cols_kernel|row_gather_kernel|"
                       r"wide_split_kernel|wide_tma_kernel|"
-                      r"split_gather_kernel|"
-                      r"fanout_backward_coop_kernel)(?:I(\S*))?", line)
+                      r"split_gather_kernel|fanout_backward_ends_kernel|"
+                      r"fanout_backward_coop_kernel|"
+                      r"fanout_backward_row_kernel)(?:I(\S*))?", line)
         if "Compiling entry function" in line:
             kernel = "empty_kernel" if "empty_kernel" in line else "?"
             if m and m.group(2) is None:
                 kernel = m.group(1)
             elif m:  # a mangled name: the slot source, then the integers
-                src = re.search(r"(Table|Cv)(Source|Elems)", m.group(2))
-                args = re.findall(r"Li(\d+)E", m.group(2))
+                src = re.search(r"(Table|Cv)(Source|Cols)", m.group(2))
+                args = [v if t == "i" else ("false", "true")[int(v)]
+                        for t, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
                 if src:
                     args[0] = f"{src.group(0)}<{args[0]}>"
                 kernel = f"{m.group(1)}<{','.join(args)}>"
@@ -630,14 +700,17 @@ def _library_gather(table, sets, wants):
                   else "embedding_bag, nearest call, bf16 sums")
 
 
-def _library_backward(rows: int):
+def _library_backward(rows: int, order_bound: bool = False):
     """No single call does the masked weighted scatter-add:
     ``zeros.index_add_`` alone, over the live slots only, with the products
     ``w * g`` made outside the timed window (dead slots sent to one row
-    would time that row's atomic contention, not the scatter)."""
+    would time that row's atomic contention, not the scatter).  Held
+    against the plain version at ``KERNEL_TOL``, with ``order_bound`` plus
+    ``_order_slack`` (rows of grad_x that gather ~100 or more slots, whose
+    sums differ by ~1e-5 between orders)."""
     def make(g, sets, wants):
         prepared = []
-        for pos, w in sets:
+        for pos, w, *_ in sets:
             live = _live(pos, w, rows)
             contrib = w.unsqueeze(-1) * g.unsqueeze(1)
             prepared.append((pos[live].long(), contrib[live].contiguous()))
@@ -648,14 +721,24 @@ def _library_backward(rows: int):
                                device=g.device).index_add_(0, pos, contrib)
 
         for i, want in enumerate(wants):
-            _agree("library index_add_", call(i), want, *KERNEL_TOL)
+            pos, w = sets[i][:2]
+            _agree("library index_add_", call(i), want, *KERNEL_TOL,
+                   slack=_order_slack(g, pos, w, rows) if order_bound
+                   else 0.0)
         return call, "index_add_ alone over the live slots, product excluded"
     return make
 
 
+def _in_turns(theirs, ours, **timing) -> list:
+    """Device ms a call of another tree's kernel and this tree's on the same
+    inputs, in turns: theirs, ours, ours, theirs (``_device_ms``)."""
+    return [_device_ms(fn, **timing) for fn in (theirs, ours, ours, theirs)]
+
+
 def _compare(name, kernel, ref, table, sets, timing: bool,
              kind: str = "gather", rows: int | None = None, library=None,
-             sentinel: int | None = None, replaced=None, slack=None):
+             sentinel: int | None = None, replaced=None, slack=None,
+             other=None):
     """Kernel vs plain version on every ``(idx, w, *more)`` of ``sets``,
     called as ``kernel(table, idx, w, *more)``; timed calls cycle through
     the sets, so consecutive calls read other rows.  ``rows`` bounds a live
@@ -669,7 +752,10 @@ def _compare(name, kernel, ref, table, sets, timing: bool,
     for a string, that note and no time), and the time of ``replaced``,
     the composition the kernel took over, held against the plain version
     like the kernel.  ``slack(table, *args)``, where given, is added to the
-    tolerance (``_order_slack``)."""
+    tolerance (``_order_slack``).  ``other(module)``, where given, is the
+    same kernel of another tree's ``cuda_spmm``: with ``--parent`` it is
+    held against the plain version like this one and timed in turns with
+    it (``_in_turns``)."""
     rows = table.shape[0] if rows is None else rows
     worst, wants = 0.0, []
     for args in sets:
@@ -688,7 +774,17 @@ def _compare(name, kernel, ref, table, sets, timing: bool,
         def call(fn):
             return lambda i: fn(table, *sets[i % len(sets)])
         res["ms"] = _device_ms(call(kernel))
-        res["plain_ms"] = _device_ms(call(ref))
+        if other is not None:
+            for label, PK in TREES:
+                theirs = other(PK)
+                for args, want in zip(sets, wants):
+                    _agree(f"{name}, {label}", theirs(table, *args), want,
+                           *KERNEL_TOL, slack=0.0 if slack is None
+                           else slack(table, *args))
+                res.setdefault("turns", {})[label] = _in_turns(
+                    call(theirs), call(kernel))
+        # the plain versions take 30 us to 25 ms a call: 3 windows of 8
+        res["plain_ms"] = _device_ms(call(ref), calls=8, reps=3)
         res["host_ms"] = _host_ms(call(kernel))
         if replaced is not None:
             res["replaced_ms"] = _device_ms(call(replaced))
@@ -709,6 +805,14 @@ def _compare(name, kernel, ref, table, sets, timing: bool,
             res["bytes"] = kernel_bytes(kind, distinct, 4 * d, f, k, d, f,
                                         res["hist_distinct"], row_bytes)
             flops = 3 * live * d + f * d
+        elif kind == "backward ends":   # sets of (idx, w, ends)
+            res["gb_s"] = live * row_bytes / (res["ms"] * 1e6)
+            res["ranged"] = sum(int(args[2].clamp(0, k).sum())
+                                for args in sets) / len(sets)
+            g_rows = sum(int(m.any(1).sum()) for m in masks) / len(sets)
+            res["bytes"] = kernel_bytes(kind, g_rows, row_bytes, f, k, d,
+                                        rows, ranged=res["ranged"])
+            flops = 2 * live * d
         else:
             res["gb_s"] = live * row_bytes / (res["ms"] * 1e6)
             res["bytes"] = kernel_bytes(kind, distinct, row_bytes, f, k, d,
@@ -755,6 +859,9 @@ def _report(results: dict, kname: str, case: str, res: dict,
                  f"{res['live']:.0f} live slots; by {res['bound_by']}) = "
                  f"{res['bound_ms'] / res['ms']:.3f} of the time; library "
                  f"{lib}; wrapper host {res['host_ms']:.5f} ms/call")
+    for label, ms in res.get("turns", {}).items():
+        times += (f"; in turns with {label}: {label} {ms[0]:.5f}, this tree "
+                  f"{ms[1]:.5f}, {ms[2]:.5f}, {label} {ms[3]:.5f} ms/call")
     print(f"kernels: {kname} {case}: max abs err "
           f"{res['max_abs_err']:.3e}{times}")
 
@@ -766,7 +873,8 @@ def _kept_case(results: dict, kname: str, key: str, case: str,
     results[kname].setdefault(key, []).append({
         "case": case, **{k: res.get(k) for k in
                          ("max_abs_err", *MAIN_KEYS, "library", "plan",
-                          "sparse_mm_ms") if k in res}})
+                          "sparse_mm_ms", "without_ends_ms", "turns")
+                         if k in res}})
 
 
 def _gather_splits(label: str, table, sets) -> None:
@@ -857,96 +965,153 @@ def _order_slack(g, pos, w, rows: int):
         g.abs(), pos, w.abs(), rows)
 
 
-def _sparse_mm_ms(g, sets, rows: int, order_bound: bool = False) -> float:
+def _field_csr(i, v, rows: int):
+    """The live slots of padded rows ``(i, v)`` as a CSR ``X^T [rows, F]``
+    (a host read of the live count: not for a spin-queued window)."""
+    f = i.shape[0]
+    m = _live(i, v, rows)
+    r = torch.arange(f, device=i.device)[:, None].expand_as(i)[m]
+    with warnings.catch_warnings():      # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(
+            torch.stack([i[m].long(), r]), v[m], (rows, f),
+            check_invariants=True).coalesce().to_sparse_csr()
+
+
+def _sparse_mm_ms(g, sets, rows: int, order_bound: bool = False,
+                  converted: bool = False):
     """``torch.sparse.mm(X^T, g)``, the one PyTorch call for the gradient in
     W of a padded-sparse layer: each set's live slots as a CSR ``X^T
     [rows, F]``, built outside the timed window and held against the plain
     backward at ``KERNEL_TOL``, with ``order_bound`` plus
-    ``_order_slack``."""
-    f = sets[0][0].shape[0]
-    xts = []
-    with warnings.catch_warnings():      # "sparse CSR support is in beta"
-        warnings.simplefilter("ignore", UserWarning)
-        for i, v in sets:
-            m = _live(i, v, rows)
-            r = torch.arange(f, device=i.device)[:, None].expand_as(i)[m]
-            xts.append(torch.sparse_coo_tensor(
-                torch.stack([i[m].long(), r]), v[m], (rows, f),
-                check_invariants=True).coalesce().to_sparse_csr())
+    ``_order_slack``.  With ``converted`` also ``(host ms a call with the
+    CSR built from the padded rows inside the call, host ms a call of
+    sparse.mm alone)``, both on the host clock through a synchronise."""
+    xts = [_field_csr(i, v, rows) for i, v, *_ in sets]
     for j, xt in enumerate(xts):
-        i, v = sets[j]
+        i, v = sets[j][:2]
         _agree("library torch.sparse.mm", torch.sparse.mm(xt, g),
                K.fanout_aggregate_backward_ref(g, i, v, rows), *KERNEL_TOL,
                slack=_order_slack(g, i, v, rows) if order_bound else 0.0)
-    return _device_ms(lambda i: torch.sparse.mm(xts[i % len(xts)], g))
+    ms = _device_ms(lambda i: torch.sparse.mm(xts[i % len(xts)], g))
+    if not converted:
+        return ms
+    return ms, (_wall_ms(lambda i: torch.sparse.mm(_field_csr(
+        *sets[i % len(sets)][:2], rows), g)),
+        _wall_ms(lambda i: torch.sparse.mm(xts[i % len(xts)], g)))
+
+
+def _padded_rows(rng, f: int, k: int, dim: int, kind: str):
+    """Padded-sparse rows at the first layer's shape on PubMed-sized data,
+    as ``pad_sparse_features`` lays them out (dead slots ``(dim, 0)``) with
+    their ends (``live_ends``): ~3.9 live slots a row on average, clustered
+    as on a real field (a fifth of the rows hold them, with a geometric
+    tail, the others none), columns skewed as word counts are.  ``kind``:
+    "prefix" (the live slots first, as the table has them), "not a prefix"
+    (the same counts at random places of the row), "live at K-1" (prefix,
+    and a fiftieth of the rows also live in their last slot), "clustered
+    columns" (prefix, every live slot on one of 4 columns of W)."""
+    n_live = np.where(rng.random(f) < 0.2,
+                      np.minimum(rng.geometric(1 / 19.5, f), k), 0)
+    if kind == "not a prefix":
+        rank = np.argsort(np.argsort(rng.random((f, k)), axis=1), axis=1)
+        live = rank < n_live[:, None]
+    else:
+        live = np.arange(k)[None, :] < n_live[:, None]
+    if kind == "live at K-1":
+        live[rng.random(f) < 0.02, k - 1] = True
+    weights = 1.0 / (np.arange(dim) + 10.0)
+    cols = 4 if kind == "clustered columns" else dim
+    idx = np.full((f, k), dim, np.int32)
+    w = np.zeros((f, k), np.float32)
+    idx[live] = rng.choice(cols, int(live.sum()),
+                           p=weights[:cols] / weights[:cols].sum())
+    w[live] = rng.uniform(0.01, 0.2, int(live.sum()))
+    return idx, w, live_ends(idx, dim)
+
+
+def _ends_split(label: str, g, sets, rows: int) -> None:
+    """Where the backward's time goes, with and without the ends: the same
+    call with every weight zero (the walk, the zero-fill and the barrier),
+    with the live slots on uniform rows of ``grad_x`` (no contention), and
+    on 25 rows (the fixed cost)."""
+    bwd = K.fanout_aggregate_backward
+    idx0, w0, ends0 = sets[0][:3]
+    dead = torch.zeros_like(w0)
+    uniform = torch.where(_live(idx0, w0, rows), torch.randint_like(
+        idx0, 0, rows), idx0)
+    parts = {"every weight zero": (g, idx0, dead, ends0),
+             "the live slots on uniform rows": (g, uniform, w0, ends0),
+             "25 rows": (g[:25], idx0[:25], w0[:25], ends0[:25])}
+    for with_ends in (True, False):
+        times = "; ".join(
+            f"{name} {_device_ms(lambda i, a=a: bwd(*a[:3], rows, a[3] if with_ends else None)):.5f}"
+            for name, a in parts.items())
+        print(f"kernels: fanout_aggregate_backward {label}, "
+              f"{'with' if with_ends else 'without'} the ends: {times} "
+              f"ms/call")
 
 
 def _many_slots_case(rng, dev, results: dict, sweeps: bool) -> None:
     """The backward with many slots on few rows at the padded-sparse first
     layer's shape on PubMed-sized data (W [500, 32], F = 15,000 field rows
-    of nnz_cap = 333 slots, ~3.9 live a row on average as the first slots
-    of the row, clustered as on a real field: a fifth of the rows hold
-    them, with a geometric tail, the others none; positions skewed as word
-    counts are): against its plain version and timed beside ``index_add_``
-    and ``torch.sparse.mm``; with ``sweeps``, where its time goes."""
-    rows, d, f, k = 500, 32, 15_000, 333
-    weights = 1.0 / (np.arange(rows) + 10.0)
-    sets = []
-    for _ in range(4):
-        n_live = np.where(rng.random(f) < 0.2,
-                          np.minimum(rng.geometric(1 / 19.5, f), k), 0)
-        idx = np.zeros((f, k), np.int32)
-        w = np.zeros((f, k), np.float32)
-        live = np.arange(k)[None, :] < n_live[:, None]
-        idx[live] = rng.choice(rows, int(live.sum()), p=weights / weights.sum())
-        w[live] = rng.uniform(0.01, 0.2, int(live.sum()))
-        sets.append((torch.from_numpy(idx).to(dev),
-                     torch.from_numpy(w).to(dev)))
+    of nnz_cap = 333 slots, ``_padded_rows``): given the rows' ends
+    against the plain version with them, and timed beside the kernel
+    without them (every slot read), ``index_add_`` and
+    ``torch.sparse.mm``; then the adversarial layouts (live slots not a
+    prefix, a live slot at K - 1, every live slot on 4 columns of W), with
+    the ends; with ``sweeps``, where the time goes."""
+    rows, d, f, k = MANY_SLOTS
     g = torch.from_numpy(rng.standard_normal((f, d), dtype=np.float32)).to(dev)
     bwd, bwd_ref = K.fanout_aggregate_backward, K.fanout_aggregate_backward_ref
-    case = (f"many slots on few rows: W [{rows},{d}] F={f} K={k}, ~3.9 live "
-            f"a row, clustered (plan {K.backward_plan(f, k)})")
     # held at KERNEL_TOL plus the float32 summation-order bound: ~118 live
     # slots of unit scale gather on a row of W
-    res = _compare(f"backward {case}", lambda g_, p, w: bwd(g_, p, w, rows),
-                   lambda g_, p, w: bwd_ref(g_, p, w, rows), g, sets, True,
-                   kind="backward", rows=rows, library=_library_backward(rows),
-                   slack=lambda g_, p, w: _order_slack(g_, p, w, rows))
-    res["sparse_mm_ms"] = _sparse_mm_ms(g, sets, rows, order_bound=True)
-    res["plan"] = K.backward_plan(f, k)
-    _kept_case(results, "fanout_aggregate_backward", "redesigned_cases", case,
-               res)
-    print(f"kernels: fanout_aggregate_backward {case}: torch.sparse.mm of "
-          f"X^T (CSR) {res['sparse_mm_ms']:.5f} ms/call")
-    if not sweeps:
-        return
-    # where its time goes: the same call with every slot dead, on half and
-    # on 1/600 of the rows (the stream against the fixed cost), and with
-    # the live slots on uniform rows (the atomics' contention)
-    idx0, w0 = sets[0]
-    dead = torch.zeros_like(w0)
-    uniform = torch.randint(0, rows, idx0.shape, dtype=torch.int32,
-                            device=dev)
-    parts = {"every slot dead": (g, idx0, dead),
-             "half the rows, dead": (g[:f // 2], idx0[:f // 2],
-                                     dead[:f // 2]),
-             "25 rows, dead": (g[:25], idx0[:25], dead[:25]),
-             "the live slots on uniform rows": (g, uniform, w0)}
-    times = "; ".join(
-        f"{name} {_device_ms(lambda i, a=args: bwd(*a, rows)):.5f}"
-        for name, args in parts.items())
-    print(f"kernels: fanout_aggregate_backward {case}: {times} ms/call")
+    slack = lambda g_, p, w, *_: _order_slack(g_, p, w, rows)   # noqa: E731
+    for kind in ("prefix", "not a prefix", "live at K-1",
+                 "clustered columns"):
+        sets = [tuple(torch.from_numpy(a).to(dev)
+                      for a in _padded_rows(rng, f, k, rows, kind))
+                for _ in range(4 if kind == "prefix" else 1)]
+        case = (f"many slots on few rows: W [{rows},{d}] F={f} K={k}, "
+                f"{kind}, with the rows' ends")
+        res = _compare(f"backward {case}",
+                       lambda g_, p, w, e: bwd(g_, p, w, rows, e),
+                       lambda g_, p, w, e: bwd_ref(g_, p, w, rows, e), g,
+                       sets, True, kind="backward ends", rows=rows,
+                       library=_library_backward(rows, order_bound=True),
+                       slack=slack,
+                       other=lambda PK: lambda g_, p, w, e:
+                       PK.fanout_aggregate_backward(g_, p, w, rows))
+        res["plan"] = "ends"
+        if kind == "prefix":
+            old = _compare(f"backward {case}, ends left out",
+                           lambda g_, p, w, e: bwd(g_, p, w, rows),
+                           lambda g_, p, w, e: bwd_ref(g_, p, w, rows), g,
+                           sets, True, kind="backward", rows=rows,
+                           slack=slack)
+            res["without_ends_ms"] = old["ms"]
+            res["sparse_mm_ms"] = _sparse_mm_ms(g, sets, rows,
+                                                order_bound=True)
+            print(f"kernels: fanout_aggregate_backward {case}: without the "
+                  f"ends (every slot read, plan {K.backward_plan(f, k)}) "
+                  f"{old['ms']:.5f} ms/call, bound {old['bound_ms']:.5f}; "
+                  f"torch.sparse.mm of X^T (CSR) {res['sparse_mm_ms']:.5f} "
+                  f"ms/call")
+            if sweeps:
+                _ends_split(f"{case} (seeded)", g, sets, rows)
+        _kept_case(results, "fanout_aggregate_backward", "redesigned_cases",
+                   case, res)
 
 
-def _cv_calls(sentinel: int):
+def _cv_calls(sentinel: int, mod=K):
     """The CV estimator's sampled term as ``fn(hist, pos, w, x, field_in,
-    base)``: the kernel, its plain version, and the composition the kernel
-    took over (8 launches: the history gather's cast, compare, ``where``,
-    ``index_select`` and ``masked_fill``, the subtraction, the fanout
-    kernel, the addition)."""
+    base)``: the kernel (of ``mod``, a tree's ``cuda_spmm``), its plain
+    version, and the composition the kernel took over (8 launches: the
+    history gather's cast, compare, ``where``, ``index_select`` and
+    ``masked_fill``, the subtraction, the fanout kernel, the addition)."""
     def kernel(hist, pos, w, x, field_in, base):
-        return K.cv_fanout_aggregate(x, hist, field_in, sentinel, pos, w,
-                                     base)
+        return mod.cv_fanout_aggregate(x, hist, field_in, sentinel, pos, w,
+                                       base)
 
     def ref(hist, pos, w, x, field_in, base):
         return K.cv_fanout_aggregate_ref(x, hist, field_in, sentinel, pos, w,
@@ -1056,7 +1221,8 @@ def phase_cv_kernel(rng, dev, results: dict, train_hist) -> None:
         _report(results, "cv_fanout_aggregate", case,
                 _compare(f"cv {case}", kernel, ref, hist, sets, True,
                          kind="cv", rows=f + f * k, sentinel=n,
-                         library=NO_LIBRARY_CV, replaced=replaced))
+                         library=NO_LIBRARY_CV, replaced=replaced,
+                         other=lambda PK, n=n: _cv_calls(n, PK)[0]))
     # the last case's inputs: the exhaustive evaluation shape
     if not torch.equal(kernel(eval_hist, *sets[0]),
                        kernel(eval_hist, *sets[0])):
@@ -1105,7 +1271,9 @@ def _fanout_on_row_subset(results: dict, case: str, x, pos, w,
     """The standalone fanout at a shape where the plain version would
     materialise ``[F*K, d]`` float32 of several GB: the kernel runs on
     every row, is held against the plain version on the first ``sub`` of
-    them, must be bitwise reproducible, and is timed with its bound."""
+    them, must be bitwise reproducible, and is timed with its bound and
+    ``embedding_bag`` (the library call, on every row); with ``--parent``,
+    in turns with the other trees' kernels (held alike)."""
     fan, fan_ref = K.fanout_aggregate, K.fanout_aggregate_ref
     (c, d), (f, k) = x.shape, pos.shape
     out = fan(x, pos, w)
@@ -1116,13 +1284,38 @@ def _fanout_on_row_subset(results: dict, case: str, x, pos, w,
     if not torch.equal(out, fan(x, pos, w)):
         fail(f"fanout {case}: not bitwise reproducible")
     ms = _device_ms(lambda i: fan(x, pos, w), calls=8, reps=3)
+    turns = ""
+    for label, PK in TREES:
+        _agree(f"fanout {case}, {label}", PK.fanout_aggregate(x, pos, w)[:sub],
+               want, *KERNEL_TOL)
+        t = _in_turns(lambda i: PK.fanout_aggregate(x, pos, w),
+                   lambda i: fan(x, pos, w), calls=8, reps=3)
+        turns += (f"; in turns with {label}: {label} {t[0]:.5f}, this tree "
+                  f"{t[1]:.5f}, {t[2]:.5f}, {label} {t[3]:.5f} ms/call")
     sub_ms = _device_ms(lambda i: fan(x, pos_s, w_s))
     plain_ms = _device_ms(lambda i: fan_ref(x, pos_s, w_s), calls=8, reps=3)
+    # the library call on every row: embedding_bag over x with a zero row
+    # appended for the dead slots (remapped outside the window), held
+    # against the plain version on the same rows
+    ext = torch.cat([x, x.new_zeros((1, d))])
+    lib_pos = torch.where(_live(pos, w, c), pos, c).contiguous()
+    lib_w = w.to(x.dtype)
+
+    def lib(i):
+        return F.embedding_bag(lib_pos, ext, per_sample_weights=lib_w,
+                               mode="sum", padding_idx=c)
+    _agree(f"fanout {case}, library embedding_bag", lib(0)[:sub], want,
+           *KERNEL_TOL)
+    lib_ms = _device_ms(lib, calls=8, reps=3)
+    del ext
     live = _live(pos, w, c)
     n_live = int(live.sum())
     distinct = torch.unique(pos[live]).numel()
     nbytes = kernel_bytes("gather", distinct, 4 * d, f, k, d, f)
     bound, by = bound_ms(nbytes, 2 * n_live * d)
+    # the same count with a row read once per live slot that names it: the
+    # traffic where the L2 serves no repeat (not a measurement of it)
+    per_slot = kernel_bytes("gather", n_live, 4 * d, f, k, d, f)
     results["fanout_aggregate"]["max_abs_err"] = max(
         results["fanout_aggregate"].get("max_abs_err", 0.0), err)
     print(f"kernels: fanout_aggregate {case}: max abs err {err:.3e} on "
@@ -1130,8 +1323,12 @@ def _fanout_on_row_subset(results: dict, case: str, x, pos, w,
           f"({n_live * 4 * d / (ms * 1e6):.0f} GB/s of live slots); bound "
           f"{bound:.5f} ms ({nbytes / 1e6:.3f} MB: {distinct} distinct rows "
           f"under {n_live} live slots; by {by}) = {bound / ms:.3f} of the "
-          f"time; on the {sub} rows alone {sub_ms:.5f} ms/call vs plain "
-          f"{plain_ms:.5f} ms/call; bitwise reproducible")
+          f"time; a row read once per live slot {per_slot / 1e6:.3f} MB, "
+          f"{1e3 * per_slot / HBM_BYTES_PER_S:.5f} ms = "
+          f"{1e3 * per_slot / HBM_BYTES_PER_S / ms:.3f} of the time; "
+          f"library {lib_ms:.5f} ms/call (embedding_bag, every row); "
+          f"on the {sub} rows alone {sub_ms:.5f} ms/call vs plain "
+          f"{plain_ms:.5f} ms/call; bitwise reproducible{turns}")
 
 
 def _subset_splits(label: str, x, pos, w, sub: int = 1024) -> None:
@@ -1161,7 +1358,7 @@ def phase_wide_kernels(rng, dev, results: dict, sweeps: bool) -> None:
     rows; and the backward with many slots on few rows.  With ``sweeps``,
     every split of the gathers too."""
     floor_ms = _device_ms(lambda i: K.empty_launch(dev))
-    print(f"kernels: rows of any width (by element): launch_floor_ms "
+    print(f"kernels: rows of any width (by unit): launch_floor_ms "
           f"{floor_ms:.5f} in this part's windows")
     n = SBM_KW["num_nodes"]
     hbm, hbm_ref = K.hbm_gather_aggregate, K.hbm_gather_aggregate_ref
@@ -1201,15 +1398,21 @@ def phase_wide_kernels(rng, dev, results: dict, sweeps: bool) -> None:
                 _report(results, "hbm_gather_aggregate", label, res)
             if sweeps:
                 _gather_splits(label, hist, sets)
-            # the CV kernel on top of it: C = 1024, F = 512, K = 1
+            # the CV kernel on top of it: C = 1024, F = 512, K = 1, a row's
+            # columns over warps (wide_cols_kernel); bitwise reproducible
             kernel, ref, replaced = _cv_calls(n)
+            cv_sets = _cv_inputs(rng, dev, 512, 1, d, n, 1.0, 4)
             _report(results, "cv_fanout_aggregate",
                     f"{name} [{n + 8},{d}] history C=1024 F=512 K=1 "
-                    f"(by element)",
-                    _compare(f"cv d={d} {name}", kernel, ref, hist,
-                             _cv_inputs(rng, dev, 512, 1, d, n, 1.0, 4), True,
-                             kind="cv", rows=1024, sentinel=n,
-                             library=NO_LIBRARY_CV, replaced=replaced))
+                    f"(by column range)",
+                    _compare(f"cv d={d} {name}", kernel, ref, hist, cv_sets,
+                             True, kind="cv", rows=1024, sentinel=n,
+                             library=NO_LIBRARY_CV, replaced=replaced,
+                             other=lambda PK: _cv_calls(n, PK)[0]))
+            if not torch.equal(kernel(hist, *cv_sets[0]),
+                               kernel(hist, *cv_sets[0])):
+                fail(f"the CV kernel is not bitwise reproducible at d={d} "
+                     f"{name}")
             # and on compacted slots at K = 8 (repeats, parked, sentinels)
             c = 4096
             pos, w = _compacted_slots(rng, dev, 512, 8, c, 0.7)
@@ -1251,7 +1454,9 @@ def phase_wide_kernels(rng, dev, results: dict, sweeps: bool) -> None:
                            lambda g_, p, w, c=c: bwd(g_, p, w, c),
                            lambda g_, p, w, c=c: bwd_ref(g_, p, w, c), g,
                            [slots], timing, kind="backward", rows=c,
-                           library=_library_backward(c))
+                           library=_library_backward(c),
+                           other=lambda PK, c=c: lambda g_, p, w:
+                           PK.fanout_aggregate_backward(g_, p, w, c))
             if timing:
                 _kept_case(results, "fanout_aggregate_backward",
                            "redesigned_cases", case, res)
@@ -1337,7 +1542,8 @@ def phase_kernels(seed: int = 0, sweeps: bool = False) -> dict:
     train_sets = full_term_inputs(512, 64, n_nodes, n_sets=4)
     report("hbm_gather_aggregate", "bf16 [233008,128] F=512 K=64 (training)",
            _compare("full bf16 training", hbm, hbm_ref, bf16, train_sets,
-                    True, library=_library_gather))
+                    True, library=_library_gather,
+                    other=lambda PK: PK.hbm_gather_aggregate))
     _gather_splits("bf16 [233008,128] F=512 K=64", bf16, train_sets)
     # serving: the f32 eval history (and bf16), F = test batch 2048
     sets = full_term_inputs(2048, 64, n_nodes, n_sets=4)
@@ -1466,7 +1672,9 @@ def phase_kernels(seed: int = 0, sweeps: bool = False) -> dict:
                _compare(f"backward {case}", lambda g, p, w, c=c: bwd(g, p, w, c),
                         lambda g, p, w, c=c: bwd_ref(g, p, w, c),
                         args[0], [args[1:]], timing, kind="backward", rows=c,
-                        library=_library_backward(c)))
+                        library=_library_backward(c),
+                        other=lambda PK, c=c: lambda g, p, w:
+                        PK.fanout_aggregate_backward(g, p, w, c)))
 
     # the gradient through FanoutAggregate (both kernels) against autograd
     # through the plain forward
@@ -2393,6 +2601,41 @@ def _gradvar_arm(ds, cfg_kw: dict, over: dict, source: Trainer, device,
         times=times, log=lambda s: None).items()}
 
 
+def _exact_batch_case(exact: Trainer, ds, results: dict) -> None:
+    """The standalone fanout on the first layer of a real Exact train batch
+    (``_fanout_on_row_subset``): the batch's dedup-compacted slots over
+    its field's raw feature rows."""
+    n, bs = ds.num_data, exact.cfg.batch_size
+    batch = torch.from_numpy(exact._batch_matrix(
+        ds.train_d[:bs], bs, n)[0]).to(exact.device)
+    pack = schedule(exact.gen, exact.graph_train, batch, exact.train_degrees,
+                    False, dedup=exact.cfg.field_dedup)
+    x = row_gather(exact.train_features, pack.fields[0], sentinel=n)
+    pos, w = pack.layers[0].slot_pos, pack.layers[0].slot_w
+    _fanout_on_row_subset(
+        results, f"Exact train batch, layer 0: f32 C={x.shape[0]} "
+        f"F={pos.shape[0]} K={pos.shape[1]} d={x.shape[1]} (plan "
+        f"{K.gather_plan(x, *pos.shape)})", x, pos, w)
+
+
+def phase_real_batches(results: dict, device: str = "cuda") -> None:
+    """For ``--phase kernels``: the kernels on the real batches of the full
+    run, without its training: the sparse first layer's on 4 batches of the
+    PubMed-sized fixture (``_sparse_layer_kernels`` with its sweeps, ``W``
+    as initialised) and the fanout on a real Exact batch's first layer of
+    the convergence phase's SBM (``_exact_batch_case``)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        write_planetoid_fixture(tmp, PlanetoidSpec(**PUBMED_SPEC))
+        ds = load_data(Config(dataset="pubmed", data_dir=tmp))
+        tr = Trainer(Config(dataset="pubmed", data_dir=tmp, ckpt_dir=tmp),
+                     ds, device=device)
+        _sparse_layer_kernels(tr, results, sweeps=True)
+        del tr, ds
+    sbm = community_sbm_dataset(**SBM_KW)
+    _exact_batch_case(Trainer(Config(**{**CONVERGE_CFG, **EXACT_KW}), sbm,
+                              device=device), sbm, results)
+
+
 def phase_estimators(ds, cv_tr: Trainer, cv_curve, device: str = "cuda",
                      cfg_kw=CONVERGE_CFG, target: float = CONVERGE_F1,
                      cvd_epochs: int = CVD_EPOCHS,
@@ -2427,9 +2670,7 @@ def phase_estimators(ds, cv_tr: Trainer, cv_curve, device: str = "cuda",
     print(f"estimators: CV+PP's curve, for comparison: "
           f"{', '.join(f'{f:.4f}' for f in cv_curve)}")
 
-    exact_kw = {**cfg_kw, "cv": False, "test_cv": False, "degree": 10000,
-                "preprocess": False, "test_preprocess": False}
-    exact = Trainer(Config(**exact_kw), ds, device=device)
+    exact = Trainer(Config(**{**cfg_kw, **EXACT_KW}), ds, device=device)
     n, dcap = ds.num_data, exact.graph_train.pad_degree
     bs = exact.cfg.batch_size
     if exact.cfg.field_dedup or not effective_dedup(
@@ -2451,19 +2692,7 @@ def phase_estimators(ds, cv_tr: Trainer, cv_curve, device: str = "cuda",
     if not worst <= EXACT_DENSE_ATOL:
         fail("Exact predictions differ from the dense computation")
     if results is not None:
-        batch = torch.from_numpy(exact._batch_matrix(
-            ds.train_d[:bs], bs, n)[0]).to(exact.device)
-        pack = schedule(exact.gen, exact.graph_train, batch,
-                        exact.train_degrees, False,
-                        dedup=exact.cfg.field_dedup)
-        x = row_gather(exact.train_features, pack.fields[0], sentinel=n)
-        pos, w = pack.layers[0].slot_pos, pack.layers[0].slot_w
-        _fanout_on_row_subset(
-            results, f"Exact train batch, layer 0: f32 C={x.shape[0]} "
-            f"F={pos.shape[0]} K={pos.shape[1]} d={x.shape[1]} (plan "
-            f"{K.gather_plan(x, *pos.shape)})",
-            x, pos, w)
-        del x, pack
+        _exact_batch_case(exact, ds, results)
         phase_profile(exact, label="Exact")
     del exact
 
@@ -2633,15 +2862,20 @@ def _serve_from_artifact(label: str, tr: Trainer, requests, live,
 
 
 def _sparse_layer_kernels(tr: Trainer, results: dict, batches: int = 4,
-                          seed: int = 2) -> None:
+                          seed: int = 2, sweeps: bool = False) -> None:
     """The sparse first layer's kernels on ``batches`` real train batches:
-    the layer-0 field's padded-sparse rows of each freshly scheduled batch,
-    with the trained ``W`` as the table (forward) and a seeded output
-    gradient (backward), against their plain versions on every row and
-    timed, with ``embedding_bag`` beside the forward and
-    ``zeros().index_add_`` over the live slots and ``torch.sparse.mm`` of
-    the field's ``X^T`` beside the backward; every split of the gather.
-    Folded into ``results[kernel]["sparse_layer_batches"]``."""
+    the layer-0 field's padded-sparse rows of each freshly scheduled batch
+    with their ends, the trained ``W`` as the table (forward) and a seeded
+    output gradient (backward), against their plain versions on every row
+    and timed, with ``embedding_bag`` beside the forward; beside the
+    backward with the ends, the same kernel with the ends left out (every
+    slot read), ``zeros().index_add_`` over the live slots and
+    ``torch.sparse.mm`` of the field's ``X^T`` (a CSR built before, and
+    built inside the call); the backward on the first ``SMALL_FIELDS`` rows
+    of each batch (a small field of long rows), with and without the ends;
+    every split of the gather; with ``sweeps``, where the backward's time
+    goes (``_ends_split``).  Folded into
+    ``results[kernel]["sparse_layer_batches"]``."""
     cfg, n = tr.cfg, tr.ds.num_data
     bs = cfg.batch_size
     packs = []
@@ -2653,17 +2887,21 @@ def _sparse_layer_kernels(tr: Trainer, results: dict, batches: int = 4,
                               tr.train_spec.cv, dedup=cfg.field_dedup))
     rows = [M._slice_inputs(tr.train_features, p.fields[0], n)
             for p in packs]
-    sets = [(r.idx, r.val.float().contiguous()) for r in rows]
+    if any(r.ends is None for r in rows):
+        fail("the sliced padded-sparse rows carry no ends")
+    sets = [(r.idx, r.val.float().contiguous(), r.ends) for r in rows]
     w = tr.params[M.first_param_layer(tr.train_spec)]["weights"].detach()
     dim, hidden = w.shape
     f, k = sets[0][0].shape
-    live = sum(int(_live(i, v, dim).sum()) for i, v in sets) / batches
+    live = sum(int(_live(i, v, dim).sum()) for i, v, _ in sets) / batches
+    ranged = sum(int(e.sum()) for _, _, e in sets) / batches
     hits = [torch.unique(i[_live(i, v, dim)], return_counts=True)[1]
-            for i, v in sets]
+            for i, v, _ in sets]
     print(f"formats: sparse first layer, {batches} real train batches: "
           f"F={f} field-0 rows, K={k} slots a row (nnz_cap), table W "
           f"[{dim}, {hidden}] f32; {live:.0f} live slots a batch "
-          f"({live / f:.1f} a row); a row of W is named by at most "
+          f"({live / f:.1f} a row), {ranged:.0f} slots before the rows' "
+          f"ends; a row of W is named by at most "
           f"{max(int(h.max()) for h in hits)} slots, "
           f"{sum(h.float().mean().item() for h in hits) / batches:.0f} on "
           f"average (the backward's atomic contention)")
@@ -2671,29 +2909,80 @@ def _sparse_layer_kernels(tr: Trainer, results: dict, batches: int = 4,
         (f, hidden), dtype=np.float32)).to(tr.device)
     case = f"sparse first layer, PubMed train batch: W [{dim},{hidden}] F={f} K={k}"
     fwd = _compare("sparse layer fanout", K.fanout_aggregate,
-                   K.fanout_aggregate_ref, w, sets, True,
+                   K.fanout_aggregate_ref, w, [s[:2] for s in sets], True,
                    library=_library_gather)
-    bwd = _compare("sparse layer backward",
-                   lambda g_, p, v: K.fanout_aggregate_backward(g_, p, v,
-                                                                dim),
-                   lambda g_, p, v: K.fanout_aggregate_backward_ref(
-                       g_, p, v, dim), g, sets, True, kind="backward",
-                   rows=dim, library=_library_backward(dim))
+    bwd_ends, bwd_ref = K.fanout_aggregate_backward, \
+        K.fanout_aggregate_backward_ref
+
+    def with_ends(name, g_, sets_):
+        # held at KERNEL_TOL plus the float32 summation-order bound: ~118
+        # live slots gather on a row of W
+        return _compare(name, lambda g2, p, v, e: bwd_ends(g2, p, v, dim, e),
+                        lambda g2, p, v, e: bwd_ref(g2, p, v, dim, e), g_,
+                        sets_, True, kind="backward ends", rows=dim,
+                        library=_library_backward(dim),
+                        slack=lambda g2, p, v, e: _order_slack(g2, p, v, dim),
+                        other=lambda PK: lambda g2, p, v, e:
+                        PK.fanout_aggregate_backward(g2, p, v, dim))
+
+    def ends_left_out(name, g_, sets_):
+        return _compare(name, lambda g2, p, v, e: bwd_ends(g2, p, v, dim),
+                        lambda g2, p, v, e: bwd_ref(g2, p, v, dim), g_,
+                        sets_, True, kind="backward", rows=dim)
+
+    bwd = with_ends("sparse layer backward", g, sets)
+    old = ends_left_out("sparse layer backward, the ends left out", g, sets)
+    bwd["without_ends_ms"] = old["ms"]
+    bwd["without_ends_bound_ms"] = old["bound_ms"]
     # torch.sparse.mm(X_field^T, g): the field's rows as a CSR matrix
-    bwd["sparse_mm_ms"] = _sparse_mm_ms(g, sets, dim)
-    bwd["plan"] = K.backward_plan(f, k)
+    bwd["sparse_mm_ms"], (conv_ms, mm_wall_ms) = _sparse_mm_ms(
+        g, sets, dim, converted=True)
+    bwd["sparse_mm_converted_host_ms"] = conv_ms
+    bwd["sparse_mm_host_ms"] = mm_wall_ms
+    bwd["host_clock_ms"] = _wall_ms(
+        lambda i: K.fanout_aggregate_backward(g, *sets[i % batches][:2], dim,
+                                              sets[i % batches][2]))
+    bwd["plan"] = "ends"
+    keys = (*MAIN_KEYS, "live", "distinct", "ranged", "sparse_mm_ms",
+            "sparse_mm_converted_host_ms", "sparse_mm_host_ms",
+            "host_clock_ms", "without_ends_ms", "without_ends_bound_ms",
+            "plan", "turns")
     for kname, res in (("fanout_aggregate", fwd),
                        ("fanout_aggregate_backward", bwd)):
         _report(results, kname, case, res)
         results[kname].setdefault("sparse_layer_batches", {})[case] = {
-            key: res.get(key)
-            for key in (*MAIN_KEYS, "live", "distinct", "sparse_mm_ms",
-                        "plan")
-            if key in res}
-    print(f"kernels: fanout_aggregate_backward {case}: torch.sparse.mm of "
-          f"the field's X^T (CSR) {bwd['sparse_mm_ms']:.5f} ms/call; plan "
-          f"{bwd['plan']} (warps a row)")
-    _gather_splits(case, w, sets)
+            key: res.get(key) for key in keys if key in res}
+    print(f"kernels: fanout_aggregate_backward {case}: with the ends "
+          f"{bwd['ms']:.5f} ms/call (bound {bwd['bound_ms']:.5f}); the "
+          f"ends left out (every slot read, plan {K.backward_plan(f, k)}) "
+          f"{old['ms']:.5f} ms/call (bound {old['bound_ms']:.5f}); "
+          f"torch.sparse.mm of the field's X^T (CSR built before) "
+          f"{bwd['sparse_mm_ms']:.5f} ms/call; on the host clock through a "
+          f"synchronise: the kernel {bwd['host_clock_ms']:.5f}, sparse.mm "
+          f"{mm_wall_ms:.5f}, sparse.mm with the CSR built from the padded "
+          f"rows in the call {conv_ms:.5f} ms/call")
+    # a small field of long rows: the first rows of each batch's field
+    for rows_n in SMALL_FIELDS:
+        small = [tuple(t[:rows_n].contiguous() for t in s_) for s_ in sets]
+        label = (f"{case}, its first {rows_n} rows (plan "
+                 f"{K.backward_plan(rows_n, k)} warps a row)")
+        res = with_ends(f"sparse layer backward, first {rows_n} rows",
+                        g[:rows_n], small)
+        res["without_ends_ms"] = ends_left_out(
+            f"sparse layer backward, first {rows_n} rows, the ends left out",
+            g[:rows_n], small)["ms"]
+        res["sparse_mm_ms"] = _sparse_mm_ms(g[:rows_n], small, dim)
+        res["plan"] = K.backward_plan(rows_n, k)
+        _report(results, "fanout_aggregate_backward", label, res)
+        results["fanout_aggregate_backward"]["sparse_layer_batches"][
+            label] = {key: res.get(key) for key in keys if key in res}
+        print(f"kernels: fanout_aggregate_backward {label}: with the ends "
+              f"{res['ms']:.5f} ms/call, the ends left out "
+              f"{res['without_ends_ms']:.5f}, torch.sparse.mm "
+              f"{res['sparse_mm_ms']:.5f}")
+    if sweeps:
+        _ends_split(f"{case} (real)", g, sets, dim)
+    _gather_splits(case, w, [s[:2] for s in sets])
 
 
 def phase_pubmed(tmp: str, results: dict, epochs: int = PUBMED_EPOCHS,
@@ -4719,10 +5008,20 @@ def main(argv=None) -> None:
                    default="all",
                    help="dp: the card, build and dp phases alone (one rank "
                         "per card of the machine); kernels: the card, build "
-                        "and kernels phases alone, on seeded inputs")
-    only = p.parse_args(argv).phase
+                        "and kernels phases alone, with their sweeps, and "
+                        "the kernels on the real batches")
+    p.add_argument("--parent", action="append", default=[], metavar="DIR",
+                   help="another tree of the port (a commit unpacked with "
+                        "git archive); its kernels, built from its sources, "
+                        "are timed in turns with this tree's (theirs, ours, "
+                        "ours, theirs) on the main path's shapes, the "
+                        "redesigned cases and the real batches")
+    a = p.parse_args(argv)
+    only = a.phase
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
+    TREES.extend((Path(tree).resolve().name, _load_tree(tree, i))
+                 for i, tree in enumerate(a.parent))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_card()
@@ -4741,8 +5040,11 @@ def main(argv=None) -> None:
         return
     kernels = phase_kernels(sweeps=only == "kernels")
     if only == "kernels":
+        phase_real_batches(kernels)
         print(json.dumps({"kernel_cases": {
-            name: {key: res[key] for key in ("redesigned_cases",) if key in res}
+            name: {key: res[key] for key in ("redesigned_cases",
+                                             "sparse_layer_batches")
+                   if key in res}
             for name, res in kernels.items()}}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -120,7 +120,10 @@
 //   and the scatter are one cooperative launch with a grid-wide barrier
 //   between them; a cudaMemsetAsync ahead of a plain launch on the same
 //   stream (two device operations) measured slower at the training shape
-//   (PERF.md) and is not built.
+//   (PERF.md) and is not built.  Rows of at most 32 units at one warp a
+//   row, every slot read (every K = 1 launch), take
+//   fanout_backward_row_kernel, whose loop holds nothing else; the other
+//   shapes fanout_backward_coop_kernel.
 //   Two other shapes are bound by bytes, and the kernel deals with each:
 //   * many slots on a row (compacted fields, K = 64 over a grad_x of
 //     17 MB at Exact training's layer 1): plan_backward deals a g row's
@@ -128,11 +131,23 @@
 //     grid after the zero-fill; at K = 1 it is one warp per row, as above;
 //   * many slots on few rows (the padded-sparse first layer's gradient in
 //     W [500, 32]: F = 15,000 rows of 333 slots, 1.2% of them live, up to
-//     149 on one row of W; the bound is reading the 40 MB of slot
-//     arrays): one warp per row, as at K = 1.  It loses to
-//     torch.sparse.mm of the field's X^T; a private copy of grad_x per
-//     block in shared memory, and loading a long row's weights before its
-//     positions, were measured and are not built (PERF.md).
+//     149 on one row of W).  Its rows are padded with dead (dim, 0) slots
+//     to the table's longest row, so reading every slot is reading 40 MB
+//     of padding, a bound close to torch.sparse.mm's whole time.  The
+//     table carries, per row, the end of its live slots (data/graph.py),
+//     and with those ends fanout_backward_ends_kernel reads no slot past
+//     them.  A real field's few long rows sit side by side among empty
+//     ones: a warp reads the ends of 8 rows a grid apart at once, skips
+//     the empty ones, and walks each other row alone, 4 rounds of 32
+//     slots loaded at once, lanes 8 to a slot (a row of W is 8 float4
+//     units), so 4 slots' atomics go out at once.  On an NVIDIA H100 80GB
+//     HBM3 at 700 W: 13.4 us on 4 real PubMed batches against 39.0
+//     reading every slot and torch.sparse.mm's 15.6 (PERF.md).  That
+//     kernel takes the shapes that plan one warp a row (a large F); where
+//     plan_backward splits a row over warps (a small F: one warp walking
+//     each long row alone would leave the grid idle; 25 real rows 5.8 us
+//     against 23.3), the cooperative kernel runs with the ends.  Without
+//     ends (every other caller) the cooperative kernels run alone.
 //
 // Rows of any width.  The chunked kernels read rows as whole 16-byte
 //   chunks, at most 128 of them (4 to 512 floats in steps of 4).  A model
@@ -155,10 +170,10 @@
 //     through shared memory, as in split_gather_kernel.  Where a float32
 //     row plans one warp per row (F of 1057 rows or more at 602 columns,
 //     as at Exact training's first layer, F = 33,280; K too small to
-//     split; rows of fewer than 32 units) the by-element
-//     wide_row_gather_kernel<TableElems> runs instead: its 59 registers
-//     leave room for 4 blocks an SM against wide_split_kernel's 2, and
-//     wide_split_kernel at split 1 measured 3-46% slower there (PERF.md).
+//     split; rows of fewer than 32 units) wide_cols_kernel<TableCols>
+//     runs instead (below): it keeps 4 blocks an SM where
+//     wide_split_kernel holds 2, and wide_split_kernel at split 1
+//     measured 3-46% slower than one warp a row by element (PERF.md).
 //   * Rows of 33-128 whole 16-byte chunks (528-2048 bytes: hidden 256+
 //     served in float32, PPI's hidden 512) take wide_tma_kernel, the same
 //     walk and sums with each slot's row brought into shared memory by one
@@ -170,10 +185,21 @@
 //     row_gather_kernel.
 //   * The backward: the cooperative scatter by unit, 4-, 8- or 16-byte
 //     atomics (float2 and float4 forms of compute capability 9.0).
-//   * The control-variate delta: wide_row_gather_kernel<CvElems>, one warp
-//     per output row, lanes striding the columns in tiles of 32 *
-//     kWideCols, element loads; its x row and history row paired by
-//     column.
+//   * The control-variate delta: wide_cols_kernel<CvCols>, its x row and
+//     history row paired by column.
+//   * Where a float32 row plans one warp per row, and for the CV delta,
+//     wide_cols_kernel.  Bound: bytes (Exact training's layer 0, x
+//     [98816, 602] f32 at F = 33,280, K = 64, 334 MB of distinct live
+//     rows) or latency (the CV delta at K = 1: three dependent loads a
+//     slot).  A row's columns are split over up to 8 warps (3 at 602
+//     columns), each walking the slot list once over its own range with
+//     8 floats a lane, by the widest unit of 4, 2 or 1 columns that the
+//     pointers allow (float pairs at 602), 4 live slots in flight a warp
+//     (2 for the CV delta's two rows a slot), 4 blocks an SM; the walks of
+//     a row run side by side where one warp walked the list once per 256
+//     columns, one pass after another: CV's 602-wide delta at K = 1 4.1
+//     us against 12.0, Exact layer 0 at its capacities 3-6% faster, a real
+//     Exact batch unchanged (its DRAM traffic not measured; PERF.md).
 //   Same liveness rules, same float32 fixed-order sums (bitwise
 //   reproducible forward).  Times in PERF.md.
 //
@@ -190,8 +216,23 @@
 
 #include <initializer_list>
 #include <type_traits>
+#include <utility>
 
 namespace cg = cooperative_groups;
+
+// The build compiles this file once per part, the parts side by side
+// (ops/_build.py: -DSGT_PART=1 the gathers, 2 the CV delta, 3 the
+// backward), and links them into one library; compiled without SGT_PART
+// it holds every part.
+#ifndef SGT_PART
+#define SGT_GATHER 1
+#define SGT_CV 1
+#define SGT_BACKWARD 1
+#else
+#define SGT_GATHER (SGT_PART == 1)
+#define SGT_CV (SGT_PART == 2)
+#define SGT_BACKWARD (SGT_PART == 3)
+#endif
 
 namespace {
 
@@ -532,150 +573,6 @@ split_gather_kernel(const Src src, int chunks,
 
 // ---- rows of any width ----
 
-constexpr int kWideCols = 8;                 // columns a lane holds per tile
-constexpr int kWideTile = 32 * kWideCols;    // columns a warp covers per pass
-
-template <int kBf16>
-__device__ __forceinline__ float load_elem(const void* p, int64_t at) {
-  if (kBf16) {
-    const unsigned u = __ldg(static_cast<const unsigned short*>(p) + at);
-    return __uint_as_float(u << 16);
-  }
-  return __ldg(static_cast<const float*>(p) + at);
-}
-
-// The control-variate source by element: at() is one column of what a
-// live slot reads (the x row less the history row), add_base() what meets
-// a finished sum.  limit() and resolve() as in CvSource.
-template <int kBf16>
-struct CvElems {
-  static constexpr bool kResolves = true;
-  const float* x;
-  int64_t c;
-  const int32_t* field_in;
-  const void* hist;
-  int64_t hist_live;
-  const float* base;
-
-  __device__ __forceinline__ int64_t limit() const { return c; }
-  __device__ __forceinline__ int resolve(int pos) const {
-    const int n = __ldg(field_in + pos);
-    return n >= 0 && static_cast<int64_t>(n) < hist_live ? n : -1;
-  }
-  __device__ __forceinline__ float at(int pos, int n, int d, int col) const {
-    const float v = __ldg(x + static_cast<int64_t>(pos) * d + col);
-    if (n < 0) return v;
-    return v - load_elem<kBf16>(hist, static_cast<int64_t>(n) * d + col);
-  }
-  __device__ __forceinline__ void add_base(float& sum, int64_t at) const {
-    sum += base[at];
-  }
-};
-
-// One table row per slot, by element.
-template <int kBf16>
-struct TableElems {
-  static constexpr bool kResolves = false;
-  const void* table;
-  int64_t rows;
-
-  __device__ __forceinline__ int64_t limit() const { return rows; }
-  __device__ __forceinline__ int resolve(int) const { return 0; }
-  __device__ __forceinline__ float at(int row, int, int d, int col) const {
-    return load_elem<kBf16>(table, static_cast<int64_t>(row) * d + col);
-  }
-  __device__ __forceinline__ void add_base(float&, int64_t) const {}
-};
-
-// One warp per output row, any d >= 1: for each tile of kWideTile columns
-// the warp walks the row's live slots (the same ballot as
-// row_gather_kernel), kUnroll at a time, with kUnroll * kWideCols element
-// loads in flight per lane.  The control-variate delta's kernel at widths
-// that do not go by 16-byte chunks, and the gather's where a row that does
-// not go by chunks plans one warp per row.
-template <class Src>
-__global__ void __launch_bounds__(kThreads)
-wide_row_gather_kernel(const Src src, int d, const int32_t* __restrict__ idx,
-                       const float* __restrict__ w, int n_out, int k,
-                       float* out) {
-  const int lane = threadIdx.x & 31;
-  const int f = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (f >= n_out) return;  // whole warp leaves together
-  const int32_t* idx_f = idx + static_cast<int64_t>(f) * k;
-  const float* w_f = w + static_cast<int64_t>(f) * k;
-
-  for (int c0 = 0; c0 < d; c0 += kWideTile) {
-    float acc[kWideCols];
-#pragma unroll
-    for (int q = 0; q < kWideCols; ++q) acc[q] = 0.f;
-
-    for (int base = 0; base < k; base += 32) {
-      const int j = base + lane;
-      int my_i = 0;
-      float my_w = 0.f;
-      if (j < k) {
-        my_i = idx_f[j];
-        my_w = w_f[j];
-      }
-      const bool live = slot_live(j < k, my_i, my_w, src.limit());
-      int my_a = 0;
-      if (Src::kResolves && live) my_a = src.resolve(my_i);
-      unsigned mask = __ballot_sync(kFullMask, live);
-
-      while (mask) {  // warp-uniform
-        int r[kUnroll], a[kUnroll];
-        float ws[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const bool have = mask != 0;
-          const int s = have ? __ffs(mask) - 1 : 0;
-          mask &= mask - 1;
-          r[u] = __shfl_sync(kFullMask, my_i, s);
-          ws[u] = __shfl_sync(kFullMask, my_w, s);
-          a[u] = Src::kResolves ? __shfl_sync(kFullMask, my_a, s) : 0;
-          if (!have) ws[u] = 0.f;  // past the last live slot: adds nothing
-        }
-        float v[kUnroll][kWideCols];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-          for (int q = 0; q < kWideCols; ++q) {
-            const int col = c0 + lane + 32 * q;
-            v[u][q] = ws[u] != 0.f && col < d ? src.at(r[u], a[u], d, col)
-                                              : 0.f;
-          }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-          for (int q = 0; q < kWideCols; ++q)
-            acc[q] = fmaf(ws[u], v[u][q], acc[q]);
-      }
-    }
-
-#pragma unroll
-    for (int q = 0; q < kWideCols; ++q) {
-      const int col = c0 + lane + 32 * q;
-      if (col < d) {
-        const int64_t at = static_cast<int64_t>(f) * d + col;
-        float sum = acc[q];
-        src.add_base(sum, at);
-        out[at] = sum;
-      }
-    }
-  }
-}
-
-template <class Src>
-int run_wide(const Src& src, int d, const int32_t* idx, const float* w,
-             int n_out, int k, float* out, cudaStream_t stream) {
-  if (d < 1 || n_out <= 0 || k < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n_out + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  wide_row_gather_kernel<Src><<<blocks, kThreads, 0, stream>>>(
-      src, d, idx, w, n_out, k, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // A unit of kUB bytes of a table row (kUB = 2 only for bfloat16), widened
 // to kVals floats: a float32 unit holds kUB / 4 floats, a bfloat16 unit
 // kUB / 2 values, element 0 first (the low half of each 32-bit word).
@@ -704,6 +601,12 @@ struct Unit {
       acc[0] = fmaf(w, __uint_as_float(u), acc[0]);
     }
   }
+  // the unit's kVals values as floats
+  __device__ __forceinline__ static void widen(float* out, const Raw& v) {
+#pragma unroll
+    for (int i = 0; i < kVals; ++i) out[i] = 0.f;
+    fma(out, v, 1.f);
+  }
   __device__ __forceinline__ static void fma(float* acc, const Raw& v,
                                              float w) {
     constexpr int kW = kBf16 ? 2 : 1;  // floats a word widens to
@@ -723,6 +626,262 @@ struct Unit {
     }
   }
 };
+
+// ---- rows by column range: one row, several warps ----
+
+constexpr int kLaneCols = 8;  // float sums a lane keeps for one slot walk
+
+// A unit of kV columns of a float32 (kBf16 = 0) or bfloat16 row.
+template <int kBf16, int kV>
+using ColUnit = Unit<kBf16, kV * (kBf16 ? 2 : 4)>;
+
+// The sources of wide_cols_kernel.  Each names
+//   kResolves, limit(), resolve()  as the chunked sources do;
+//   kDepth       live slots a warp loads before it adds any;
+//   Vals<kV>     what one live slot reads for one unit of kV columns;
+//   load(), zero(), fma()  that read, nothing, and acc += w * its value;
+//   add_base()   what meets a finished sum before it is written.
+
+// One table row per slot: the sampled term A_samp . X, float32 or
+// bfloat16 rows.
+template <int kBf16>
+struct TableCols {
+  static constexpr bool kResolves = false;
+  static constexpr int kDepth = 4;
+  template <int kV>
+  struct Vals {
+    typename ColUnit<kBf16, kV>::Raw v;
+  };
+  const void* table;
+  int64_t rows;
+
+  __device__ __forceinline__ int64_t limit() const { return rows; }
+  __device__ __forceinline__ int resolve(int) const { return 0; }
+  template <int kV>
+  __device__ __forceinline__ Vals<kV> load(int row, int, int units,
+                                           int un) const {
+    return {ColUnit<kBf16, kV>::load(
+        table, static_cast<int64_t>(row) * units + un)};
+  }
+  template <int kV>
+  __device__ __forceinline__ static Vals<kV> zero() {
+    return {};
+  }
+  template <int kV>
+  __device__ __forceinline__ static void fma(float* acc, const Vals<kV>& v,
+                                             float w) {
+    ColUnit<kBf16, kV>::fma(acc, v.v, w);
+  }
+  template <int kV>
+  __device__ __forceinline__ void add_base(float*, int64_t) const {}
+};
+
+// The control-variate delta: a float32 row of x at the slot's position
+// less the history row (float32, or bfloat16 when kBf16) of the node
+// there, zero for a node outside [0, hist_live); base added at the end.
+template <int kBf16>
+struct CvCols {
+  static constexpr bool kResolves = true;
+  static constexpr int kDepth = 2;  // two rows a slot: 64 registers a lane
+  template <int kV>
+  struct Vals {
+    typename ColUnit<0, kV>::Raw x;
+    typename ColUnit<kBf16, kV>::Raw h;
+  };
+  const float* x;
+  int64_t c;
+  const int32_t* field_in;
+  const void* hist;
+  int64_t hist_live;  // min(sentinel, rows of hist): never read at or above
+  const float* base;
+
+  __device__ __forceinline__ int64_t limit() const { return c; }
+  __device__ __forceinline__ int resolve(int pos) const {
+    const int n = __ldg(field_in + pos);
+    return n >= 0 && static_cast<int64_t>(n) < hist_live ? n : -1;
+  }
+  template <int kV>
+  __device__ __forceinline__ Vals<kV> load(int pos, int n, int units,
+                                           int un) const {
+    Vals<kV> v{};
+    v.x = ColUnit<0, kV>::load(x, static_cast<int64_t>(pos) * units + un);
+    if (n >= 0)
+      v.h = ColUnit<kBf16, kV>::load(hist,
+                                     static_cast<int64_t>(n) * units + un);
+    return v;
+  }
+  template <int kV>
+  __device__ __forceinline__ static Vals<kV> zero() {
+    return {};
+  }
+  template <int kV>
+  __device__ __forceinline__ static void fma(float* acc, const Vals<kV>& v,
+                                             float w) {
+    float xs[kV], hs[kV];
+    ColUnit<0, kV>::widen(xs, v.x);
+    ColUnit<kBf16, kV>::widen(hs, v.h);
+#pragma unroll
+    for (int i = 0; i < kV; ++i) acc[i] = fmaf(w, xs[i] - hs[i], acc[i]);
+  }
+  template <int kV>
+  __device__ __forceinline__ void add_base(float* sum, int64_t at) const {
+    float b[kV];
+    ColUnit<0, kV>::widen(b, ColUnit<0, kV>::load(base, at));
+#pragma unroll
+    for (int i = 0; i < kV; ++i) sum[i] += b[i];
+  }
+};
+
+// One output row, `parts` warps (1 to 8), rows of any width d >= 1 going
+// by units of kV columns (4, 2 or 1: the most that d and every pointer's
+// alignment allow; 8-byte float pairs for 602 raw features).  Warp `part`
+// owns a contiguous range of about units / parts units and walks the
+// row's slot list once over it (more than once only past
+// 32 kLaneCols / kV units a warp, rows wider than 2048 columns), so the
+// walks of one row run side by side and read the same rows of the table
+// at about the same time.  The live slots of 32 are compacted into shared
+// memory and Src::kDepth of them are loaded at once, kLaneCols floats a
+// lane each.  A warp's sums cover only its own columns: no reduction
+// across warps, sums in slot order, bitwise the same from run to run.
+template <class Src, int kV>
+__global__ void __launch_bounds__(kThreads, 4)
+wide_cols_kernel(const Src src, int units, int parts,
+                 const int32_t* __restrict__ idx,
+                 const float* __restrict__ w, int n_out, int k,
+                 float* __restrict__ out) {
+  constexpr int kUpl = kLaneCols / kV;
+  constexpr int kD = Src::kDepth;
+  constexpr int kPass = 32 * kUpl;
+  using Vals = typename Src::template Vals<kV>;
+  __shared__ int4 slots[kWarpsPerBlock][32];  // live (index, node, w)
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t gw = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp;
+  const int64_t f = gw / parts;
+  if (f >= n_out) return;  // whole warp leaves together
+  const int part = static_cast<int>(gw - f * parts);
+  const int span = (units + parts - 1) / parts;
+  const int lo = part * span;
+  const int hi = units < lo + span ? units : lo + span;
+  const int32_t* idx_f = idx + f * k;
+  const float* w_f = w + f * k;
+
+  for (int u0 = lo; u0 < hi; u0 += kPass) {
+    float acc[kUpl][kV];
+#pragma unroll
+    for (int q = 0; q < kUpl; ++q)
+#pragma unroll
+      for (int v = 0; v < kV; ++v) acc[q][v] = 0.f;
+
+    for (int base = 0; base < k; base += 32) {
+      const int j = base + lane;
+      int my_i = 0;
+      float my_w = 0.f;
+      if (j < k) {
+        my_i = idx_f[j];
+        my_w = w_f[j];
+      }
+      const bool live = slot_live(j < k, my_i, my_w, src.limit());
+      int my_a = 0;
+      if (Src::kResolves && live) my_a = src.resolve(my_i);
+      const unsigned mask = __ballot_sync(kFullMask, live);
+      const int n_live = __popc(mask);
+      if (live)
+        slots[warp][__popc(mask & ((1u << lane) - 1u))] =
+            make_int4(my_i, my_a, __float_as_int(my_w), 0);
+      __syncwarp();
+
+      for (int e0 = 0; e0 < n_live; e0 += kD) {
+        Vals vals[kD][kUpl];
+        float ws[kD];
+#pragma unroll
+        for (int s = 0; s < kD; ++s) {
+          const bool have = e0 + s < n_live;
+          const int4 sl = have ? slots[warp][e0 + s] : make_int4(0, 0, 0, 0);
+          ws[s] = __int_as_float(sl.z);  // 0 past the last live slot
+#pragma unroll
+          for (int q = 0; q < kUpl; ++q) {
+            const int un = u0 + lane + 32 * q;
+            vals[s][q] = have && un < hi
+                             ? src.template load<kV>(sl.x, sl.y, units, un)
+                             : Src::template zero<kV>();
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < kD; ++s)
+#pragma unroll
+          for (int q = 0; q < kUpl; ++q)
+            Src::template fma<kV>(acc[q], vals[s][q], ws[s]);
+      }
+      __syncwarp();  // all reads of slots[] done before the next round
+    }
+
+#pragma unroll
+    for (int q = 0; q < kUpl; ++q) {
+      const int un = u0 + lane + 32 * q;
+      if (un < hi) {
+        const int64_t at = f * units + un;
+        src.template add_base<kV>(acc[q], at);
+        if constexpr (kV == 1) {
+          out[at] = acc[q][0];
+        } else if constexpr (kV == 2) {
+          reinterpret_cast<float2*>(out)[at] =
+              make_float2(acc[q][0], acc[q][1]);
+        } else {
+          reinterpret_cast<float4*>(out)[at] =
+              make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+        }
+      }
+    }
+  }
+}
+
+// Columns a unit of wide_cols_kernel holds: the most of 4, 2 and 1 that
+// divides d and to whose kV * element bytes every (pointer, element
+// bytes) pair is aligned.
+int unit_cols(int d, std::initializer_list<std::pair<const void*, int>> ptrs) {
+  for (int v = 4; v > 1; v /= 2) {
+    bool fits = d % v == 0;
+    for (const auto& p : ptrs)
+      fits = fits && reinterpret_cast<uintptr_t>(p.first) % (v * p.second) == 0;
+    if (fits) return v;
+  }
+  return 1;
+}
+
+// Warps a row of `units` units of kV columns takes in wide_cols_kernel:
+// one per kLaneCols * 32 columns, at most a block's.
+int cols_parts(int units, int kv) {
+  const int pass = 32 * (kLaneCols / kv);
+  const int parts = (units + pass - 1) / pass;
+  return parts < 1 ? 1 : (parts > kWarpsPerBlock ? kWarpsPerBlock : parts);
+}
+
+template <class Src, int kV>
+void launch_cols(const Src& src, int d, const int32_t* idx, const float* w,
+                 int n_out, int k, float* out, cudaStream_t stream) {
+  const int units = d / kV;
+  const int parts = cols_parts(units, kV);
+  const int64_t warps = static_cast<int64_t>(n_out) * parts;
+  const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  wide_cols_kernel<Src, kV><<<static_cast<unsigned>(blocks), kThreads, 0,
+                              stream>>>(src, units, parts, idx, w, n_out, k,
+                                        out);
+}
+
+// Runs wide_cols_kernel over `src` by units of kv columns.
+template <class Src>
+int run_cols(const Src& src, int d, int kv, const int32_t* idx,
+             const float* w, int n_out, int k, float* out,
+             cudaStream_t stream) {
+  if (d < 1 || n_out <= 0 || k < 0 || d % kv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kv == 4) launch_cols<Src, 4>(src, d, idx, w, n_out, k, out, stream);
+  else if (kv == 2) launch_cols<Src, 2>(src, d, idx, w, n_out, k, out, stream);
+  else launch_cols<Src, 1>(src, d, idx, w, n_out, k, out, stream);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Slots a warp of wide_split_kernel keeps in flight: as many (2 or 4) as
 // keep a lane's row loads within 64 registers.
@@ -1029,6 +1188,7 @@ int launch_tma(const void* table, int64_t rows, int units, const int32_t* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
+#if SGT_GATHER
 // Runs wide_tma_kernel over rows of 33-128 chunks (16-byte aligned).
 int run_tma(const void* table, int bf16, int64_t rows, int chunks,
             const int32_t* idx, const float* w, int n_out, int k, int split,
@@ -1043,6 +1203,7 @@ int run_tma(const void* table, int bf16, int64_t rows, int chunks,
              ? launch_tma<1, 2>(table, rows, chunks, idx, w, n_out, k, split, out, s)
              : launch_tma<1, 4>(table, rows, chunks, idx, w, n_out, k, split, out, s);
 }
+#endif  // SGT_GATHER
 
 // Whether rows of row_bytes behind these pointers can go by 16-byte
 // chunks, 1 to 4 a lane.
@@ -1160,6 +1321,7 @@ void launch_wide_split(const void* table, int64_t rows, int units,
       table, rows, units, idx, w, n_out, k, split, out);
 }
 
+#if SGT_GATHER
 // Runs wide_split_kernel at the instantiation for (dtype, unit bytes,
 // units a lane).
 int run_wide_split(const void* table, int bf16, int64_t rows, int unit_bytes,
@@ -1183,14 +1345,15 @@ int run_wide_split(const void* table, int bf16, int64_t rows, int unit_bytes,
   launch(table, rows, units, idx, w, n_out, k, split, out, stream);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // SGT_GATHER
 
 // The kernel a gather runs, from the shape and the alignment alone:
 // rows of at most 32 whole 16-byte chunks behind 16-byte aligned pointers
 // take split_gather_kernel / row_gather_kernel by plan_split; rows of
 // 33-128 such chunks wide_tma_kernel by plan_wide, or row_gather_kernel
 // where they plan one warp per row; every other row wide_split_kernel by
-// plan_wide, or wide_row_gather_kernel<TableElems> where it plans one warp
-// per row.
+// plan_wide, or wide_cols_kernel<TableCols> where it plans one warp per
+// row (several warps a row there, each over its own columns).
 struct GatherPlan {
   int chunks;      // 16-byte chunks of a row, or 0 where not chunked_rows
   int unit_bytes;  // the row's unit, or 0 for rows of <= 32 chunks
@@ -1231,18 +1394,19 @@ GatherPlan plan_gather(int dtype, int d, int n_out, int k, bool chunked,
     plan.split = plan_wide(n_out, k, wide_depth(unit_bytes, plan.upl),
                            heavy ? 4 : kWarpsPerBlock,
                            heavy ? kTargetWarps / 2 : kTargetWarps);
-    // One warp per row goes by element (wide_row_gather_kernel
-    // <TableElems>, more warps resident) where an element is a 4-byte
-    // load; a bfloat16 row keeps wide_split_kernel at split 1, whose 4- or
-    // 8-byte units measured ~3x faster than 2-byte element loads.
+    // One warp per row goes to wide_cols_kernel<TableCols> (4 blocks an
+    // SM, a row's columns over several warps) for a float32 row; a
+    // bfloat16 row keeps wide_split_kernel at split 1, whose 4- or 8-byte
+    // units measured ~3x faster than 2-byte element loads.
     if (plan.split == kRowKernel && dtype == 1) plan.split = 1;
   }
   return plan;
 }
 
+#if SGT_GATHER
 // dtype: 0 = float32, 1 = bfloat16.  split: kPlanSplit (the plan above),
-// kRowKernel (one warp per row: row_gather_kernel, or
-// wide_row_gather_kernel<TableElems> where rows do not go by chunks), or
+// kRowKernel (one warp per row: row_gather_kernel, or where rows do not go
+// by chunks wide_cols_kernel<TableCols>, the row's columns over warps), or
 // 1, 2, 4, 8 warps per row.
 // The wrapper has checked that n_out > 0.
 int gather_aggregate(const void* table, int dtype, int64_t rows, int d,
@@ -1269,10 +1433,11 @@ int gather_aggregate(const void* table, int dtype, int64_t rows, int d,
                    out, stream);
   }
   if (split == kRowKernel) {  // rows that do not go by chunks
+    const int kv = unit_cols(d, {{table, elem}, {out, 4}});
     if (dtype == 0)
-      return run_wide(TableElems<0>{table, rows}, d, idx, w, n_out, k, out,
-                      stream);
-    return run_wide(TableElems<1>{table, rows}, d, idx, w, n_out, k, out,
+      return run_cols(TableCols<0>{table, rows}, d, kv, idx, w, n_out, k,
+                      out, stream);
+    return run_cols(TableCols<1>{table, rows}, d, kv, idx, w, n_out, k, out,
                     stream);
   }
   if (plan.unit_bytes == 0) {  // rows of at most 32 chunks
@@ -1289,11 +1454,14 @@ int gather_aggregate(const void* table, int dtype, int64_t rows, int d,
                         plan.upl, idx, w, n_out, k, split, out, stream);
 }
 
-// The control-variate delta, one warp per output row.  Columns go by x's
-// 16-byte chunks where d is a multiple of 4, at most 512, and x, hist,
+#endif  // SGT_GATHER
+
+#if SGT_CV
+// The control-variate delta.  Columns go by x's 16-byte chunks, one warp
+// per output row, where d is a multiple of 4, at most 512, and x, hist,
 // base and out are 16-byte aligned (a bfloat16 history row is then read 8
-// bytes a lane); by element otherwise.  The wrapper has checked that
-// n_out > 0.
+// bytes a lane); otherwise wide_cols_kernel by units of 4, 2 or 1
+// columns.  The wrapper has checked that n_out > 0.
 int cv_fanout_aggregate(const float* x, int64_t c, int d, const void* hist,
                         int hist_dtype, int64_t hist_rows,
                         const int32_t* field_in, int64_t sentinel,
@@ -1304,10 +1472,12 @@ int cv_fanout_aggregate(const float* x, int64_t c, int d, const void* hist,
   int64_t hist_live = sentinel < hist_rows ? sentinel : hist_rows;
   if (hist_live < 0) hist_live = 0;
   if (!chunked_rows(static_cast<int64_t>(d) * 4, {x, hist, base, out})) {
+    const int kv = unit_cols(
+        d, {{x, 4}, {hist, hist_dtype == 1 ? 2 : 4}, {base, 4}, {out, 4}});
     if (hist_dtype == 0)
-      return run_wide(CvElems<0>{x, c, field_in, hist, hist_live, base}, d,
-                      pos, w, n_out, k, out, stream);
-    return run_wide(CvElems<1>{x, c, field_in, hist, hist_live, base}, d,
+      return run_cols(CvCols<0>{x, c, field_in, hist, hist_live, base}, d,
+                      kv, pos, w, n_out, k, out, stream);
+    return run_cols(CvCols<1>{x, c, field_in, hist, hist_live, base}, d, kv,
                     pos, w, n_out, k, out, stream);
   }
   const int chunks = d / 4;
@@ -1320,6 +1490,9 @@ int cv_fanout_aggregate(const float* x, int64_t c, int d, const void* hist,
                  chunks, pos, w, n_out, k, out, stream);
 }
 
+#endif  // SGT_CV
+
+#if SGT_BACKWARD
 // ---- the backward ----
 
 // A unit of a float32 g / grad_x row: 4, 8 or 16 bytes, scattered with
@@ -1352,7 +1525,6 @@ __device__ __forceinline__ void zero_fill(float* __restrict__ p, int64_t n,
                                           int64_t at, int64_t stride) {
   if (reinterpret_cast<uintptr_t>(p) % 16 == 0) {
     float4* p4 = reinterpret_cast<float4*>(p);
-#pragma unroll 4
     for (int64_t i = at; i < n / 4; i += stride)
       p4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int64_t i = n / 4 * 4 + at; i < n; i += stride) p[i] = 0.f;
@@ -1361,16 +1533,42 @@ __device__ __forceinline__ void zero_fill(float* __restrict__ p, int64_t n,
   }
 }
 
+// Zero-fills n units of grad_x: a 16-byte unit a store by its own type
+// (the pointer is 16-byte aligned), other units through zero_fill.
+template <int kUB>
+__device__ __forceinline__ void zero_units(
+    typename GradUnit<kUB>::T* __restrict__ p, int64_t n, int64_t at,
+    int64_t stride) {
+  if constexpr (kUB == 16) {
+    for (int64_t i = at; i < n; i += stride)
+      p[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    zero_fill(reinterpret_cast<float*>(p), n * (kUB / 4), at, stride);
+  }
+}
+
+// The end of row f's slots: k, or with ends, ends[f] clamped to [0, k].
+template <bool kEnds>
+__device__ __forceinline__ int row_end(const int32_t* __restrict__ ends,
+                                       int64_t f, int k) {
+  if constexpr (!kEnds) {
+    return k;
+  } else {
+    const int e = __ldg(ends + f);
+    return e < 0 ? 0 : (e > k ? k : e);
+  }
+}
+
 // Adds w[f, s] * g[f, :] to grad_x[pos[f, s], :] for the live slots part,
-// part + split, ... of row f; one warp, the g row's units in registers,
-// kUpl units a lane a pass (rows of more than 32 kUpl units take several
-// passes over the slots).
+// part + split, ... before `end` of row f (of k); one warp, the g row's
+// units in registers, kUpl units a lane a pass (rows of more than 32 kUpl
+// units take several passes over the slots).
 template <int kUB, int kUpl>
 __device__ __forceinline__ void scatter_row(
     int f, int part, int split, int lane,
     const typename GradUnit<kUB>::T* __restrict__ g, int units,
     const int32_t* __restrict__ pos, const float* __restrict__ w, int k,
-    int64_t c, typename GradUnit<kUB>::T* __restrict__ grad_x) {
+    int end, int64_t c, typename GradUnit<kUB>::T* __restrict__ grad_x) {
   using T = typename GradUnit<kUB>::T;
   const int32_t* pos_f = pos + static_cast<int64_t>(f) * k;
   const float* w_f = w + static_cast<int64_t>(f) * k;
@@ -1381,16 +1579,16 @@ __device__ __forceinline__ void scatter_row(
       const int un = u0 + lane + q * 32;
       gv[q] = un < units ? g[static_cast<int64_t>(f) * units + un] : T{};
     }
-    for (int base = 0; base < k; base += 32 * split) {
+    for (int base = 0; base < end; base += 32 * split) {
       const int j = base + part + split * lane;
       int my_p = 0;
       float my_w = 0.f;
-      if (j < k) {
+      if (j < end) {
         my_p = pos_f[j];
         my_w = w_f[j];
       }
       unsigned mask =
-          __ballot_sync(kFullMask, slot_live(j < k, my_p, my_w, c));
+          __ballot_sync(kFullMask, slot_live(j < end, my_p, my_w, c));
       while (mask) {  // warp-uniform
         const int s = __ffs(mask) - 1;
         mask &= mask - 1;
@@ -1408,27 +1606,162 @@ __device__ __forceinline__ void scatter_row(
   }
 }
 
-// One cooperative launch: zero-fill grad_x, grid-wide barrier, scatter.
-// Warp `item` of the grid-stride loop takes row item / split, part
-// item % split of its slots.
-template <int kUB, int kUpl>
+// One cooperative launch: zero-fill grad_x, grid-wide barrier, scatter,
+// one warp a row of at most 32 units, every slot read: every K = 1 launch
+// of the main path.  fanout_backward_coop_kernel below does the same at
+// split 1 with passes, parts and ends in its loop, and measured 0.09 us
+// slower at the training shape (PERF.md), so this shape keeps its own.
+template <int kUB>
+__global__ void __launch_bounds__(kThreads)
+fanout_backward_row_kernel(const typename GradUnit<kUB>::T* __restrict__ g,
+                           int units, const int32_t* __restrict__ pos,
+                           const float* __restrict__ w, int n_out, int k,
+                           int64_t c,
+                           typename GradUnit<kUB>::T* __restrict__ grad_x) {
+  using T = typename GradUnit<kUB>::T;
+  zero_units<kUB>(grad_x, c * units,
+                  static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x,
+                  static_cast<int64_t>(gridDim.x) * kThreads);
+  cg::this_grid().sync();
+  const int lane = threadIdx.x & 31;
+  for (int f = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); f < n_out;
+       f += gridDim.x * kWarpsPerBlock) {
+    const T gv = lane < units ? g[static_cast<int64_t>(f) * units + lane]
+                              : T{};
+    const int32_t* pos_f = pos + static_cast<int64_t>(f) * k;
+    const float* w_f = w + static_cast<int64_t>(f) * k;
+    for (int base = 0; base < k; base += 32) {
+      const int j = base + lane;
+      int my_p = 0;
+      float my_w = 0.f;
+      if (j < k) {
+        my_p = pos_f[j];
+        my_w = w_f[j];
+      }
+      unsigned mask =
+          __ballot_sync(kFullMask, slot_live(j < k, my_p, my_w, c));
+      while (mask) {  // warp-uniform
+        const int s = __ffs(mask) - 1;
+        mask &= mask - 1;
+        const int p = __shfl_sync(kFullMask, my_p, s);
+        const float ws = __shfl_sync(kFullMask, my_w, s);
+        if (lane < units)
+          atomicAdd(grad_x + static_cast<int64_t>(p) * units + lane,
+                    GradUnit<kUB>::scaled(gv, ws));
+      }
+    }
+  }
+}
+
+// The same launch for any row and split: warp `item` of the grid-stride
+// loop takes row item >> split_shift, part item & (split - 1) of its
+// slots (split = 1 << split_shift warps a row).  With kEnds a row's slots
+// at or past ends[f] are not read.
+template <int kUB, int kUpl, bool kEnds>
 __global__ void __launch_bounds__(kThreads)
 fanout_backward_coop_kernel(const typename GradUnit<kUB>::T* __restrict__ g,
                             int units, const int32_t* __restrict__ pos,
-                            const float* __restrict__ w, int n_out, int k,
-                            int split, int64_t c,
+                            const float* __restrict__ w,
+                            const int32_t* __restrict__ ends, int n_out,
+                            int k, int split_shift, int64_t c,
                             typename GradUnit<kUB>::T* __restrict__ grad_x) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  zero_fill(reinterpret_cast<float*>(grad_x), c * units * (kUB / 4),
-            static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x,
-            stride);
+  zero_units<kUB>(grad_x, c * units,
+                  static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x,
+                  static_cast<int64_t>(gridDim.x) * kThreads);
   cg::this_grid().sync();
   // split > 1 only where n_out * split is at most kTargetWarps
-  const int items = n_out * split;
+  const int items = n_out << split_shift;
+  const int split = 1 << split_shift;
   for (int item = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-       item < items; item += gridDim.x * kWarpsPerBlock)
-    scatter_row<kUB, kUpl>(item / split, item % split, split,
-                           threadIdx.x & 31, g, units, pos, w, k, c, grad_x);
+       item < items; item += gridDim.x * kWarpsPerBlock) {
+    const int f = item >> split_shift;
+    scatter_row<kUB, kUpl>(f, item & (split - 1), split, threadIdx.x & 31, g,
+                           units, pos, w, k, row_end<kEnds>(ends, f, k), c,
+                           grad_x);
+  }
+}
+
+// ---- the backward over rows with ends ----
+
+constexpr int kEndsRows = 8;    // rows whose ends a warp reads at once
+constexpr int kEndsRounds = 4;  // rounds of 32 slots a warp loads at once
+
+// The same scatter where every live slot of row f lies before ends[f]: the
+// padded-sparse first layer's gradient in W, whose rows are padded with
+// dead (dim, 0) slots to the table's longest row.  Slots at or past
+// ends[f] are never read.  On a real field most rows are empty (sentinel
+// rows and unused capacity end at 0) and the rest long and side by side
+// (PubMed: ~340 of 15,000 rows, ~170 slots each).  So a warp reads the ends
+// of kEndsRows rows a grid of warps apart at once (lane j: row w + j W;
+// the long rows land on different warps), skips the empty ones, and walks
+// each other row alone: its slots before the end, kEndsRounds rounds of 32
+// loaded at once, added 32 / kLanes at a time, groups of kLanes lanes
+// taking one slot each (one unit a lane, kLanes >= the row's units where
+// it can), the g row's first unit held in registers.
+template <int kUB, int kLanes>
+__global__ void __launch_bounds__(kThreads)
+fanout_backward_ends_kernel(const typename GradUnit<kUB>::T* __restrict__ g,
+                            int units, const int32_t* __restrict__ pos,
+                            const float* __restrict__ w,
+                            const int32_t* __restrict__ ends, int n_out,
+                            int k, int64_t c,
+                            typename GradUnit<kUB>::T* __restrict__ grad_x) {
+  using T = typename GradUnit<kUB>::T;
+  constexpr int G = 32 / kLanes;  // slots a warp adds at once
+  zero_units<kUB>(grad_x, c * units,
+                  static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x,
+                  static_cast<int64_t>(gridDim.x) * kThreads);
+  cg::this_grid().sync();
+  const int lane = threadIdx.x & 31;
+  const int group = lane / kLanes;
+  const int sub = lane % kLanes;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
+  for (int64_t r0 = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+       r0 < n_out; r0 += warps * kEndsRows) {
+    const int64_t mine = r0 + warps * lane;  // lane's row, lanes < kEndsRows
+    int my_e = 0;
+    if (lane < kEndsRows && mine < n_out) {
+      my_e = __ldg(ends + mine);
+      my_e = my_e < 0 ? 0 : (my_e > k ? k : my_e);
+    }
+    unsigned rows = __ballot_sync(kFullMask, my_e > 0);
+    while (rows) {  // warp-uniform
+      const int j = __ffs(rows) - 1;
+      rows &= rows - 1;
+      const int64_t f = r0 + warps * j;
+      const int e = __shfl_sync(kFullMask, my_e, j);
+      const T* g_f = g + f * units;
+      const T gv = sub < units ? __ldg(g_f + sub) : T{};
+      const int32_t* pos_f = pos + f * k;
+      const float* w_f = w + f * k;
+      for (int base = 0; base < e; base += 32 * kEndsRounds) {
+        int my_p[kEndsRounds];
+        float my_w[kEndsRounds];
+#pragma unroll
+        for (int r = 0; r < kEndsRounds; ++r) {
+          const int s = base + 32 * r + lane;
+          my_p[r] = s < e ? pos_f[s] : -1;
+          my_w[r] = s < e ? w_f[s] : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < kEndsRounds; ++r) {
+          if (base + 32 * r >= e) break;  // warp-uniform
+#pragma unroll 8  // all of it at 8 lanes a slot; fully, 128 copies at 32
+          for (int it = 0; it < 32 / G; ++it) {
+            const int src = it * G + group;  // the lane holding this slot
+            const int p = __shfl_sync(kFullMask, my_p[r], src);
+            const float ws = __shfl_sync(kFullMask, my_w[r], src);
+            if (!slot_live(true, p, ws, c)) continue;
+            T* row = grad_x + static_cast<int64_t>(p) * units;
+            if (sub < units)
+              atomicAdd(row + sub, GradUnit<kUB>::scaled(gv, ws));
+            for (int un = sub + kLanes; un < units; un += kLanes)
+              atomicAdd(row + un, GradUnit<kUB>::scaled(__ldg(g_f + un), ws));
+          }
+        }
+      }
+    }
+  }
 }
 
 // The current device, checked against kMaxDevices.
@@ -1487,15 +1820,47 @@ cudaError_t launch_coop(Kernel kernel, int* counted, int64_t warps,
 
 template <int kUB, int kUpl>
 cudaError_t launch_backward(const float* g, int units, const int32_t* pos,
-                            const float* w, int n_out, int k, int split,
-                            int64_t c, float* grad_x, cudaStream_t stream) {
+                            const float* w, const int32_t* ends, int n_out,
+                            int k, int split, int64_t c, float* grad_x,
+                            cudaStream_t stream) {
   using T = typename GradUnit<kUB>::T;
   static int counted[kMaxDevices] = {};
   const T* gu = reinterpret_cast<const T*>(g);
   T* grad = reinterpret_cast<T*>(grad_x);
-  void* args[] = {&gu, &units, &pos, &w, &n_out, &k, &split, &c, &grad};
-  return launch_coop(fanout_backward_coop_kernel<kUB, kUpl>, counted,
-                     static_cast<int64_t>(n_out) * split,
+  int shift = 0;
+  while ((1 << shift) < split) ++shift;
+  void* args[] = {&gu, &units, &pos, &w, &ends, &n_out, &k, &shift, &c, &grad};
+  const int64_t warps = static_cast<int64_t>(n_out) * split;
+  const int64_t fill = c * units * (kUB / 4);
+  if constexpr (kUpl == 1) {  // the ends reach this kernel at one unit a lane
+    static int counted_row[kMaxDevices] = {};
+    static int counted_ends[kMaxDevices] = {};
+    if (ends != nullptr)
+      return launch_coop(fanout_backward_coop_kernel<kUB, 1, true>,
+                         counted_ends, warps, fill, args, stream);
+    if (split == 1) {
+      void* row_args[] = {&gu, &units, &pos, &w, &n_out, &k, &c, &grad};
+      return launch_coop(fanout_backward_row_kernel<kUB>, counted_row, warps,
+                         fill, row_args, stream);
+    }
+  }
+  return launch_coop(fanout_backward_coop_kernel<kUB, kUpl, false>, counted,
+                     warps, fill, args, stream);
+}
+
+template <int kUB, int kLanes>
+cudaError_t launch_backward_ends(const float* g, int units,
+                                 const int32_t* pos, const float* w,
+                                 const int32_t* ends, int n_out, int k,
+                                 int64_t c, float* grad_x,
+                                 cudaStream_t stream) {
+  using T = typename GradUnit<kUB>::T;
+  static int counted[kMaxDevices] = {};
+  const T* gu = reinterpret_cast<const T*>(g);
+  T* grad = reinterpret_cast<T*>(grad_x);
+  void* args[] = {&gu, &units, &pos, &w, &ends, &n_out, &k, &c, &grad};
+  return launch_coop(fanout_backward_ends_kernel<kUB, kLanes>, counted,
+                     (static_cast<int64_t>(n_out) + kEndsRows - 1) / kEndsRows,
                      c * units * (kUB / 4), args, stream);
 }
 
@@ -1511,21 +1876,40 @@ int plan_backward(int n_out, int k) {
   return split;
 }
 
-// Units a lane holds per pass of the cooperative scatter: 16-byte chunks
-// 1, 2 or 4 (rows of up to 128 chunks in one pass), 8-byte pairs 12 and
-// floats 24 (602 columns in one pass).
+// Units a lane holds per pass of the cooperative scatter: one where a row
+// is at most 32 units; else 16-byte chunks 2 or 4 (rows of up to 128
+// chunks in one pass), 8-byte pairs 12 and floats 24 (602 columns in one
+// pass).
 int backward_upl(int unit_bytes, int units) {
-  if (unit_bytes == 16) return units <= 32 ? 1 : units <= 64 ? 2 : 4;
+  if (units <= 32) return 1;
+  if (unit_bytes == 16) return units <= 64 ? 2 : 4;
   return unit_bytes == 8 ? 12 : 24;
+}
+
+// The scatter with ends: lanes a slot, as many as the row's units up to 32.
+template <int kUB>
+cudaError_t run_backward_ends(const float* g, int units, const int32_t* pos,
+                              const float* w, const int32_t* ends, int n_out,
+                              int k, int64_t c, float* grad_x,
+                              cudaStream_t s) {
+  if (units <= 8)
+    return launch_backward_ends<kUB, 8>(g, units, pos, w, ends, n_out, k, c, grad_x, s);
+  if (units <= 16)
+    return launch_backward_ends<kUB, 16>(g, units, pos, w, ends, n_out, k, c, grad_x, s);
+  return launch_backward_ends<kUB, 32>(g, units, pos, w, ends, n_out, k, c, grad_x, s);
 }
 
 // The cooperative scatter by the widest unit (16, 8 or 4 bytes) that d
 // and both rows' alignment allow, plan_backward() warps per g row, from
-// the shape and the alignment alone.  The wrapper has checked that
-// n_out > 0 and c > 0.
+// the shape and the alignment alone.  With ends it reads no slot past a
+// row's end: where the plan is one warp a row (a large F),
+// fanout_backward_ends_kernel; where it splits a row over warps (a small
+// F, whose long rows one warp each would walk alone) and a row is at most
+// 32 units, fanout_backward_coop_kernel with the ends.  The wrapper has
+// checked that n_out > 0 and c > 0.
 int fanout_backward(const float* g, const int32_t* pos, const float* w,
-                    int n_out, int k, int64_t c, int d, float* grad_x,
-                    cudaStream_t s) {
+                    const int32_t* ends, int n_out, int k, int64_t c, int d,
+                    float* grad_x, cudaStream_t s) {
   if (d < 1 || n_out <= 0 || k < 0 || c <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int unit = row_unit(static_cast<int64_t>(d) * 4, 4, {g, grad_x});
@@ -1533,26 +1917,41 @@ int fanout_backward(const float* g, const int32_t* pos, const float* w,
   const int upl = backward_upl(unit, units);
   const int split = plan_backward(n_out, k);
   cudaError_t err;
-  if (unit == 16 && upl == 1)
-    err = launch_backward<16, 1>(g, units, pos, w, n_out, k, split, c, grad_x, s);
-  else if (unit == 16 && upl == 2)
-    err = launch_backward<16, 2>(g, units, pos, w, n_out, k, split, c, grad_x, s);
-  else if (unit == 16)
-    err = launch_backward<16, 4>(g, units, pos, w, n_out, k, split, c, grad_x, s);
-  else if (unit == 8)
-    err = launch_backward<8, 12>(g, units, pos, w, n_out, k, split, c, grad_x, s);
-  else
-    err = launch_backward<4, 24>(g, units, pos, w, n_out, k, split, c, grad_x, s);
+  if (ends != nullptr && (split == 1 || upl != 1)) {
+    if (unit == 16)
+      err = run_backward_ends<16>(g, units, pos, w, ends, n_out, k, c, grad_x, s);
+    else if (unit == 8)
+      err = run_backward_ends<8>(g, units, pos, w, ends, n_out, k, c, grad_x, s);
+    else
+      err = run_backward_ends<4>(g, units, pos, w, ends, n_out, k, c, grad_x, s);
+  } else if (unit == 16 && upl == 1) {
+    err = launch_backward<16, 1>(g, units, pos, w, ends, n_out, k, split, c, grad_x, s);
+  } else if (unit == 16 && upl == 2) {
+    err = launch_backward<16, 2>(g, units, pos, w, nullptr, n_out, k, split, c, grad_x, s);
+  } else if (unit == 16) {
+    err = launch_backward<16, 4>(g, units, pos, w, nullptr, n_out, k, split, c, grad_x, s);
+  } else if (unit == 8 && upl == 1) {
+    err = launch_backward<8, 1>(g, units, pos, w, ends, n_out, k, split, c, grad_x, s);
+  } else if (unit == 8) {
+    err = launch_backward<8, 12>(g, units, pos, w, nullptr, n_out, k, split, c, grad_x, s);
+  } else if (upl == 1) {
+    err = launch_backward<4, 1>(g, units, pos, w, ends, n_out, k, split, c, grad_x, s);
+  } else {
+    err = launch_backward<4, 24>(g, units, pos, w, nullptr, n_out, k, split, c, grad_x, s);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void empty_kernel() {}
 
+#endif  // SGT_BACKWARD
+
 }  // namespace
 
 extern "C" {
 
+#if SGT_GATHER
 // Full-neighbourhood term: table [rows, d], idx/w [n_out, k] -> out [n_out, d].
 int sgt_hbm_gather_aggregate(const void* table, int dtype, int64_t rows,
                              int d, const int32_t* idx, const float* w,
@@ -1583,8 +1982,9 @@ int sgt_gather_aggregate_split(const void* table, int dtype, int64_t rows,
 
 // The split sgt_hbm_gather_aggregate / sgt_fanout_aggregate choose for
 // 16-byte aligned rows: 0 where they run one warp per row
-// (row_gather_kernel, or wide_row_gather_kernel<TableElems> for rows that
-// do not go by chunks), else the warps per row of split_gather_kernel
+// (row_gather_kernel, or for rows that do not go by chunks
+// wide_cols_kernel<TableCols>, which splits a row by columns instead),
+// else the warps per row of split_gather_kernel
 // (rows of at most 512 bytes), wide_tma_kernel (528-2048 bytes of whole
 // chunks) or wide_split_kernel.
 int sgt_gather_plan(int dtype, int d, int n_out, int k) {
@@ -1596,10 +1996,15 @@ int sgt_gather_plan(int dtype, int d, int n_out, int k) {
                      unit_bytes).split;
 }
 
+#endif  // SGT_GATHER
+
+#if SGT_BACKWARD
 // The warps per g row sgt_fanout_aggregate_backward deals a row's slots
 // over.
 int sgt_backward_plan(int n_out, int k) { return plan_backward(n_out, k); }
+#endif  // SGT_BACKWARD
 
+#if SGT_CV
 // Sampled term of the CV estimator on top of the full term: x [c, d]
 // float32, hist [hist_rows, d] float32 (hist_dtype 0) or bfloat16 (1),
 // field_in [c], pos/w [n_out, k], base [n_out, d] float32 -> out [n_out, d]
@@ -1617,14 +2022,18 @@ int sgt_cv_fanout_aggregate(const float* x, int64_t c, int d,
                              static_cast<cudaStream_t>(stream));
 }
 
+#endif  // SGT_CV
+
+#if SGT_BACKWARD
 // Gradient of the fanout term: g [n_out, d] float32, pos/w [n_out, k] ->
 // grad_x [c, d] float32, zero-filled here; positions outside [0, c) and
-// zero weights contribute nothing.
+// zero weights contribute nothing.  ends: null, or int32 [n_out], row f's
+// slots at or past ends[f] are not read (they must be dead).
 int sgt_fanout_aggregate_backward(const float* g, const int32_t* pos,
-                                  const float* w, int n_out, int k,
-                                  int64_t c, int d, float* grad_x,
-                                  void* stream) {
-  return fanout_backward(g, pos, w, n_out, k, c, d, grad_x,
+                                  const float* w, const int32_t* ends,
+                                  int n_out, int k, int64_t c, int d,
+                                  float* grad_x, void* stream) {
+  return fanout_backward(g, pos, w, ends, n_out, k, c, d, grad_x,
                          static_cast<cudaStream_t>(stream));
 }
 
@@ -1633,5 +2042,7 @@ int sgt_empty(void* stream) {
   empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
+
+#endif  // SGT_BACKWARD
 
 }  // extern "C"

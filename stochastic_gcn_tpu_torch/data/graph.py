@@ -424,7 +424,9 @@ def pad_features_rows(features, multiple: int):
     if isinstance(features, PaddedSparseFeatures):
         return features.replace(
             idx=pad_table_rows(features.idx, multiple, features.dim),
-            val=pad_table_rows(features.val, multiple))
+            val=pad_table_rows(features.val, multiple),
+            ends=None if features.ends is None
+            else pad_table_rows(features.ends, multiple))
     return pad_table_rows(features, multiple)
 
 
@@ -464,8 +466,11 @@ def shard_table_rows(features, mesh, rows: int):
     or padded-sparse features) padded to ``rows`` rows."""
     padded = pad_features_rows(features, rows)
     if isinstance(padded, PaddedSparseFeatures):
-        return padded.replace(idx=mesh.local(padded.idx).clone(),
-                              val=mesh.local(padded.val).clone())
+        return padded.replace(
+            idx=mesh.local(padded.idx).clone(),
+            val=mesh.local(padded.val).clone(),
+            ends=None if padded.ends is None
+            else mesh.local(padded.ends).clone())
     return mesh.local(padded).clone()
 
 
@@ -490,12 +495,19 @@ class PaddedSparseFeatures:
     idx: [N+1, nnz_cap] int32 column ids; an empty slot holds ``dim``.
     val: [N+1, nnz_cap] values (float32, or the features dtype); an empty
       slot holds 0.  Row N, the sentinel node's, is empty.
+    ends: [N+1] int32 or None: row i's slots at or past ``ends[i]`` hold
+      the sentinel column (1 + the position of its last slot with a column
+      below ``dim``; 0 for an empty row and for row N).  The gradient of
+      ``X @ W`` in ``W`` reads no slot past it; None (a table built without
+      them) reads every slot.  Dropout changes values only, so the ends
+      stay valid.
     ``X @ W`` is then ``out[i] = sum_j val[i,j] * W[idx[i,j]]``, a gather
     of ``W``'s rows in which the sentinel column ``dim`` reads zero
     (``ops/layers.py::matmul``)."""
     idx: torch.Tensor
     val: torch.Tensor
     dim: int
+    ends: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "PaddedSparseFeatures":
         return dataclasses.replace(self, **kw)
@@ -510,7 +522,8 @@ def pad_sparse_features(x: sp.spmatrix, nnz_cap: int = 1024,
     ``np.argsort(-np.abs(vals))[:cap]``, the JAX package's call, so ties
     break the same way (a documented deviation from the reference, which
     keeps whole rows on the host).  Rows within the cap are copied all at
-    once; only the rows above it are visited one by one."""
+    once; only the rows above it are visited one by one.  ``ends`` is
+    computed from the padded columns (:func:`live_ends`)."""
     x = x.tocsr()
     n = x.shape[0] if num_nodes is None else num_nodes
     dim = x.shape[1]
@@ -533,7 +546,18 @@ def pad_sparse_features(x: sp.spmatrix, nnz_cap: int = 1024,
         val[r] = data[lo:hi][keep]
     return PaddedSparseFeatures(idx=torch.from_numpy(idx).to(device),
                                 val=torch.from_numpy(val).to(device),
-                                dim=dim)
+                                dim=dim,
+                                ends=torch.from_numpy(live_ends(idx, dim)
+                                                      ).to(device))
+
+
+def live_ends(idx: np.ndarray, dim: int) -> np.ndarray:
+    """Per row of padded column ids ``[R, cap]``, 1 + the position of its
+    last slot whose column is below ``dim`` (0 where there is none), int32:
+    no slot at or past it names a column, whatever the row's order."""
+    live = np.asarray(idx) < dim
+    last = live.shape[1] - np.argmax(live[:, ::-1], axis=1)
+    return np.where(live.any(axis=1), last, 0).astype(np.int32)
 
 
 @dataclass

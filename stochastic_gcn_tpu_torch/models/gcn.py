@@ -341,19 +341,23 @@ def init_histories(spec: ModelSpec, num_nodes: int, row_multiple: int = 8,
 def _slice_inputs(features, field0: torch.Tensor, num_nodes: int = -1,
                   mesh=None):
     """The layer-0 field's feature rows; sentinel ids read zero rows.  Of
-    padded-sparse features the ``(idx, val)`` rows: an id at or above the
-    sentinel reads row N, whose slots are ``(dim, 0)``.  Row-sharded
-    features (``mesh.shard_graph``) are read from their owners, row N of
-    padded-sparse ones included."""
+    padded-sparse features the ``(idx, val)`` rows and their ``ends``: an
+    id at or above the sentinel reads row N, whose slots are ``(dim, 0)``
+    and whose end is 0.  Row-sharded features (``mesh.shard_graph``) are
+    read from their owners, row N of padded-sparse ones included, without
+    their ends (the gradient then reads every slot)."""
     if mesh is not None and mesh.shard_graph:
         if isinstance(features, PaddedSparseFeatures):
             idx, val = row_gather2(features.idx, features.val, field0, mesh)
-            return features.replace(idx=idx, val=val)
+            return features.replace(idx=idx, val=val, ends=None)
         return halo_row_gather(features, field0, mesh, num_nodes)
     if isinstance(features, PaddedSparseFeatures):
         ids = field0.to(torch.int64).clamp(max=features.idx.shape[0] - 1)
+        ends = features.ends
         return features.replace(idx=features.idx.index_select(0, ids),
-                                val=features.val.index_select(0, ids))
+                                val=features.val.index_select(0, ids),
+                                ends=None if ends is None
+                                else ends.index_select(0, ids))
     return row_gather(features, field0, sentinel=num_nodes)
 
 

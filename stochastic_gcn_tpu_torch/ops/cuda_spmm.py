@@ -18,7 +18,9 @@ nothing and is never read:
   It is differentiable in ``X`` through :class:`FanoutAggregate`, whose
   backward :func:`fanout_aggregate_backward` is the transpose, a
   scatter-add ``grad_x[pos[f,s]] += w[f,s] * g[f]``.  It serves the
-  estimators without a control variate (NS training, Exact evaluation);
+  estimators without a control variate (NS training, Exact evaluation)
+  and the padded-sparse first layer, whose rows also carry ``ends``, the
+  end of each row's live slots: the backward reads no slot past it;
 * :func:`cv_fanout_aggregate` — the sampled term of the CV estimator on top
   of the full term, the whole control-variate delta in one launch:
   ``out[f] = base[f] + sum_s w[f,s] * (x[pos[f,s]] - h_bar(field_in[pos[f,s]]))``
@@ -38,13 +40,15 @@ outside PyTorch's allocator, so they can be captured in a CUDA graph.
 The C entries pick the kernel from the shape and the alignment alone
 (several warps per output row for the full term, one warp per row at K = 1
 and for the CV delta; for the backward a cooperative zero-fill-and-scatter
-with up to 8 warps per row of many slots).  Rows of any width ``d >= 1``
+with up to 8 warps per row of many slots, or, given ``ends``, a warp a
+row over the slots before the row's end only).  Rows of any width ``d >= 1``
 are taken: rows of at most 512 bytes of whole 16-byte chunks behind
 16-byte aligned pointers run the chunked kernels, rows of 528-2048 bytes of
 whole chunks a kernel that copies rows with TMA, and every other row goes
 by the widest unit of 16, 8, 4 or 2 bytes its width and alignment allow
-(602 raw features by 8-byte float32 pairs, 1433 by element), or by
-element with one warp per row where the plan gives a row one warp.
+(602 raw features by 8-byte float32 pairs, 1433 by element); where the
+plan gives a float32 row one warp, and for the CV delta off 16-byte
+chunks, a row's columns are split over several warps instead.
 ``gather_aggregate_split`` runs the gather with a named split instead, for
 measurement; ``gather_plan`` and ``backward_plan`` report what the entries
 choose.
@@ -96,10 +100,16 @@ def fanout_aggregate_ref(x: torch.Tensor, pos: torch.Tensor,
 
 
 def fanout_aggregate_backward_ref(g: torch.Tensor, pos: torch.Tensor,
-                                  w: torch.Tensor, rows: int) -> torch.Tensor:
+                                  w: torch.Tensor, rows: int,
+                                  ends: torch.Tensor | None = None
+                                  ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fanout_aggregate_backward`: a masked
-    ``index_add_`` of ``w[f,s] * g[f]`` at ``pos[f,s]``."""
+    ``index_add_`` of ``w[f,s] * g[f]`` at ``pos[f,s]``; with ``ends``,
+    slot ``s`` of row ``f`` counts only for ``s < ends[f]``."""
     live = (w != 0) & (pos >= 0) & (pos < rows)
+    if ends is not None:
+        live &= (torch.arange(pos.shape[1], device=pos.device)
+                 < ends.unsqueeze(1))
     contrib = torch.where(live.unsqueeze(-1),
                           w.to(g.dtype).unsqueeze(-1) * g.unsqueeze(1), 0.0)
     safe = torch.where(live, pos, 0).to(torch.int64).reshape(-1)
@@ -181,6 +191,17 @@ def _check_cv(x, hist, field_in, pos, w, base) -> None:
                          f"{(pos.shape[0], x.shape[1])}")
 
 
+def _check_ends(ends: torch.Tensor, pos: torch.Tensor) -> None:
+    """``ends``, where given: contiguous int32, one per row of ``pos``, on
+    its device."""
+    if ends.dtype != torch.int32 or ends.shape != (pos.shape[0],) \
+            or not ends.is_contiguous() or ends.device != pos.device:
+        raise ValueError(f"ends must be contiguous int32 with one entry per "
+                         f"row of pos {tuple(pos.shape)} on {pos.device}, "
+                         f"got {ends.dtype} {tuple(ends.shape)} on "
+                         f"{ends.device}")
+
+
 def _call(device: torch.device, name: str, args: tuple,
           after: tuple = ()) -> None:
     """Call the C entry ``name`` as ``(*args, stream, *after)`` on the
@@ -222,19 +243,25 @@ def _fanout_forward(x, pos, w) -> torch.Tensor:
 
 
 def fanout_aggregate_backward(g: torch.Tensor, pos: torch.Tensor,
-                              w: torch.Tensor, rows: int) -> torch.Tensor:
+                              w: torch.Tensor, rows: int,
+                              ends: torch.Tensor | None = None
+                              ) -> torch.Tensor:
     """``grad_x [rows, d]`` of :func:`fanout_aggregate` for the output
     gradient ``g [F, d]``: ``grad_x[pos[f,s]] += w[f,s] * g[f]``, float32;
     positions outside ``[0, rows)`` and zero weights contribute nothing.
-    Repeated positions sum."""
+    Repeated positions sum.  ``ends`` (int32 ``[F]``, optional): slots at
+    or past ``ends[f]`` are not read; the caller guarantees they are dead
+    (the padded-sparse table's ends, ``data/graph.py``)."""
     if g.dim() != 2 or pos.dim() != 2 or g.shape[0] != pos.shape[0]:
         raise ValueError(f"output gradient {tuple(g.shape)} must be 2-D with "
                          f"one row per row of pos {tuple(pos.shape)}")
     if rows < 0:
         raise ValueError(f"rows must be >= 0, got {rows}")
+    if ends is not None:
+        _check_ends(ends, pos)
     if g.device.type == "cpu":
         _check_slots(pos, w)
-        return fanout_aggregate_backward_ref(g, pos, w, rows)
+        return fanout_aggregate_backward_ref(g, pos, w, rows, ends)
     _check(g, pos, w)
     if g.dtype != torch.float32:
         raise TypeError(f"output gradient must be float32, got {g.dtype}")
@@ -246,41 +273,48 @@ def fanout_aggregate_backward(g: torch.Tensor, pos: torch.Tensor,
     grad = torch.empty((rows, g.shape[1]), dtype=torch.float32,
                        device=g.device)
     _call(g.device, "sgt_fanout_aggregate_backward",
-          (g.data_ptr(), pos.data_ptr(), w.data_ptr(), f, k, rows,
+          (g.data_ptr(), pos.data_ptr(), w.data_ptr(),
+           None if ends is None else ends.data_ptr(), f, k, rows,
            g.shape[1], grad.data_ptr()))
     LAUNCHES["fanout_aggregate_backward"] += 1
     return grad
 
 
 class FanoutAggregate(torch.autograd.Function):
-    """``fanout_aggregate(x, pos, w)``, differentiable in ``x``: the forward
-    and the backward are the two fanout kernels on CUDA tensors and their
-    plain versions on CPU tensors.  ``pos`` and ``w`` get no gradient; a
-    ``w`` that requires one raises."""
+    """``fanout_aggregate(x, pos, w, ends)``, differentiable in ``x``: the
+    forward and the backward are the two fanout kernels on CUDA tensors and
+    their plain versions on CPU tensors.  ``pos``, ``w`` and ``ends`` get
+    no gradient; a ``w`` that requires one raises.  ``ends`` reaches the
+    backward only."""
 
     @staticmethod
-    def forward(ctx, x, pos, w):
+    def forward(ctx, x, pos, w, ends=None):
         if w.requires_grad:
             raise ValueError("fanout weights that require grad are not "
                              "supported: the slot weights get no gradient")
-        ctx.save_for_backward(pos, w)
+        ctx.save_for_backward(pos, w, ends)
         ctx.rows, ctx.x_dtype = x.shape[0], x.dtype
         return _fanout_forward(x, pos, w)
 
     @staticmethod
     def backward(ctx, g):
-        pos, w = ctx.saved_tensors
-        grad = fanout_aggregate_backward(g.contiguous(), pos, w, ctx.rows)
-        return grad.to(ctx.x_dtype), None, None
+        pos, w, ends = ctx.saved_tensors
+        grad = fanout_aggregate_backward(g.contiguous(), pos, w, ctx.rows,
+                                         ends)
+        return grad.to(ctx.x_dtype), None, None, None
 
 
-def fanout_aggregate(x: torch.Tensor, pos: torch.Tensor,
-                     w: torch.Tensor) -> torch.Tensor:
+def fanout_aggregate(x: torch.Tensor, pos: torch.Tensor, w: torch.Tensor,
+                     ends: torch.Tensor | None = None) -> torch.Tensor:
     """``out[f] = sum_s w[f,s] * x[pos[f,s]]``: x [C, d] float32 or bfloat16,
     pos [F, K] int32, w [F, K] float32 -> [F, d] float32; differentiable in
-    ``x`` (:class:`FanoutAggregate`)."""
+    ``x`` (:class:`FanoutAggregate`).  ``ends`` (int32 ``[F]``, optional):
+    every live slot of row ``f`` lies before ``ends[f]``, so the gradient
+    reads no slot past it (the forward reads every slot)."""
+    if ends is not None:
+        _check_ends(ends, pos)
     if w.requires_grad or (torch.is_grad_enabled() and x.requires_grad):
-        return FanoutAggregate.apply(x, pos, w)
+        return FanoutAggregate.apply(x, pos, w, ends)
     return _fanout_forward(x, pos, w)         # nothing to record
 
 

@@ -56,9 +56,10 @@ def matmul(x, w: torch.Tensor) -> torch.Tensor:
     package's ``take`` + ``einsum``, here :func:`fanout_aggregate` with
     ``w`` as the table (``[dim, out]``; a position ``>= dim`` reads as a
     zero row), ``idx`` as the positions and the values in float32 as the
-    slot weights.  It is differentiable in ``w``."""
+    slot weights.  It is differentiable in ``w``; the gradient reads no
+    slot past the rows' ``ends`` where the table has them."""
     if isinstance(x, PaddedSparseFeatures):
-        return fanout_aggregate(w, x.idx, x.val.float())
+        return fanout_aggregate(w, x.idx, x.val.float(), x.ends)
     return x.to(w.dtype) @ w
 
 

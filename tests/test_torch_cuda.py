@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from stochastic_gcn_tpu_torch.config import Config
+from stochastic_gcn_tpu_torch.data.graph import live_ends
 from stochastic_gcn_tpu_torch.data.loaders import synthetic_dataset
 from stochastic_gcn_tpu_torch.ops import cuda_spmm as K
 from stochastic_gcn_tpu_torch.sampler.scheduler import MinibatchIterator
@@ -130,6 +131,32 @@ def test_rows_of_any_width_compute(cuda):
         torch.testing.assert_close(fn(odd, idx, w), ref(odd, idx, w), **TOL)
     # rows by unit split like the rest: 602 float32 columns by 8-byte pairs
     assert K.gather_plan(torch.zeros(8, 602, device=cuda), 512, 64) == 4
+    # where a float32 row plans one warp it is split by columns over warps
+    # (wide_cols_kernel): 602 columns by pairs over 3 warps, 1433 by
+    # element over 6, 4096 by 4-float units over 8 (two passes a warp,
+    # through the measuring entry's one warp a row); and the CV delta off
+    # 16-byte chunks the same way
+    _, sidx, sw = (torch.from_numpy(a).to(cuda)
+                   for a in _inputs(8, 50, 8, 2048, 64))
+    for d in (602, 1433, 3):
+        t = torch.randn(50, d, device=cuda)
+        assert K.gather_plan(t, 2048, 64) == 0
+        torch.testing.assert_close(K.fanout_aggregate(t, sidx, sw),
+                                   K.fanout_aggregate_ref(t, sidx, sw), **TOL)
+    t = torch.randn(50, 4096, device=cuda)
+    torch.testing.assert_close(K.gather_aggregate_split(t, sidx, sw, 0),
+                               K.fanout_aggregate_ref(t, sidx, sw), **TOL)
+    for d, dtype in ((602, torch.float32), (602, torch.bfloat16),
+                     (1433, torch.float32), (6, torch.bfloat16)):
+        x = torch.randn(50, d, device=cuda)
+        hist = torch.randn(40, d, device=cuda).to(dtype)
+        field_in = torch.randint(0, 45, (50,), dtype=torch.int32,
+                                 device=cuda)          # 30 on: the sentinel
+        base = torch.randn(2048, d, device=cuda)
+        torch.testing.assert_close(
+            K.cv_fanout_aggregate(x, hist, field_in, 30, sidx, sw, base),
+            K.cv_fanout_aggregate_ref(x, hist.float(), field_in, 30, sidx,
+                                      sw, base), **TOL)
     # the measuring entry: every split at any width, and no other
     narrow = table[:, :3].contiguous()
     for split in (0, 1, 2, 4, 8):
@@ -540,6 +567,20 @@ def test_full_term_is_bitwise_reproducible(cuda, dtype, d):
     first = K.hbm_gather_aggregate(table, idx, w)
     for _ in range(5):
         assert torch.equal(K.hbm_gather_aggregate(table, idx, w), first)
+    # one warp a row's plan at F = 2048 (a float32 row: split by columns
+    # over warps), and the CV delta over this width
+    big = torch.from_numpy(np.concatenate([idx.cpu().numpy()] * 4)).to(cuda)
+    bw = torch.cat([w] * 4)
+    first = K.fanout_aggregate(table, big, bw)
+    x = table.float()[:5000].contiguous()
+    field_in = torch.arange(5000, dtype=torch.int32, device=cuda) % 19000
+    base = torch.ones((2048, d), device=cuda)
+    cv = K.cv_fanout_aggregate(x, table, field_in, 19000, big % 5000, bw,
+                               base)
+    for _ in range(3):
+        assert torch.equal(K.fanout_aggregate(table, big, bw), first)
+        assert torch.equal(K.cv_fanout_aggregate(x, table, field_in, 19000,
+                                                 big % 5000, bw, base), cv)
 
 
 @pytest.mark.requires_cuda
@@ -648,6 +689,83 @@ def test_backward_on_many_slots_on_few_rows(cuda, case):
     torch.testing.assert_close(got, want, **TOL)
 
 
+def _ended_slots(seed, c, f, k, d, kind):
+    """Slots of a padded-sparse layer's rows with their ends: live slots
+    a prefix of the row (``pad_sparse_features``' layout), or anywhere
+    before the end (``not a prefix``), or clustered on few columns with a
+    live slot at K - 1; the rest hold the sentinel column ``c`` and weight
+    0, and a row with no live slot has a NaN g row."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(f, d)).astype(np.float32)
+    n_live = np.where(rng.random(f) < 0.3, rng.integers(0, k + 1, f), 0)
+    pos = np.full((f, k), c, np.int32)
+    w = np.zeros((f, k), np.float32)
+    for r in range(f):
+        n = n_live[r]
+        at = (np.arange(n) if kind != "not a prefix"
+              else np.sort(rng.choice(k, n, replace=False)))
+        cols = (rng.integers(0, min(c, 3), n) if kind == "clustered"
+                else rng.integers(0, c, n))
+        pos[r, at], w[r, at] = cols, rng.uniform(0.1, 1.0, n)
+        if n and rng.random() < 0.2:
+            w[r, at[0]] = 0.0          # a dropout zero inside the range
+    if kind == "clustered":
+        pos[0, k - 1], w[0, k - 1] = c - 1, 0.5      # live at K - 1
+    ends = live_ends(pos, c)
+    g[ends == 0] = np.nan
+    return g, pos, w, ends
+
+
+ENDED_CASES = [  # (C, F, K, d, kind)
+    (500, 3000, 333, 32, "prefix"),        # the sparse layer, cut down
+    (500, 3000, 333, 32, "not a prefix"),
+    (500, 3000, 40, 32, "clustered"),      # contention, live at K - 1
+    (20, 1, 600, 32, "not a prefix"),      # F = 1, a range past 16 rounds
+    (300, 2501, 50, 128, "prefix"),        # 32 units a row, F not of 8
+    (50, 3000, 37, 13, "not a prefix"),    # d not a multiple of 4
+    (40, 777, 9, 64, "clustered"),         # 16 units a row
+    # small fields, whose plan splits a row over warps: the cooperative
+    # kernel with the ends (8 and 2 warps a row), and rows of more than
+    # 32 units, which keep the ends kernel
+    (500, 25, 333, 32, "prefix"),
+    (500, 2000, 333, 32, "not a prefix"),
+    (50, 64, 300, 13, "clustered"),
+    (50, 16, 300, 602, "prefix"),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ENDED_CASES, ids=str)
+def test_backward_with_ends_matches_plain(cuda, case):
+    """The backward given the rows' ends (fanout_backward_ends_kernel, or
+    for a small field fanout_backward_coop_kernel with the ends) equals the
+    plain version with the same ends, and the kernel without them; slots
+    past the ends are never read (live-looking slots there, column 0 and
+    weight 1, add nothing; rows that end at 0 have NaN g)."""
+    c, f, k, d, kind = case
+    g, pos, w, ends = (torch.from_numpy(a).to(cuda)
+                       for a in _ended_slots(29, c, f, k, d, kind))
+    past = torch.arange(k, device=cuda)[None, :] >= ends[:, None]
+    noisy_pos = torch.where(past, torch.zeros_like(pos), pos)
+    noisy_w = torch.where(past, torch.ones_like(w), w)
+    clean = torch.nan_to_num(g)
+    want = K.fanout_aggregate_backward_ref(clean, pos, w, c, ends)
+    torch.full((c, d), 7.0, device=cuda)         # a dirty allocation
+    before = K.LAUNCHES["fanout_aggregate_backward"]
+    got = K.fanout_aggregate_backward(g, noisy_pos, noisy_w, c, ends)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fanout_aggregate_backward"] == before + 1
+    # ~100 slots of unit scale on one row of grad_x differ by ~1e-5
+    # between summation orders: the float32 order bound on top
+    n = int(torch.bincount(pos[(w != 0) & (pos < c)].long(),
+                           minlength=c).max())
+    slack = 2 * n * 2.0 ** -24 * K.fanout_aggregate_backward_ref(
+        clean.abs(), pos, w.abs(), c)
+    assert ((got - want).abs() <= 1e-5 + 1e-5 * want.abs() + slack).all()
+    assert ((K.fanout_aggregate_backward(clean, pos, w, c) - want).abs()
+            <= 1e-5 + 1e-5 * want.abs() + slack).all()
+
+
 @pytest.mark.requires_cuda
 def test_misaligned_views_go_by_element(cuda):
     """Rows whose pointer is only 4-byte aligned take the 4-byte units of
@@ -684,11 +802,12 @@ def test_kernels_replay_in_a_cuda_graph(cuda):
         field_in = np.random.default_rng(seed + 50).integers(
             0, 20001, 1024).astype(np.int32)          # 20000: the sentinel
         many = _many_slot_inputs(seed, 500, 3000, 40, 32)
-        many = (np.nan_to_num(many[0]),) + many[1:]
+        many = (np.nan_to_num(many[0]),) + many[1:] + (
+            live_ends(many[1], 500),)
         return [torch.from_numpy(a).to(cuda)
                 for a in (table, idx, w, x, pos, pw, g, field_in, *many)]
 
-    def run(table, idx, w, x, pos, pw, g, field_in, mg, mpos, mw):
+    def run(table, idx, w, x, pos, pw, g, field_in, mg, mpos, mw, mends):
         hist = table.bfloat16()
         base = K.hbm_gather_aggregate(hist, idx, w)
         return (base, K.fanout_aggregate(x, pos, pw),
@@ -703,7 +822,17 @@ def test_kernels_replay_in_a_cuda_graph(cuda):
                                        .contiguous(), idx, w),
                 K.hbm_gather_aggregate(table.repeat(1, 2), idx, w),
                 K.fanout_aggregate_backward(g, idx, w, 20000),
-                K.fanout_aggregate_backward(mg, mpos, mw, 500))
+                K.fanout_aggregate_backward(mg, mpos, mw, 500),
+                # a float32 row split by columns over warps
+                # (wide_cols_kernel: K = 1 plans one warp a row), the CV
+                # delta so, and the backward with the rows' ends
+                K.fanout_aggregate(x.repeat(1, 5)[:, :602].contiguous(),
+                                   pos, pw),
+                K.cv_fanout_aggregate(
+                    x.repeat(1, 5)[:, :602].contiguous(),
+                    hist.repeat(1, 5)[:, :602].contiguous(), field_in, 20000,
+                    pos, pw, table.repeat(1, 5)[:512, :602].contiguous()),
+                K.fanout_aggregate_backward(mg, mpos, mw, 500, mends))
 
     static = inputs(17)
     run(*static)                                     # build, warm up
@@ -712,9 +841,10 @@ def test_kernels_replay_in_a_cuda_graph(cuda):
     K.reset_launches()
     with torch.cuda.graph(graph):
         outs = run(*static)
-    assert K.LAUNCHES == {"fanout_aggregate": 1, "hbm_gather_aggregate": 3,
-                          "fanout_aggregate_backward": 3,
-                          "cv_fanout_aggregate": 1}
+    assert K.LAUNCHES == {"fanout_aggregate": 2, "hbm_gather_aggregate": 3,
+                          "fanout_aggregate_backward": 4,
+                          "cv_fanout_aggregate": 2}
+    assert K.gather_plan(torch.zeros(8, 602, device=cuda), 512, 1) == 0
     assert K.backward_plan(512, 64) == 8
     for seed in (18, 19):
         fresh = inputs(seed)
@@ -723,9 +853,9 @@ def test_kernels_replay_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         want = run(*fresh)
-        for i in (0, 1, 3, 4, 5):                    # fixed sum order
+        for i in (0, 1, 3, 4, 5, 8, 9):              # fixed sum order
             assert torch.equal(outs[i], want[i]), i
-        for i in (2, 6, 7):                          # atomics
+        for i in (2, 6, 7, 10):                      # atomics
             torch.testing.assert_close(outs[i], want[i], **TOL)
     assert K.LAUNCHES["hbm_gather_aggregate"] == 9   # 3 capture + 6 eager
 
@@ -1025,7 +1155,8 @@ def test_sparse_first_layer_kernels_match_plain_on_card(cuda, rows, dim, k,
     g = torch.from_numpy(np.random.default_rng(8).normal(
         size=(rows + 1, hidden)).astype(np.float32))
     wc = w.cpu().requires_grad_()
-    cpu_feats = feats.replace(idx=feats.idx.cpu(), val=feats.val.cpu())
+    cpu_feats = feats.replace(idx=feats.idx.cpu(), val=feats.val.cpu(),
+                              ends=feats.ends.cpu())
     want = L.matmul(cpu_feats, wc)
     (want * g).sum().backward()
     wg = w.clone().requires_grad_()
