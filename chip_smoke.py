@@ -183,13 +183,16 @@ Phases, one or more lines each:
    device="cuda")``: its answers on the 1000 test ids must equal
    ``Trainer.predict`` bitwise and exact inference within 1e-4, and a
    repeated request must be bitwise equal (export and load seconds, the
-   artifact's bytes, ms per request, launches per request).  Then
-   PPI-sized GraphSAGE JSON files (56,944 nodes, 50 features, 121 labels,
-   multi-label): ``configs/ppi.sh``'s flags with the CV recipe for one
-   timed epoch (CV kernels on 2048-byte float32 eval rows), launches
-   checked exactly, then 2048 test ids served from its artifact with the
-   same checks.  Phase 5 also serves its 3 requests from an artifact of the
-   trained Reddit-shaped model, bitwise equal to ``Trainer.predict``'s.
+   artifact's bytes, ms per request, launches per request); the sparse
+   layer's forward on a request's field (every row live) held against its
+   plain version and timed beside the same call with the ends left out
+   and ``torch.sparse.mm``.  Then PPI-sized GraphSAGE JSON files (56,944
+   nodes, 50 features, 121 labels, multi-label): ``configs/ppi.sh``'s
+   flags with the CV recipe for one timed epoch (CV kernels on 2048-byte
+   float32 eval rows), launches checked exactly, then 2048 test ids served
+   from its artifact with the same checks.  Phase 5 also serves its 3
+   requests from an artifact of the trained Reddit-shaped model, bitwise
+   equal to ``Trainer.predict``'s.
 9. fullterm — the other forms of the CV full-neighbourhood term, each
    through ``hbm_gather_aggregate`` and ``cv_fanout_aggregate``:
    ``--lazy_fullterm`` at the Reddit-shaped recipe beside the per-step
@@ -442,8 +445,16 @@ PPI_CFG = dict(dataset="ppi", normalization="graphsage", weight_decay=0.0,
                test_degree=1)
 PPI_SERVE_IDS = 2048
 # what a padded-sparse first layer adds to a train step: the fanout over
-# the rows of W, and its backward for the gradient in W
+# the rows of W, and its backward for the gradient in W, both given the
+# rows' ends (K.ENDS_LAUNCHES counts those launches apart)
 SPARSE_LAYER = {"fanout_aggregate": 1, "fanout_aggregate_backward": 1}
+# the forward given the rows' ends (ends_gather_kernel behind the
+# fanout_aggregate wrapper): its own entry of the kernels JSON line, its
+# times from the real PubMed batches (ENDS_RESULT) and its launches from
+# the paths that run the padded-sparse layer (ENDS_PATHS)
+ENDS_KERNEL = "fanout_aggregate, rows with ends"
+ENDS_RESULT: dict = {}
+ENDS_PATHS: dict = {}
 # the other forms of the full term.  The convergence SBM without its degree
 # cap: power-law hubs trained without --pad_degree, the edge-list layout's
 # case; evaluated as served (test degree 1, test_cv), so that exhaustive
@@ -513,7 +524,11 @@ def kernel_bytes(kind: str, live_rows: float, row_bytes: int, f: int,
     backward given each row's end of live slots): the int32 ends ``[f]``,
     the ``ranged`` slots before the ends (8 bytes each), the ``live_rows``
     rows of ``g`` that own a live slot, and ``grad_x`` written once.
-    ``kind`` "cv" (the CV
+    ``kind`` "gather ends" (the sampled term given each row's end, the
+    padded-sparse first layer's forward): the int32 ends ``[f]``, the
+    ``ranged`` slots before the ends (8 bytes each), the ``live_rows``
+    distinct table rows under a live slot, and the float32 output
+    ``[rows_out, d]`` written once.  ``kind`` "cv" (the CV
     estimator's sampled term): ``live_rows`` distinct rows of ``x`` under a
     live slot and the int32 ``field_in`` entry of each, ``hist_rows``
     distinct history rows of ``hist_row_bytes`` (the nodes at those
@@ -524,6 +539,8 @@ def kernel_bytes(kind: str, live_rows: float, row_bytes: int, f: int,
         return f * d * 4 + slot_arrays + rows_out * d * 4
     if kind == "backward ends":
         return f * 4 + ranged * 8 + live_rows * d * 4 + rows_out * d * 4
+    if kind == "gather ends":
+        return f * 4 + ranged * 8 + live_rows * row_bytes + rows_out * d * 4
     if kind == "cv":
         return (live_rows * (row_bytes + 4) + hist_rows * hist_row_bytes
                 + slot_arrays + 2 * rows_out * d * 4)
@@ -685,7 +702,7 @@ def _library_gather(table, sets, wants):
     pad = table.shape[0]
     ext = torch.cat([table, table.new_zeros((1, table.shape[1]))])
     prepared = [(torch.where(_live(idx, w, pad), idx, pad).contiguous(),
-                 w.to(table.dtype)) for idx, w in sets]
+                 w.to(table.dtype)) for idx, w, *_ in sets]
 
     def call(i):
         idx, w = prepared[i % len(prepared)]
@@ -805,13 +822,17 @@ def _compare(name, kernel, ref, table, sets, timing: bool,
             res["bytes"] = kernel_bytes(kind, distinct, 4 * d, f, k, d, f,
                                         res["hist_distinct"], row_bytes)
             flops = 3 * live * d + f * d
-        elif kind == "backward ends":   # sets of (idx, w, ends)
+        elif kind in ("backward ends", "gather ends"):  # (idx, w, ends)
             res["gb_s"] = live * row_bytes / (res["ms"] * 1e6)
             res["ranged"] = sum(int(args[2].clamp(0, k).sum())
                                 for args in sets) / len(sets)
-            g_rows = sum(int(m.any(1).sum()) for m in masks) / len(sets)
-            res["bytes"] = kernel_bytes(kind, g_rows, row_bytes, f, k, d,
-                                        rows, ranged=res["ranged"])
+            if kind == "gather ends":
+                res["bytes"] = kernel_bytes(kind, distinct, row_bytes, f, k,
+                                            d, f, ranged=res["ranged"])
+            else:
+                g_rows = sum(int(m.any(1).sum()) for m in masks) / len(sets)
+                res["bytes"] = kernel_bytes(kind, g_rows, row_bytes, f, k,
+                                            d, rows, ranged=res["ranged"])
             flops = 2 * live * d
         else:
             res["gb_s"] = live * row_bytes / (res["ms"] * 1e6)
@@ -866,6 +887,29 @@ def _report(results: dict, kname: str, case: str, res: dict,
           f"{res['max_abs_err']:.3e}{times}")
 
 
+def _ends_result(res: dict, main: bool = False) -> None:
+    """Fold a case of the forward with the ends into ``ENDS_RESULT``: its
+    worst error, and the times of the ``main`` case (the real batches)."""
+    ENDS_RESULT["max_abs_err"] = max(ENDS_RESULT.get("max_abs_err", 0.0),
+                                     res["max_abs_err"])
+    if main:
+        ENDS_RESULT.update((key, res.get(key)) for key in (
+            *MAIN_KEYS, "library", "without_ends_ms", "sparse_mm_ms",
+            "turns"))
+
+
+def _check_ends_launches(label: str, sparse: bool, ends: dict,
+                         expected: dict) -> None:
+    """Fail unless the fanout launches given the rows' ends on a path
+    (``K.ENDS_LAUNCHES``) are ``expected`` where its features are
+    padded-sparse (``check_launches``' rules) and none where they are
+    dense; record the forward's in ``ENDS_PATHS``."""
+    check_launches(f"{label}, given the rows' ends", ends,
+                   expected if sparse else {})
+    if sparse:
+        ENDS_PATHS[label] = ends["fanout_aggregate"]
+
+
 def _kept_case(results: dict, kname: str, key: str, case: str,
                res: dict) -> None:
     """Print a case and keep it under ``key`` of the kernels JSON line."""
@@ -877,10 +921,10 @@ def _kept_case(results: dict, kname: str, key: str, case: str,
                          if k in res}})
 
 
-def _gather_splits(label: str, table, sets) -> None:
+def _gather_splits(label: str, table, sets, timing: bool = True) -> None:
     """Every split of the gather kernels on ``sets`` (0: one warp per row),
-    at any width: held against the plain version, then timed like the
-    public function."""
+    at any width: held against the plain version, then (``timing``) timed
+    like the public function."""
     f, k = sets[0][0].shape
     wants = [K.hbm_gather_aggregate_ref(table.float(), idx, w)
              for idx, w in sets]
@@ -891,10 +935,11 @@ def _gather_splits(label: str, table, sets) -> None:
                                             split)
         for i, want in enumerate(wants):
             _agree(f"{label} split {split}", call(i), want, *KERNEL_TOL)
-        cells.append(f"{'row' if split == 0 else f'x{split}'} "
-                     f"{_device_ms(call):.5f}")
-    print(f"kernels: splits, {label}, device ms/call: {'; '.join(cells)}; "
-          f"the public function plans split "
+        name = "row" if split == 0 else f"x{split}"
+        cells.append(f"{name} {_device_ms(call):.5f}" if timing else name)
+    print(f"kernels: splits, {label}, "
+          f"{'device ms/call' if timing else 'held, not timed'}: "
+          f"{'; '.join(cells)}; the public function plans split "
           f"{K.gather_plan(table, f, k)} (0 = row)")
 
 
@@ -965,16 +1010,29 @@ def _order_slack(g, pos, w, rows: int):
         g.abs(), pos, w.abs(), rows)
 
 
-def _field_csr(i, v, rows: int):
-    """The live slots of padded rows ``(i, v)`` as a CSR ``X^T [rows, F]``
-    (a host read of the live count: not for a spin-queued window)."""
+def _gather_order_slack(table, idx, w, ends):
+    """``_order_slack`` for the forward given the rows' ends: 2 n 2^-24
+    times the sum of the terms' magnitudes of each output row, n the most
+    live slots on a row."""
+    live = _live(idx, w, table.shape[0])
+    n = int(live.sum(1).max())
+    return 2 * n * 2.0 ** -24 * K.fanout_aggregate_ref(
+        table.float().abs(), idx, w.abs(), ends)
+
+
+def _field_csr(i, v, rows: int, transpose: bool = True):
+    """The live slots of padded rows ``(i, v)`` as a CSR ``X^T [rows, F]``,
+    or ``X [F, rows]`` without ``transpose`` (a host read of the live
+    count: not for a spin-queued window)."""
     f = i.shape[0]
     m = _live(i, v, rows)
     r = torch.arange(f, device=i.device)[:, None].expand_as(i)[m]
+    at, shape = (([i[m].long(), r], (rows, f)) if transpose
+                 else ([r, i[m].long()], (f, rows)))
     with warnings.catch_warnings():      # "sparse CSR support is in beta"
         warnings.simplefilter("ignore", UserWarning)
         return torch.sparse_coo_tensor(
-            torch.stack([i[m].long(), r]), v[m], (rows, f),
+            torch.stack(at), v[m], shape,
             check_invariants=True).coalesce().to_sparse_csr()
 
 
@@ -999,6 +1057,19 @@ def _sparse_mm_ms(g, sets, rows: int, order_bound: bool = False,
     return ms, (_wall_ms(lambda i: torch.sparse.mm(_field_csr(
         *sets[i % len(sets)][:2], rows), g)),
         _wall_ms(lambda i: torch.sparse.mm(xts[i % len(xts)], g)))
+
+
+def _sparse_mm_forward_ms(table, sets, wants) -> float:
+    """``torch.sparse.mm(X, W)``, the one PyTorch call for the forward of a
+    padded-sparse layer: each set's live slots as a CSR ``X [F, dim]``,
+    built outside the timed window and held against the plain forward's
+    ``wants`` at ``KERNEL_TOL``."""
+    xs = [_field_csr(i, v, table.shape[0], transpose=False)
+          for i, v, *_ in sets]
+    for x, want in zip(xs, wants):
+        _agree("library torch.sparse.mm (forward)", torch.sparse.mm(x, table),
+               want, *KERNEL_TOL)
+    return _device_ms(lambda i: torch.sparse.mm(xs[i % len(xs)], table))
 
 
 def _padded_rows(rng, f: int, k: int, dim: int, kind: str):
@@ -1052,6 +1123,28 @@ def _ends_split(label: str, g, sets, rows: int) -> None:
               f"ms/call")
 
 
+def _ends_forward_split(label: str, table, sets) -> None:
+    """Where the forward with the ends spends its time: an empty launch,
+    the same call with every end 0 (reading the ends and writing zero
+    rows), with every weight 0 (the walk without a row of the table), and
+    on the first 25 and 2,000 rows of each set (a long row to a block, and
+    up to 4)."""
+    calls = {"an empty launch": lambda i: K.empty_launch(table.device)}
+    for name, cut in (("every end 0", lambda i, w, e: (i, w, 0 * e)),
+                      ("every weight 0", lambda i, w, e: (i, 0 * w, e)),
+                      ("the first 25 rows", lambda *a: tuple(
+                          t[:25].contiguous() for t in a)),
+                      ("the first 2000 rows", lambda *a: tuple(
+                          t[:2000].contiguous() for t in a))):
+        cases = [cut(*s_) for s_ in sets]
+        calls[name] = (lambda i, cases=cases: K.fanout_aggregate(
+            table, *cases[i % len(cases)]))
+    times = "; ".join(f"{name} {_device_ms(fn):.5f}"
+                      for name, fn in calls.items())
+    print(f"kernels: {ENDS_KERNEL} {label}, where the time goes: {times} "
+          f"ms/call")
+
+
 def _many_slots_case(rng, dev, results: dict, sweeps: bool) -> None:
     """The backward with many slots on few rows at the padded-sparse first
     layer's shape on PubMed-sized data (W [500, 32], F = 15,000 field rows
@@ -1060,9 +1153,13 @@ def _many_slots_case(rng, dev, results: dict, sweeps: bool) -> None:
     without them (every slot read), ``index_add_`` and
     ``torch.sparse.mm``; then the adversarial layouts (live slots not a
     prefix, a live slot at K - 1, every live slot on 4 columns of W), with
-    the ends; with ``sweeps``, where the time goes."""
+    the ends; with ``sweeps``, where the time goes.  On every layout the
+    forward with the ends (a seeded W) is held against its plain
+    version."""
     rows, d, f, k = MANY_SLOTS
     g = torch.from_numpy(rng.standard_normal((f, d), dtype=np.float32)).to(dev)
+    table = torch.from_numpy(rng.standard_normal((rows, d),
+                                                 dtype=np.float32)).to(dev)
     bwd, bwd_ref = K.fanout_aggregate_backward, K.fanout_aggregate_backward_ref
     # held at KERNEL_TOL plus the float32 summation-order bound: ~118 live
     # slots of unit scale gather on a row of W
@@ -1074,6 +1171,11 @@ def _many_slots_case(rng, dev, results: dict, sweeps: bool) -> None:
                 for _ in range(4 if kind == "prefix" else 1)]
         case = (f"many slots on few rows: W [{rows},{d}] F={f} K={k}, "
                 f"{kind}, with the rows' ends")
+        # held at KERNEL_TOL plus the float32 summation-order bound: up
+        # to 333 live slots of unit-scale rows on one output row
+        _ends_result(_compare(f"forward {case}", K.fanout_aggregate,
+                              K.fanout_aggregate_ref, table, sets, False,
+                              slack=_gather_order_slack))
         res = _compare(f"backward {case}",
                        lambda g_, p, w, e: bwd(g_, p, w, rows, e),
                        lambda g_, p, w, e: bwd_ref(g_, p, w, rows, e), g,
@@ -1787,6 +1889,9 @@ def phase_train(ds, device: str = "cuda", cfg_kw=SLICE_CFG):
         fail(f"non-finite training loss {loss}")
     check_launches("a CV train epoch", launches, {
         name: per * steps for name, per in STEP_LAUNCHES["CV+PP"].items()})
+    if any(K.ENDS_LAUNCHES.values()):
+        fail(f"the main path launched a kernel given row ends: "
+             f"{K.ENDS_LAUNCHES}")
     return tr, launches, steps
 
 
@@ -1869,9 +1974,11 @@ def phase_tp_kernels(tr: Trainer, results: dict, batches: int = 4,
     columns of the bf16 train history (128-byte rows) and of the f32 eval
     history (256-byte rows, serving's); at d = 256 seeded tables of the
     same rows, bf16 and f32.  Each case held against its plain version and
-    timed as in phase 3 (bound, plain version, library call), the full
-    term with every split; the cases go into the kernels JSON line under
-    ``tp_cases``."""
+    timed as in phase 3 (bound, plain version, library call); the cases go
+    into the kernels JSON line under
+    ``tp_cases``; every split of the full term held against the plain
+    version, not timed (the plans were chosen from those times before;
+    PERF.md keeps them)."""
     bs, n, dev = tr.cfg.batch_size, tr.ds.num_data, tr.device
     bm = torch.from_numpy(tr._batch_matrix(
         tr.train_iter.data[:batches * bs], bs, n)).to(dev)
@@ -1917,7 +2024,7 @@ def phase_tp_kernels(tr: Trainer, results: dict, batches: int = 4,
                               K.hbm_gather_aggregate_ref, hist, full, True,
                               library=_library_gather))
             _gather_splits(f"{tag}: {dt} {kind} history d={d} F={f} "
-                           f"K={k_full}", hist, full)
+                           f"K={k_full}", hist, full, timing=False)
         _tp_case(results, "fanout_aggregate",
                  f"{tag}: f32 C={c} F={f} K={k_fan}",
                  _compare(f"fanout tp d={d}", K.fanout_aggregate,
@@ -2622,15 +2729,25 @@ def phase_real_batches(results: dict, device: str = "cuda") -> None:
     """For ``--phase kernels``: the kernels on the real batches of the full
     run, without its training: the sparse first layer's on 4 batches of the
     PubMed-sized fixture (``_sparse_layer_kernels`` with its sweeps, ``W``
-    as initialised) and the fanout on a real Exact batch's first layer of
-    the convergence phase's SBM (``_exact_batch_case``)."""
+    as initialised), its forward on the CV arm's served field
+    (``_served_field_case``) and the fanout on a real Exact batch's first
+    layer of the convergence phase's SBM (``_exact_batch_case``)."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         write_planetoid_fixture(tmp, PlanetoidSpec(**PUBMED_SPEC))
         ds = load_data(Config(dataset="pubmed", data_dir=tmp))
         tr = Trainer(Config(dataset="pubmed", data_dir=tmp, ckpt_dir=tmp),
                      ds, device=device)
         _sparse_layer_kernels(tr, results, sweeps=True)
-        del tr, ds
+        # the served field of the CV arm's requests, from its artifact
+        key, _, over = PUBMED_ARMS[1]
+        tr = Trainer(Config(dataset="pubmed", data_dir=tmp, ckpt_dir=tmp,
+                            **over), ds, device=device)
+        export_predictor(tr, os.path.join(tmp, "artifact"))
+        pred = load_predictor(os.path.join(tmp, "artifact"), device=device)
+        _served_field_case(f"PubMed {key} artifact (W as initialised), a "
+                           f"request of {len(ds.test_d)} ids", pred.predict,
+                           np.asarray(ds.test_d))
+        del tr, ds, pred
     sbm = community_sbm_dataset(**SBM_KW)
     _exact_batch_case(Trainer(Config(**{**CONVERGE_CFG, **EXACT_KW}), sbm,
                               device=device), sbm, results)
@@ -2772,6 +2889,7 @@ def _epochs_counted(label: str, tr: Trainer, epochs: int, per_step: dict):
     be exactly ``per_step`` launches a step.  Returns (launches, steps,
     ms/step, the F1 curve)."""
     total = {name: 0 for name in K.LAUNCHES}
+    ends = {name: 0 for name in K.ENDS_LAUNCHES}
     steps, secs, curve = 0, 0.0, []
     if tr.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -2787,6 +2905,8 @@ def _epochs_counted(label: str, tr: Trainer, epochs: int, per_step: dict):
             steps += n_steps
             for name, count in K.LAUNCHES.items():
                 total[name] += count
+            for name, count in K.ENDS_LAUNCHES.items():
+                ends[name] += count
         if not np.isfinite(loss):
             fail(f"{label}: non-finite training loss {loss}")
         curve.append(tr.evaluate(tr.ds.val_d)[2])
@@ -2798,6 +2918,9 @@ def _epochs_counted(label: str, tr: Trainer, epochs: int, per_step: dict):
           f"micro-F1 by epoch {', '.join(f'{f:.4f}' for f in curve)}")
     check_launches(f"{label} train epochs", total,
                    {k: v * steps for k, v in per_step.items()})
+    _check_ends_launches(f"{label} train epochs",
+                         isinstance(tr.train_features, PaddedSparseFeatures),
+                         ends, {k: v * steps for k, v in SPARSE_LAYER.items()})
     return total, steps, ms, curve
 
 
@@ -2827,7 +2950,7 @@ def _serve_from_artifact(label: str, tr: Trainer, requests, live,
         outs.append(pred.predict(ids))
         _sync(tr.device)
         times.append(time.perf_counter() - t0)
-    launches = dict(K.LAUNCHES)
+    launches, ends = dict(K.LAUNCHES), dict(K.ENDS_LAUNCHES)
     per_request = {k: v / len(requests) for k, v in launches.items()}
     again = pred.predict(requests[0])
     later_ms = 1e3 * statistics.median(times[1:])
@@ -2858,7 +2981,72 @@ def _serve_from_artifact(label: str, tr: Trainer, requests, live,
     print(f"artifact: {label}: {msg}")
     check_launches(f"{label} requests", launches,
                    {k: None for k, v in launches.items() if v})
+    # the Predictor's sparse layer stops at each row's end: ends computed
+    # from the artifact's columns at load, the (one-process) Trainer's
+    sparse = isinstance(tr.test_features, PaddedSparseFeatures)
+    if sparse and not torch.equal(pred._features.ends,
+                                  tr.test_features.ends):
+        fail(f"{label}: the Predictor's row ends differ from the Trainer's")
+    _check_ends_launches(f"{label} requests", sparse, ends,
+                         {"fanout_aggregate": None})
+    if sparse:
+        _served_field_case(f"{label}, a request of {len(requests[0])} ids",
+                           pred.predict, requests[0])
     return launches, per_request, later_ms
+
+
+def _served_field_case(label: str, predict, ids) -> None:
+    """The sparse layer's forward given the rows' ends on the layer-0 field
+    of a served request: the rows ``predict(ids)`` hands the kernel wrapper
+    (caught on their way through ``ops/layers.py``), held against the plain
+    version at ``KERNEL_TOL`` and timed (in turns with ``--parent``'s)
+    beside the same call with the ends left out (the gather's plan over
+    every slot) and ``torch.sparse.mm`` of the field's ``X`` (a CSR built
+    before).  A served field holds mostly real nodes, the train batches'
+    mostly empty rows; kept in ``ENDS_RESULT["served_field"]``."""
+    seen, real = [], L.fanout_aggregate
+
+    def caught(table, idx, w, ends=None):
+        seen.append((table.detach(), idx, w, ends))
+        return real(table, idx, w, ends)
+
+    L.fanout_aggregate = caught
+    try:
+        predict(ids)
+    finally:
+        L.fanout_aggregate = real
+    if len(seen) != 1 or seen[0][3] is None:
+        fail(f"{label}: the sparse layer was called {len(seen)} times, or "
+             f"without the rows' ends")
+    table, idx, w, ends = seen[0]
+    f, k = idx.shape
+    fwd = _compare(f"{label}: forward, with the ends", K.fanout_aggregate,
+                   K.fanout_aggregate_ref, table, [(idx, w, ends)], True,
+                   kind="gather ends", other=lambda PK: PK.fanout_aggregate)
+    old = _compare(f"{label}: forward, the ends left out", K.fanout_aggregate,
+                   K.fanout_aggregate_ref, table, [(idx, w)], True)
+    mm = _sparse_mm_forward_ms(table, [(idx, w)],
+                               [K.fanout_aggregate_ref(table, idx, w)])
+    live_rows = int((ends > 0).sum())
+    ENDS_RESULT["max_abs_err"] = max(ENDS_RESULT.get("max_abs_err", 0.0),
+                                     fwd["max_abs_err"])
+    ENDS_RESULT["served_field"] = {
+        "case": label, "f": f, "k": k, "live_rows": live_rows,
+        "live": fwd["live"], "ranged": fwd["ranged"], "ms": fwd["ms"],
+        "bound_ms": fwd["bound_ms"], "without_ends_ms": old["ms"],
+        "without_ends_bound_ms": old["bound_ms"], "sparse_mm_ms": mm,
+        "turns": fwd.get("turns")}
+    turns = "".join(f"; in turns with {tree}: " + ", ".join(
+        f"{t:.5f}" for t in ts) for tree, ts in fwd.get("turns", {}).items())
+    print(f"kernels: {ENDS_KERNEL}, served field, {label}: W "
+          f"{list(table.shape)} F={f} K={k}, {live_rows} rows that own a "
+          f"live slot, {fwd['live']:.0f} live slots, {fwd['ranged']:.0f} "
+          f"before the ends: max abs err {fwd['max_abs_err']:.3e}; with the "
+          f"ends {fwd['ms']:.5f} ms/call (bound {fwd['bound_ms']:.5f}); the "
+          f"ends left out (every slot read, the gather's plan split "
+          f"{K.gather_plan(table, f, k)}) {old['ms']:.5f} ms/call (bound "
+          f"{old['bound_ms']:.5f}); torch.sparse.mm of the field's X (CSR "
+          f"built before) {mm:.5f} ms/call{turns}")
 
 
 def _sparse_layer_kernels(tr: Trainer, results: dict, batches: int = 4,
@@ -2866,16 +3054,20 @@ def _sparse_layer_kernels(tr: Trainer, results: dict, batches: int = 4,
     """The sparse first layer's kernels on ``batches`` real train batches:
     the layer-0 field's padded-sparse rows of each freshly scheduled batch
     with their ends, the trained ``W`` as the table (forward) and a seeded
-    output gradient (backward), against their plain versions on every row
-    and timed, with ``embedding_bag`` beside the forward; beside the
-    backward with the ends, the same kernel with the ends left out (every
-    slot read), ``zeros().index_add_`` over the live slots and
-    ``torch.sparse.mm`` of the field's ``X^T`` (a CSR built before, and
-    built inside the call); the backward on the first ``SMALL_FIELDS`` rows
-    of each batch (a small field of long rows), with and without the ends;
-    every split of the gather; with ``sweeps``, where the backward's time
-    goes (``_ends_split``).  Folded into
-    ``results[kernel]["sparse_layer_batches"]``."""
+    output gradient (backward), against their plain versions with the ends
+    on every row and timed.  Beside the forward with the ends: the same
+    kernel with the ends left out (every slot read), ``embedding_bag`` and
+    ``torch.sparse.mm`` of the field's ``X`` (a CSR built before); beside
+    the backward with the ends: the same kernel with the ends left out,
+    ``zeros().index_add_`` over the live slots and ``torch.sparse.mm`` of
+    the field's ``X^T`` (a CSR built before, and built inside the call).
+    The backward on the first ``SMALL_FIELDS`` rows of each batch (a small
+    field of long rows) timed with the ends and held without them; every
+    split of the gather held against the plain version; with ``sweeps``,
+    where the backward's time goes (``_ends_split``).  Folded into
+    ``results[kernel]["sparse_layer_batches"]``, the forward with the ends
+    also into ``ENDS_RESULT``."""
+    t_phase = time.perf_counter()
     cfg, n = tr.cfg, tr.ds.num_data
     bs = cfg.batch_size
     packs = []
@@ -2895,22 +3087,32 @@ def _sparse_layer_kernels(tr: Trainer, results: dict, batches: int = 4,
     f, k = sets[0][0].shape
     live = sum(int(_live(i, v, dim).sum()) for i, v, _ in sets) / batches
     ranged = sum(int(e.sum()) for _, _, e in sets) / batches
+    long_rows = sum(int((e > 0).sum()) for _, _, e in sets) / batches
     hits = [torch.unique(i[_live(i, v, dim)], return_counts=True)[1]
             for i, v, _ in sets]
     print(f"formats: sparse first layer, {batches} real train batches: "
           f"F={f} field-0 rows, K={k} slots a row (nnz_cap), table W "
           f"[{dim}, {hidden}] f32; {live:.0f} live slots a batch "
           f"({live / f:.1f} a row), {ranged:.0f} slots before the rows' "
-          f"ends; a row of W is named by at most "
-          f"{max(int(h.max()) for h in hits)} slots, "
+          f"ends on {long_rows:.0f} rows that own one; a row of W is named "
+          f"by at most {max(int(h.max()) for h in hits)} slots, "
           f"{sum(h.float().mean().item() for h in hits) / batches:.0f} on "
           f"average (the backward's atomic contention)")
     g = torch.from_numpy(np.random.default_rng(seed).standard_normal(
         (f, hidden), dtype=np.float32)).to(tr.device)
     case = f"sparse first layer, PubMed train batch: W [{dim},{hidden}] F={f} K={k}"
-    fwd = _compare("sparse layer fanout", K.fanout_aggregate,
-                   K.fanout_aggregate_ref, w, [s[:2] for s in sets], True,
-                   library=_library_gather)
+    fwd = _compare("sparse layer fanout, with the ends", K.fanout_aggregate,
+                   K.fanout_aggregate_ref, w, sets, True, kind="gather ends",
+                   library=_library_gather,
+                   other=lambda PK: PK.fanout_aggregate)
+    old_fwd = _compare("sparse layer fanout, the ends left out",
+                       K.fanout_aggregate, K.fanout_aggregate_ref, w,
+                       [s_[:2] for s_ in sets], True)
+    fwd["without_ends_ms"] = old_fwd["ms"]
+    fwd["without_ends_bound_ms"] = old_fwd["bound_ms"]
+    fwd["sparse_mm_ms"] = _sparse_mm_forward_ms(
+        w, sets, [K.fanout_aggregate_ref(w, *s_) for s_ in sets])
+    fwd["plan"] = "ends"
     bwd_ends, bwd_ref = K.fanout_aggregate_backward, \
         K.fanout_aggregate_backward_ref
 
@@ -2925,10 +3127,10 @@ def _sparse_layer_kernels(tr: Trainer, results: dict, batches: int = 4,
                         other=lambda PK: lambda g2, p, v, e:
                         PK.fanout_aggregate_backward(g2, p, v, dim))
 
-    def ends_left_out(name, g_, sets_):
+    def ends_left_out(name, g_, sets_, timing=True):
         return _compare(name, lambda g2, p, v, e: bwd_ends(g2, p, v, dim),
                         lambda g2, p, v, e: bwd_ref(g2, p, v, dim), g_,
-                        sets_, True, kind="backward", rows=dim)
+                        sets_, timing, kind="backward", rows=dim)
 
     bwd = with_ends("sparse layer backward", g, sets)
     old = ends_left_out("sparse layer backward, the ends left out", g, sets)
@@ -2952,6 +3154,17 @@ def _sparse_layer_kernels(tr: Trainer, results: dict, batches: int = 4,
         _report(results, kname, case, res)
         results[kname].setdefault("sparse_layer_batches", {})[case] = {
             key: res.get(key) for key in keys if key in res}
+    _ends_result(fwd, main=True)
+    print(f"kernels: {ENDS_KERNEL} {case}: {fwd['ms']:.5f} ms/call, bound "
+          f"{fwd['bound_ms']:.5f} on the live slots "
+          f"({fwd['bytes'] / 1e6:.3f} MB: the ends, {fwd['ranged']:.0f} "
+          f"slots before them, {fwd['distinct']:.0f} rows of W, the output) "
+          f"= {fwd['bound_ms'] / fwd['ms']:.3f} of the time; the ends left "
+          f"out (every slot read, the gather's plan split "
+          f"{K.gather_plan(w, f, k)}) {old_fwd['ms']:.5f} ms/call, bound "
+          f"{old_fwd['bound_ms']:.5f}; embedding_bag "
+          f"{fwd['library_ms']:.5f}; torch.sparse.mm of the field's X (CSR "
+          f"built before) {fwd['sparse_mm_ms']:.5f} ms/call")
     print(f"kernels: fanout_aggregate_backward {case}: with the ends "
           f"{bwd['ms']:.5f} ms/call (bound {bwd['bound_ms']:.5f}); the "
           f"ends left out (every slot read, plan {K.backward_plan(f, k)}) "
@@ -2961,28 +3174,31 @@ def _sparse_layer_kernels(tr: Trainer, results: dict, batches: int = 4,
           f"synchronise: the kernel {bwd['host_clock_ms']:.5f}, sparse.mm "
           f"{mm_wall_ms:.5f}, sparse.mm with the CSR built from the padded "
           f"rows in the call {conv_ms:.5f} ms/call")
-    # a small field of long rows: the first rows of each batch's field
+    # a small field of long rows: the first rows of each batch's field,
+    # timed with the ends (the ends left out: held, not timed)
     for rows_n in SMALL_FIELDS:
         small = [tuple(t[:rows_n].contiguous() for t in s_) for s_ in sets]
         label = (f"{case}, its first {rows_n} rows (plan "
                  f"{K.backward_plan(rows_n, k)} warps a row)")
         res = with_ends(f"sparse layer backward, first {rows_n} rows",
                         g[:rows_n], small)
-        res["without_ends_ms"] = ends_left_out(
-            f"sparse layer backward, first {rows_n} rows, the ends left out",
-            g[:rows_n], small)["ms"]
+        ends_left_out(f"sparse layer backward, first {rows_n} rows, the "
+                      f"ends left out", g[:rows_n], small, timing=False)
         res["sparse_mm_ms"] = _sparse_mm_ms(g[:rows_n], small, dim)
         res["plan"] = K.backward_plan(rows_n, k)
         _report(results, "fanout_aggregate_backward", label, res)
         results["fanout_aggregate_backward"]["sparse_layer_batches"][
             label] = {key: res.get(key) for key in keys if key in res}
         print(f"kernels: fanout_aggregate_backward {label}: with the ends "
-              f"{res['ms']:.5f} ms/call, the ends left out "
-              f"{res['without_ends_ms']:.5f}, torch.sparse.mm "
+              f"{res['ms']:.5f} ms/call, torch.sparse.mm "
               f"{res['sparse_mm_ms']:.5f}")
     if sweeps:
+        _ends_forward_split(f"{case} (real)", w, sets)
         _ends_split(f"{case} (real)", g, sets, dim)
-    _gather_splits(case, w, [s[:2] for s in sets])
+    _gather_splits(case, w, [s_[:2] for s_ in sets], timing=False)
+    print(f"formats: the sparse first layer's kernels on real batches took "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock, checks "
+          f"included)")
 
 
 def phase_pubmed(tmp: str, results: dict, epochs: int = PUBMED_EPOCHS,
@@ -3886,6 +4102,9 @@ DP_ARMS = {"plain": {}, "plain exact": EXACT_OVER, "owner": OWNER_OVER,
 # ~20 beside one), and a user's run holds one Trainer
 DP_PAIRS = (("plain", "plain exact"), ("owner", "owner exact"))
 DP_TIMED_TURNS = (0, 1, 1, 0)    # indices into a pair
+# at world 1 nothing is routed (parallel/halo.py), so both arms of a pair
+# run the same code: each is timed once (turns there time the noise)
+DP_TIMED_TURNS_WORLD1 = DP_TIMED_TURNS[:2]
 # the edge-list arm's transports in turns, steps a turn
 DP_EDGE_TURNS = ("default", "exact", "exact", "default")
 DP_EDGE_STEPS = 32
@@ -4115,9 +4334,13 @@ def _wire_per_step(res: dict) -> str:
             f"{cross / steps:.0f} cross hosts")
 
 
-def _turns(arm: str) -> str:
+def _timed_turns(world: int) -> tuple:
+    return DP_TIMED_TURNS if world > 1 else DP_TIMED_TURNS_WORLD1
+
+
+def _turns(arm: str, world: int) -> str:
     pair = next(p for p in DP_PAIRS if arm in p)
-    return "/".join(pair[i] for i in DP_TIMED_TURNS)
+    return "/".join(pair[i] for i in _timed_turns(world))
 
 
 def _transport(arm: str) -> str:
@@ -4284,7 +4507,8 @@ def _dp_arms(ds, cfg, device: str) -> dict:
     (``DP_PAIRS``): each Trainer warmed up (a whole epoch; the owner arms
     ``DP_WARMUP_STEPS`` steps), then timed epochs in turns
     (``DP_TIMED_TURNS``, each arm twice, so the host's drift falls on
-    both); each arm's results are its first timed epoch's, with every
+    both; once at world 1, where both run the same code); each arm's
+    results are its first timed epoch's, with every
     epoch's seconds beside them, and the stream syncs a step of a 10-step
     profile; then the four kernels on the default arm's inputs, and
     :func:`_aligned_step` from the owner arm's state."""
@@ -4307,7 +4531,7 @@ def _dp_arms(ds, cfg, device: str) -> dict:
                 _epoch_losses(tr, DP_WARMUP_STEPS)
             else:
                 tr.train_epoch()
-        for i in DP_TIMED_TURNS:
+        for i in _timed_turns(world):
             arm = pair[i]
             got = _timed_epoch(arm, trs[arm])
             if "secs_turns" not in res[arm]:
@@ -4910,7 +5134,7 @@ def phase_dp(results: dict, device: str = "cuda", world: int = 0,
                   f"{'owner-batched (rcm) ' if 'owner' in arm else ''}CV+PP "
                   f"({_transport(arm)}) at global batch {a['batch']}: "
                   f"Trainer set-up {a['setup_s']:.2f} s; timed epochs (in "
-                  f"turns {_turns(arm)}) {turns} ms/step over "
+                  f"turns {_turns(arm, world)}) {turns} ms/step over "
                   f"{steps} steps; the first: "
                   f"{a['edges'] / a['secs']:.0f} sampled edges/s "
                   f"(global); last loss {a['loss']:.5f}; peak device memory "
@@ -5042,10 +5266,11 @@ def main(argv=None) -> None:
     if only == "kernels":
         phase_real_batches(kernels)
         print(json.dumps({"kernel_cases": {
-            name: {key: res[key] for key in ("redesigned_cases",
-                                             "sparse_layer_batches")
-                   if key in res}
-            for name, res in kernels.items()}}))
+            **{name: {key: res[key] for key in ("redesigned_cases",
+                                                "sparse_layer_batches")
+                      if key in res}
+               for name, res in kernels.items()},
+            ENDS_KERNEL: ENDS_RESULT}}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -5112,7 +5337,10 @@ def main(argv=None) -> None:
                 "Reddit-shaped, artifact": art_per_request,
                 "PubMed CV+PP, artifact": pubmed_request,
                 "PPI CV+PP, artifact": ppi_request, **edge_request}
-    print(json.dumps({"kernels": [
+    if not sum(ENDS_PATHS.values()) or "ms" not in ENDS_RESULT:
+        fail(f"no counted path launched {ENDS_KERNEL} ({ENDS_PATHS}) or it "
+             f"was not timed")
+    entries = [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name], "launches": total[name],
          "max_abs_err": res["max_abs_err"],
@@ -5134,7 +5362,16 @@ def main(argv=None) -> None:
                                       "dp_edgelist_case",
                                       "dp_launches_per_step_per_rank")
             if key in res}}
-        for name, res in kernels.items()]}))
+        for name, res in kernels.items()]
+    entries.append({
+        "name": ENDS_KERNEL, "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["fanout_aggregate"],
+        "launches": sum(ENDS_PATHS.values()),
+        **{key: ENDS_RESULT.get(key) for key in (
+            "max_abs_err", *MAIN_KEYS, "library", "without_ends_ms",
+            "sparse_mm_ms", "served_field")},
+        "launches_by_path": ENDS_PATHS})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

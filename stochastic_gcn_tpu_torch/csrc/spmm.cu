@@ -60,6 +60,31 @@
 //   full term and lands on row_gather_kernel.  It serves the estimators
 //   without a control variate (NS training, Exact evaluation); the CV
 //   estimator's sampled term is sgt_cv_fanout_aggregate.
+//   Given the rows' ends it serves the padded-sparse first layer X . W
+//   (W [dim, hidden] the table, the sparse rows the slots), whose rows are
+//   padded with dead (dim, 0) slots to the table's longest row: on a real
+//   PubMed field (F = 15,000 rows of K = 333) reading every slot is 40 MB
+//   of padding, while the 59,040 live slots sit on ~342 rows, side by
+//   side, and the rest end at 0.  Bound: bytes, ~2.5 MB counted on the
+//   live slots (the ends, the slots before them, W once, the output
+//   written once), ~0.75 us at 3.35 TB/s; what a call pays for is the
+//   launch and three dependent loads (an end, a slot, a row of W from
+//   L2).  ends_gather_kernel: one wave of blocks, each owning rows a grid
+//   apart (the long rows land in different blocks) and reading their ends
+//   256 at once, rows that end at 0 written as zeros, a warp a row, every
+//   other row dealt over the block's 8 warps (lanes 8 to a slot at
+//   128-byte rows: 4 slots a load instruction, 4 in flight a lane group),
+//   sums met in shared memory in a fixed order.  On an NVIDIA H100 80GB
+//   HBM3 at 700 W (chip_smoke.py, PERF.md) it takes 8.6 us on 4 real
+//   PubMed batches against 27.2 reading every slot, torch.sparse.mm's 98.0
+//   and embedding_bag's 256.0, 0.087 of its bound; staging a block's
+//   slots in shared memory, walking its long rows side by side, and
+//   sharing its warps among the live rows of 4-row tiles (trial copies)
+//   were all slower or no faster.  On a served PubMed field, whose 2,000
+//   rows are all live (~169 slots each), it loses to the gather's plan
+//   over every slot: 14.3 against 9.0 us, a block walking ~4 rows one
+//   after another.
+//   Without ends every caller keeps the plan above unchanged.
 //
 // sgt_cv_fanout_aggregate is that kernel redesigned for the CV estimator
 //   (stochastic_gcn_tpu/models/aggregators.py::vr_aggregate, plain CV
@@ -1454,6 +1479,220 @@ int gather_aggregate(const void* table, int dtype, int64_t rows, int d,
                         plan.upl, idx, w, n_out, k, split, out, stream);
 }
 
+// ---- the sampled term over rows with ends ----
+
+constexpr int kEndsDepth = 4;  // slots a lane group loads before it adds
+
+// acc += w[s] * table[idx[s], unit un] over the live slots s < e of one
+// row (idx, w: its slots), dealt to the block's warps of `groups` lane
+// groups: warp `warp`, group `group` takes slot (u * kWarpsPerBlock +
+// warp) * groups + group of each round of kEndsDepth * kWarpsPerBlock *
+// groups slots, u < kEndsDepth.  A lane loads its slot's index and weight
+// itself (the lanes of a group read the same address), so a round is two
+// dependent loads deep.  un < 0: the lane holds no unit of this pass and
+// loads no row.
+template <int kBf16, int kUB>
+__device__ __forceinline__ void ends_walk(
+    float* acc, const void* __restrict__ table, int64_t rows, int units,
+    int un, const int32_t* __restrict__ idx, const float* __restrict__ w,
+    int e, int warp, int groups, int group) {
+  using U = Unit<kBf16, kUB>;
+  const int round = kEndsDepth * kWarpsPerBlock * groups;
+  for (int base = 0; base < e; base += round) {
+    int r[kEndsDepth];
+    float ws[kEndsDepth];
+#pragma unroll
+    for (int u = 0; u < kEndsDepth; ++u) {
+      const int s = base + (u * kWarpsPerBlock + warp) * groups + group;
+      int i = -1;
+      float wv = 0.f;
+      if (s < e) {
+        i = __ldg(idx + s);
+        wv = __ldg(w + s);
+      }
+      const bool live = slot_live(s < e, i, wv, rows);
+      r[u] = live ? i : -1;
+      ws[u] = live ? wv : 0.f;
+    }
+    typename U::Raw v[kEndsDepth];
+#pragma unroll
+    for (int u = 0; u < kEndsDepth; ++u)
+      v[u] = r[u] >= 0 && un >= 0
+                 ? U::load(table, static_cast<int64_t>(r[u]) * units + un)
+                 : typename U::Raw{};
+#pragma unroll
+    for (int u = 0; u < kEndsDepth; ++u) U::fma(acc, v[u], ws[u]);
+  }
+}
+
+// One row of the sampled term with ends, its e > 0 slots (idx, w) walked
+// by the block's 8 warps: lane groups of `lanes` lanes, one unit a lane,
+// sums added across a warp's groups by shuffle (the same order in every
+// lane), then across the warps in shared memory (`partial`), in warp
+// order, into out_f.
+template <int kBf16, int kUB>
+__device__ __forceinline__ void ends_row(
+    const void* __restrict__ table, int64_t rows, int units, int lanes,
+    const int32_t* __restrict__ idx, const float* __restrict__ w, int e,
+    float (*partial)[32 * Unit<kBf16, kUB>::kVals],
+    float* __restrict__ out_f) {
+  constexpr int V = Unit<kBf16, kUB>::kVals;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int group = lane / lanes;
+  const int sub = lane - group * lanes;
+  for (int u0 = 0; u0 < units; u0 += lanes) {
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.f;
+    const int un = u0 + sub < units ? u0 + sub : -1;
+    ends_walk<kBf16, kUB>(acc, table, rows, units, un, idx, w, e, warp,
+                          32 / lanes, group);
+    for (int off = lanes; off < 32; off <<= 1)
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        acc[v] += __shfl_xor_sync(kFullMask, acc[v], off);
+    if (group == 0)
+#pragma unroll
+      for (int v = 0; v < V; ++v) partial[warp][sub * V + v] = acc[v];
+    __syncthreads();
+    // value t of the pass: unit u0 + t / V, column u0 * V + t
+    for (int t = threadIdx.x; t < lanes * V; t += kThreads) {
+      if (u0 + t / V < units) {
+        float sum = 0.f;
+#pragma unroll
+        for (int p = 0; p < kWarpsPerBlock; ++p) sum += partial[p][t];
+        out_f[static_cast<int64_t>(u0) * V + t] = sum;
+      }
+    }
+    __syncthreads();  // partial[] is read before the next pass writes it
+  }
+}
+
+// The sampled term where every live slot of row f lies before ends[f]: the
+// padded-sparse first layer X . W, W the table.  Block b owns rows b,
+// b + G, b + 2G, ... (G = gridDim.x, at most the blocks the card holds at
+// once), so the long rows of a field, which sit side by side, land in
+// different blocks, and one launch is one wave.  It takes them 256 at a
+// time, a thread reading one row's end, so a field of mostly empty rows
+// costs one load of the ends a block.  Rows that end at 0 are written as
+// zeros, a warp a row; the others are walked one after another, each by
+// all 8 warps (a real field's fall 0-4 to a block).  A pass covers `lanes`
+// units of the row (8, 16 or 32: the row's units, up to 32), one unit a
+// lane, so 32 / lanes slots go out with each load instruction; wider rows
+// take several passes.  Sums in a fixed order (slots, then lane groups by
+// shuffle, then warps), the same for every row whatever the grid: bitwise
+// the same from run to run.
+template <int kBf16, int kUB>
+__global__ void __launch_bounds__(kThreads, 4)
+ends_gather_kernel(const void* __restrict__ table, int64_t rows, int units,
+                   const int32_t* __restrict__ idx,
+                   const float* __restrict__ w,
+                   const int32_t* __restrict__ ends, int n_out, int k,
+                   int lanes, float* __restrict__ out) {
+  constexpr int V = Unit<kBf16, kUB>::kVals;
+  __shared__ float partial[kWarpsPerBlock][32 * V];
+  __shared__ int row_end[kThreads];
+  __shared__ unsigned live_rows[kWarpsPerBlock];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t grid = gridDim.x;
+  const int64_t d = static_cast<int64_t>(units) * V;
+  // rows of this block: b + i * grid for i < mine
+  const int64_t mine =
+      (static_cast<int64_t>(n_out) - 1 - blockIdx.x) / grid + 1;
+  for (int64_t i0 = 0; i0 < mine; i0 += kThreads) {  // block-uniform
+    const int here = static_cast<int>(
+        mine - i0 < kThreads ? mine - i0 : kThreads);
+    int e = 0;
+    if (threadIdx.x < here) {
+      e = __ldg(ends + blockIdx.x + (i0 + threadIdx.x) * grid);
+      e = e < 0 ? 0 : (e > k ? k : e);
+    }
+    row_end[threadIdx.x] = e;
+    const unsigned l = __ballot_sync(kFullMask, e > 0);
+    if (lane == 0) live_rows[warp] = l;
+    __syncthreads();
+
+    // rows that end at 0: zeros, a warp a row
+    for (int j = warp; j < here; j += kWarpsPerBlock) {
+      if (row_end[j] != 0) continue;  // warp-uniform
+      float* out_j = out + (blockIdx.x + (i0 + j) * grid) * d;
+      for (int64_t i = lane; i < d; i += 32) out_j[i] = 0.f;
+    }
+    // the other rows, a block each
+    for (int m = 0; m < kWarpsPerBlock; ++m) {
+      unsigned mask = live_rows[m];
+      while (mask) {  // block-uniform
+        const int j = m * 32 + __ffs(mask) - 1;
+        mask &= mask - 1;
+        const int64_t f = blockIdx.x + (i0 + j) * grid;
+        ends_row<kBf16, kUB>(table, rows, units, lanes, idx + f * k,
+                             w + f * k, row_end[j], partial, out + f * d);
+      }
+    }
+    __syncthreads();  // row_end[] and the masks are read before reuse
+  }
+}
+
+template <int kBf16, int kUB>
+int launch_ends_gather(const void* table, int64_t rows, int units,
+                       const int32_t* idx, const float* w,
+                       const int32_t* ends, int n_out, int k, float* out,
+                       cudaStream_t stream) {
+  // the blocks the card holds at once, counted at the first call on each
+  // device
+  static int resident[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess && (device < 0 || device >= kMaxDevices))
+    e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess && resident[device] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, ends_gather_kernel<kBf16, kUB>, kThreads, 0);
+    if (e == cudaSuccess) resident[device] = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int lanes = units <= 8 ? 8 : units <= 16 ? 16 : 32;
+  const int blocks = n_out < resident[device] ? n_out : resident[device];
+  ends_gather_kernel<kBf16, kUB><<<blocks, kThreads, 0, stream>>>(
+      table, rows, units, idx, w, ends, n_out, k, lanes, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The sampled term given the rows' ends, rows of any width: by the widest
+// unit of 16, 8, 4 or 2 bytes the row and the table pointer allow (W
+// [dim, 32] float32: 8 units of 16 bytes).  The wrapper has checked that
+// n_out > 0.
+int ends_gather(const void* table, int dtype, int64_t rows, int d,
+                const int32_t* idx, const float* w, const int32_t* ends,
+                int n_out, int k, float* out, cudaStream_t s) {
+  const int elem = dtype == 1 ? 2 : 4;
+  if ((dtype != 0 && dtype != 1) || d <= 0 || n_out <= 0 || k < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t row_bytes = static_cast<int64_t>(d) * elem;
+  const int unit = row_unit(row_bytes, elem, {table});
+  if (unit == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int units = static_cast<int>(row_bytes / unit);
+  if (dtype == 0) {
+    if (unit == 16)
+      return launch_ends_gather<0, 16>(table, rows, units, idx, w, ends, n_out, k, out, s);
+    if (unit == 8)
+      return launch_ends_gather<0, 8>(table, rows, units, idx, w, ends, n_out, k, out, s);
+    return launch_ends_gather<0, 4>(table, rows, units, idx, w, ends, n_out, k, out, s);
+  }
+  if (unit == 16)
+    return launch_ends_gather<1, 16>(table, rows, units, idx, w, ends, n_out, k, out, s);
+  if (unit == 8)
+    return launch_ends_gather<1, 8>(table, rows, units, idx, w, ends, n_out, k, out, s);
+  if (unit == 4)
+    return launch_ends_gather<1, 4>(table, rows, units, idx, w, ends, n_out, k, out, s);
+  return launch_ends_gather<1, 2>(table, rows, units, idx, w, ends, n_out, k, out, s);
+}
+
 #endif  // SGT_GATHER
 
 #if SGT_CV
@@ -1961,10 +2200,16 @@ int sgt_hbm_gather_aggregate(const void* table, int dtype, int64_t rows,
 }
 
 // Sampled fanout term: x [c, d], pos/w [n_out, k] -> out [n_out, d];
-// positions >= c (parked slots) contribute zero.
+// positions >= c (parked slots) contribute zero.  ends: null, or int32
+// [n_out], row f's slots at or past ends[f] are not read (they must be
+// dead): ends_gather_kernel; without ends the gather's own plan.
 int sgt_fanout_aggregate(const void* x, int dtype, int64_t c, int d,
-                         const int32_t* pos, const float* w, int n_out, int k,
-                         float* out, void* stream) {
+                         const int32_t* pos, const float* w,
+                         const int32_t* ends, int n_out, int k, float* out,
+                         void* stream) {
+  if (ends != nullptr)
+    return ends_gather(x, dtype, c, d, pos, w, ends, n_out, k, out,
+                       static_cast<cudaStream_t>(stream));
   return gather_aggregate(x, dtype, c, d, pos, w, n_out, k, out,
                           static_cast<cudaStream_t>(stream), kPlanSplit);
 }

@@ -344,12 +344,15 @@ def _slice_inputs(features, field0: torch.Tensor, num_nodes: int = -1,
     padded-sparse features the ``(idx, val)`` rows and their ``ends``: an
     id at or above the sentinel reads row N, whose slots are ``(dim, 0)``
     and whose end is 0.  Row-sharded features (``mesh.shard_graph``) are
-    read from their owners, row N of padded-sparse ones included, without
-    their ends (the gradient then reads every slot)."""
+    read from their owners, row N of padded-sparse ones included, their
+    ends in the same exchange as their rows."""
     if mesh is not None and mesh.shard_graph:
         if isinstance(features, PaddedSparseFeatures):
-            idx, val = row_gather2(features.idx, features.val, field0, mesh)
-            return features.replace(idx=idx, val=val, ends=None)
+            idx, val, *ends = row_gather2(features.idx, features.val,
+                                          field0, mesh,
+                                          local_e=features.ends)
+            return features.replace(idx=idx, val=val,
+                                    ends=ends[0] if ends else None)
         return halo_row_gather(features, field0, mesh, num_nodes)
     if isinstance(features, PaddedSparseFeatures):
         ids = field0.to(torch.int64).clamp(max=features.idx.shape[0] - 1)

@@ -35,6 +35,8 @@ PARTS = (1, 2, 3)     # SGT_PART of each source's compiles (csrc/spmm.cu)
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # (table, dtype, rows, d, idx, w, n_out, k, out, stream)
 _GATHER_ARGS = [_P, _I, _I64, _I, _P, _P, _I, _I, _P, _P]
+# (x, dtype, c, d, pos, w, ends or NULL, n_out, k, out, stream)
+_FANOUT_ARGS = [_P, _I, _I64, _I, _P, _P, _P, _I, _I, _P, _P]
 # (g, pos, w, ends or NULL, n_out, k, c, d, grad_x, stream)
 _BACKWARD_ARGS = [_P, _P, _P, _P, _I, _I, _I64, _I, _P, _P]
 # (x, c, d, hist, hist_dtype, hist_rows, field_in, sentinel, pos, w, n_out,
@@ -42,7 +44,7 @@ _BACKWARD_ARGS = [_P, _P, _P, _P, _I, _I, _I64, _I, _P, _P]
 _CV_ARGS = [_P, _I64, _I, _P, _I, _I64, _P, _I64, _P, _P, _I, _I, _P, _P, _P]
 _ENTRY_POINTS = {
     "sgt_hbm_gather_aggregate": _GATHER_ARGS,
-    "sgt_fanout_aggregate": _GATHER_ARGS,
+    "sgt_fanout_aggregate": _FANOUT_ARGS,
     "sgt_gather_aggregate_split": _GATHER_ARGS + [_I],  # split
     "sgt_gather_plan": [_I, _I, _I, _I],                # dtype, d, n_out, k
     "sgt_backward_plan": [_I, _I],                      # n_out, k

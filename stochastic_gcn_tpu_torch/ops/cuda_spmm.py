@@ -20,7 +20,8 @@ nothing and is never read:
   scatter-add ``grad_x[pos[f,s]] += w[f,s] * g[f]``.  It serves the
   estimators without a control variate (NS training, Exact evaluation)
   and the padded-sparse first layer, whose rows also carry ``ends``, the
-  end of each row's live slots: the backward reads no slot past it;
+  end of each row's live slots: neither the forward nor the backward
+  reads a slot past it;
 * :func:`cv_fanout_aggregate` — the sampled term of the CV estimator on top
   of the full term, the whole control-variate delta in one launch:
   ``out[f] = base[f] + sum_s w[f,s] * (x[pos[f,s]] - h_bar(field_in[pos[f,s]]))``
@@ -40,8 +41,9 @@ outside PyTorch's allocator, so they can be captured in a CUDA graph.
 The C entries pick the kernel from the shape and the alignment alone
 (several warps per output row for the full term, one warp per row at K = 1
 and for the CV delta; for the backward a cooperative zero-fill-and-scatter
-with up to 8 warps per row of many slots, or, given ``ends``, a warp a
-row over the slots before the row's end only).  Rows of any width ``d >= 1``
+with up to 8 warps per row of many slots; given ``ends``, both fanout
+kernels walk the slots before each row's end only, a row of many slots
+over several warps).  Rows of any width ``d >= 1``
 are taken: rows of at most 512 bytes of whole 16-byte chunks behind
 16-byte aligned pointers run the chunked kernels, rows of 528-2048 bytes of
 whole chunks a kernel that copies rows with TMA, and every other row goes
@@ -68,11 +70,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # pass through the wrapper and are not counted.
 LAUNCHES = {"cv_fanout_aggregate": 0, "fanout_aggregate": 0,
             "fanout_aggregate_backward": 0, "hbm_gather_aggregate": 0}
+# of those, the fanout launches given the rows' ends (the kernels that
+# stop at each row's end), by the same rules
+ENDS_LAUNCHES = {"fanout_aggregate": 0, "fanout_aggregate_backward": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ENDS_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -80,11 +86,22 @@ def _acc_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
+def _before_ends(live: torch.Tensor, ends) -> torch.Tensor:
+    """``live`` ([F, K]) with slot ``s`` of row ``f`` kept only for ``s <
+    ends[f]``; unchanged without ``ends``."""
+    if ends is None:
+        return live
+    return live & (torch.arange(live.shape[1], device=live.device)
+                   < ends.unsqueeze(1))
+
+
 def _gather_aggregate_ref(table: torch.Tensor, idx: torch.Tensor,
-                          w: torch.Tensor) -> torch.Tensor:
-    """Masked ``index_select`` then ``einsum('fk,fkd->fd')`` in float32."""
+                          w: torch.Tensor, ends=None) -> torch.Tensor:
+    """Masked ``index_select`` then ``einsum('fk,fkd->fd')`` in float32;
+    with ``ends`` no slot at or past a row's end counts."""
     acc = _acc_dtype(table)
-    live = (w != 0) & (idx >= 0) & (idx < table.shape[0])
+    live = _before_ends((w != 0) & (idx >= 0) & (idx < table.shape[0]),
+                        ends)
     safe = torch.where(live, idx, 0).to(torch.int64)
     rows = table.index_select(0, safe.reshape(-1)).reshape(
         *idx.shape, table.shape[1]).to(acc)
@@ -93,10 +110,12 @@ def _gather_aggregate_ref(table: torch.Tensor, idx: torch.Tensor,
 
 
 def fanout_aggregate_ref(x: torch.Tensor, pos: torch.Tensor,
-                         w: torch.Tensor) -> torch.Tensor:
+                         w: torch.Tensor,
+                         ends: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`fanout_aggregate` (differentiable in
-    ``x`` through ordinary autograd)."""
-    return _gather_aggregate_ref(x, pos, w)
+    ``x`` through ordinary autograd); with ``ends``, slot ``s`` of row
+    ``f`` counts only for ``s < ends[f]``."""
+    return _gather_aggregate_ref(x, pos, w, ends)
 
 
 def fanout_aggregate_backward_ref(g: torch.Tensor, pos: torch.Tensor,
@@ -106,10 +125,7 @@ def fanout_aggregate_backward_ref(g: torch.Tensor, pos: torch.Tensor,
     """Plain PyTorch version of :func:`fanout_aggregate_backward`: a masked
     ``index_add_`` of ``w[f,s] * g[f]`` at ``pos[f,s]``; with ``ends``,
     slot ``s`` of row ``f`` counts only for ``s < ends[f]``."""
-    live = (w != 0) & (pos >= 0) & (pos < rows)
-    if ends is not None:
-        live &= (torch.arange(pos.shape[1], device=pos.device)
-                 < ends.unsqueeze(1))
+    live = _before_ends((w != 0) & (pos >= 0) & (pos < rows), ends)
     contrib = torch.where(live.unsqueeze(-1),
                           w.to(g.dtype).unsqueeze(-1) * g.unsqueeze(1), 0.0)
     safe = torch.where(live, pos, 0).to(torch.int64).reshape(-1)
@@ -219,7 +235,10 @@ def _call(device: torch.device, name: str, args: tuple,
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def _gather(entry: str, counter, table, idx, w, after=()) -> torch.Tensor:
+def _gather(entry: str, counter, table, idx, w, after=(),
+            slots=()) -> torch.Tensor:
+    """Launch the gather entry ``entry`` as ``(table, dtype, rows, d, idx,
+    w, *slots, f, k, out, stream, *after)``, counted under ``counter``."""
     _check(table, idx, w)
     f, k = idx.shape
     out = torch.empty((f, table.shape[1]), dtype=torch.float32,
@@ -228,18 +247,22 @@ def _gather(entry: str, counter, table, idx, w, after=()) -> torch.Tensor:
         return out
     _call(table.device, entry,
           (table.data_ptr(), _DTYPE_CODE[table.dtype], table.shape[0],
-           table.shape[1], idx.data_ptr(), w.data_ptr(), f, k,
+           table.shape[1], idx.data_ptr(), w.data_ptr(), *slots, f, k,
            out.data_ptr()), after)
     if counter is not None:
         LAUNCHES[counter] += 1
     return out
 
 
-def _fanout_forward(x, pos, w) -> torch.Tensor:
+def _fanout_forward(x, pos, w, ends=None) -> torch.Tensor:
     if x.device.type == "cpu":
         _check_slots(pos, w)
-        return fanout_aggregate_ref(x, pos, w)
-    return _gather("sgt_fanout_aggregate", "fanout_aggregate", x, pos, w)
+        return fanout_aggregate_ref(x, pos, w, ends)
+    out = _gather("sgt_fanout_aggregate", "fanout_aggregate", x, pos, w,
+                  slots=(None if ends is None else ends.data_ptr(),))
+    if ends is not None and pos.shape[0]:
+        ENDS_LAUNCHES["fanout_aggregate"] += 1
+    return out
 
 
 def fanout_aggregate_backward(g: torch.Tensor, pos: torch.Tensor,
@@ -277,6 +300,8 @@ def fanout_aggregate_backward(g: torch.Tensor, pos: torch.Tensor,
            None if ends is None else ends.data_ptr(), f, k, rows,
            g.shape[1], grad.data_ptr()))
     LAUNCHES["fanout_aggregate_backward"] += 1
+    if ends is not None:
+        ENDS_LAUNCHES["fanout_aggregate_backward"] += 1
     return grad
 
 
@@ -284,8 +309,8 @@ class FanoutAggregate(torch.autograd.Function):
     """``fanout_aggregate(x, pos, w, ends)``, differentiable in ``x``: the
     forward and the backward are the two fanout kernels on CUDA tensors and
     their plain versions on CPU tensors.  ``pos``, ``w`` and ``ends`` get
-    no gradient; a ``w`` that requires one raises.  ``ends`` reaches the
-    backward only."""
+    no gradient; a ``w`` that requires one raises.  ``ends`` reaches both
+    directions."""
 
     @staticmethod
     def forward(ctx, x, pos, w, ends=None):
@@ -294,7 +319,7 @@ class FanoutAggregate(torch.autograd.Function):
                              "supported: the slot weights get no gradient")
         ctx.save_for_backward(pos, w, ends)
         ctx.rows, ctx.x_dtype = x.shape[0], x.dtype
-        return _fanout_forward(x, pos, w)
+        return _fanout_forward(x, pos, w, ends)
 
     @staticmethod
     def backward(ctx, g):
@@ -309,13 +334,14 @@ def fanout_aggregate(x: torch.Tensor, pos: torch.Tensor, w: torch.Tensor,
     """``out[f] = sum_s w[f,s] * x[pos[f,s]]``: x [C, d] float32 or bfloat16,
     pos [F, K] int32, w [F, K] float32 -> [F, d] float32; differentiable in
     ``x`` (:class:`FanoutAggregate`).  ``ends`` (int32 ``[F]``, optional):
-    every live slot of row ``f`` lies before ``ends[f]``, so the gradient
-    reads no slot past it (the forward reads every slot)."""
+    slots at or past ``ends[f]`` are not read, neither by the forward nor
+    by the gradient; the caller guarantees they are dead (the
+    padded-sparse table's ends, ``data/graph.py``)."""
     if ends is not None:
         _check_ends(ends, pos)
     if w.requires_grad or (torch.is_grad_enabled() and x.requires_grad):
         return FanoutAggregate.apply(x, pos, w, ends)
-    return _fanout_forward(x, pos, w)         # nothing to record
+    return _fanout_forward(x, pos, w, ends)   # nothing to record
 
 
 def _cv_fanout_forward(x, hist, field_in, sentinel, pos, w, base):

@@ -16,11 +16,13 @@ import dataclasses
 import os
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 import torch.distributed as dist
 
 from ..config import from_fields, parse_flags
-from ..data.graph import PaddedGraph, shard_graph_rows, shard_table_rows
+from ..data.graph import (PaddedGraph, live_ends, pad_sparse_features,
+                          shard_graph_rows, shard_table_rows)
 from ..data.loaders import load_data
 from ..models import gcn as M
 from ..models.aggregators import (full_neighborhood_mean,
@@ -125,6 +127,15 @@ def halo_primitives(seed: int = 0, rows_per_rank: int = 40, d: int = 12,
                                     plain(itable, ids))
     errs["row_gather2 float"] = _same("row_gather2 float32", gf,
                                       plain(ftable, ids))
+    # with a third, one-column int32 table riding in the same rows
+    ecol = itable[:, 0].contiguous()
+    gi, gf, ge = halo.row_gather2(mesh.local(itable), mesh.local(ftable),
+                                  ids, mesh, sentinel, mesh.local(ecol))
+    errs["row_gather2 column"] = max(
+        _same("row_gather2 int32 beside a column", gi, plain(itable, ids)),
+        _same("row_gather2 float32 beside a column", gf, plain(ftable, ids)),
+        _same("row_gather2 int32 column", ge,
+              plain(ecol.reshape(-1, 1), ids).reshape(-1)))
 
     # scatter of unique ids (each rank a disjoint set) and sentinel ids
     perm = torch.randperm(sentinel, generator=torch.Generator().manual_seed(
@@ -252,6 +263,75 @@ def halo_capacity(mesh, table: torch.Tensor, sentinel: int, seed: int,
 def _save(path: str, arrays: dict) -> None:
     if dist.get_rank() == 0:
         np.savez(path, **arrays)
+
+
+def _all_to_alls(fn):
+    """``fn()`` and the all-to-alls it made, as the profiler records them
+    (nothing is patched): ``(values a row, rows)`` of each call's input."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        out = fn()
+    shapes = [e.input_shapes[1] for e in prof.events()
+              if e.name == "c10d::alltoall_base_"]
+    return out, [(int(np.prod(sh[1:])), sh[0]) for sh in shapes]
+
+
+def sparse_slices(out: str, seed: int = 0) -> None:
+    """The layer-0 field's rows of row-sharded padded-sparse features
+    (``--shard_graph``: ``models/gcn.py::_slice_inputs`` on this group's
+    mesh) against the slice of the whole table, field ids with repeats and
+    the sentinel N, every rank its own: the rows, values and ends must be
+    equal, and the ends those of the rows' columns.  The ends ride in the
+    rows' exchange: the slice makes the same all-to-all calls with them as
+    without, the last one's rows one int32 column wider, and the bytes
+    ``mesh.WIRE`` counts grow by 4 a row served to another rank (the
+    field's route says how many).  Rank 0 writes its field's ``ends``, the
+    whole table's slice (``want``), the calls' row shapes
+    (``calls_with``, ``calls_without``), ``wire_delta`` and the rows it
+    served (``served``) to ``out``."""
+    mesh = make_mesh()
+    dev = _device()
+    n, dim, cap = 61, 40, 9
+    x = sp.random(n, dim, density=0.12, random_state=seed, format="csr",
+                  dtype=np.float64)
+    x.data = np.random.default_rng(seed).normal(size=x.nnz)
+    feats = pad_sparse_features(x, cap, device=dev)
+    sharded = shard_table_rows(feats, mesh, shard_rows(n, mesh.size))
+    g = torch.Generator().manual_seed(seed + 1 + mesh.rank)
+    field = torch.randint(0, n + 1, (50,), generator=g)
+    field[:6] = field[6:12]                                # repeats
+    field[-3:] = n                                         # the sentinel
+    field = field.to(torch.int32).to(dev)
+    want = M._slice_inputs(feats, field, n)
+    r = halo.route(field, sharded.idx.shape[0] * mesh.size, mesh)
+    served = sum(r.recv) - r.recv[mesh.rank]
+
+    res = {}
+    for key, table in (("with", sharded), ("without", sharded.replace(
+            ends=None))):
+        before = PM.WIRE["all_to_all"]
+        got, calls = _all_to_alls(
+            lambda table=table: M._slice_inputs(table, field, n, mesh))
+        res[f"wire_{key}"] = PM.WIRE["all_to_all"] - before
+        res[f"calls_{key}"] = np.array(calls)
+        _same(f"sliced idx {key} the ends", got.idx, want.idx)
+        _same(f"sliced val {key} the ends", got.val, want.val)
+        if key == "with":
+            _same("sliced ends", got.ends, want.ends)
+            _same("sliced ends against the columns", got.ends,
+                  torch.from_numpy(live_ends(got.idx.cpu().numpy(),
+                                             dim)).to(dev))
+            res["ends"] = got.ends.cpu().numpy()
+        elif got.ends is not None:
+            _fail("a table without ends sliced with ends")
+    delta = res["wire_with"] - res["wire_without"]
+    if delta != 4 * served:
+        _fail(f"the ends cost {delta} wire bytes for {served} rows served")
+    _save(out, {"ends": res["ends"], "want": want.ends.cpu().numpy(),
+                "calls_with": res["calls_with"],
+                "calls_without": res["calls_without"],
+                "wire_delta": np.array(delta), "served": np.array(served)})
 
 
 def full_term(npz_in: str, npz_out: str) -> None:

@@ -275,22 +275,31 @@ def row_gather(local: torch.Tensor, ids: torch.Tensor, mesh: Mesh,
 
 
 def row_gather2(local_i: torch.Tensor, local_f: torch.Tensor,
-                ids: torch.Tensor, mesh: Mesh, sentinel: int = -1):
+                ids: torch.Tensor, mesh: Mesh, sentinel: int = -1,
+                local_e: torch.Tensor = None):
     """The same rows of an int32 and a float table of one row shape (a
     padded graph's ``nbr`` / ``w``, padded-sparse features' ``idx`` /
-    ``val``) in one exchange.  The int32 rows ride as float32 bit
-    patterns: the transport only moves rows and adds nothing, so they
-    arrive exact.  (JAX value-casts them because its gather's fallback
-    sums, and a flush-to-zero sum would lose the denormals small ids
-    bit-cast to.)  Not differentiable."""
+    ``val``) in one exchange; with ``local_e``, an int32 ``[rows]`` column
+    of the same table (padded-sparse features' ``ends``) rides in the same
+    rows, one more 4-byte column, and its entries come back third.  The
+    int32 rows ride as float32 bit patterns: the transport only moves rows
+    and adds nothing, so they arrive exact.  (JAX value-casts them because
+    its gather's fallback sums, and a flush-to-zero sum would lose the
+    denormals small ids bit-cast to.)  Not differentiable."""
     k = local_i.shape[1]
-    both = torch.cat([local_i.view(torch.float32), local_f.float()], dim=1)
+    cols = [local_i.view(torch.float32), local_f.float()]
+    if local_e is not None:
+        cols.append(local_e.view(torch.float32).reshape(-1, 1))
+    both = torch.cat(cols, dim=1)
     r = route(ids, local_i.shape[0] * mesh.size, mesh, sentinel)
     got = r.fetch(both)
     rows_i = got[:, :k].contiguous().view(torch.int32)
-    rows_f = got[:, k:].to(local_f.dtype).contiguous()
-    return (rows_i.reshape(*ids.shape, k),
-            rows_f.reshape(*ids.shape, k))
+    rows_f = got[:, k:2 * k].to(local_f.dtype).contiguous()
+    out = (rows_i.reshape(*ids.shape, k), rows_f.reshape(*ids.shape, k))
+    if local_e is None:
+        return out
+    rows_e = got[:, 2 * k].contiguous().view(torch.int32)
+    return (*out, rows_e.reshape(ids.shape))
 
 
 @torch.no_grad()

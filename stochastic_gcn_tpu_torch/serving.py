@@ -14,7 +14,10 @@ a torch artifact can keep it:
   converged eval histories, the eval graph (``graph/nbr``, ``w``, ``deg``
   padded; ``graph/bstart``, ``idx``, ``w``, ``deg``, ``renorm`` edge-list),
   the test features (dense, or
-  ``idx`` / ``val`` when padded-sparse), the labels and the importance
+  ``idx`` / ``val`` when padded-sparse: the rows' ends are no key of
+  their own, the Predictor computes them from ``idx`` at load, so the
+  sparse layer stops at each row's end as the Trainer's does, and older
+  artifacts load), the labels and the importance
   table, named as ``manifest["names"]`` lists them; ``bfloat16`` arrays
   are stored as their ``uint16`` bit view under the ``"bf16:"`` prefix, as
   the JAX package stores them, and ``id_map`` where the trainer relabelled
@@ -64,7 +67,8 @@ import numpy as np
 import torch
 
 from .config import from_fields
-from .data.graph import FlatGraph, PaddedGraph, PaddedSparseFeatures
+from .data.graph import (FlatGraph, PaddedGraph, PaddedSparseFeatures,
+                         live_ends)
 from .models import gcn as M
 from .parallel.mesh import whole
 from .training import step as S
@@ -272,10 +276,15 @@ class Predictor:
         self._graph = layout(**{name: state[f"graph/{name}"]
                                 for name in _GRAPH_FIELDS[layout][0]},
                              **m["graph_statics"])
-        self._features = PaddedSparseFeatures(
-            idx=state["features/idx"], val=state["features/val"],
-            dim=m["sparse_dim"]) if "features/idx" in state \
-            else state["features"]
+        self._features = state.get("features")
+        if "features/idx" in state:
+            # the rows' ends, from the stored columns: the sparse layer's
+            # kernel stops at each row's end, as Trainer.predict's does
+            idx = state["features/idx"]
+            self._features = PaddedSparseFeatures(
+                idx=idx, val=state["features/val"], dim=m["sparse_dim"],
+                ends=torch.from_numpy(live_ends(idx.cpu().numpy(),
+                                                m["sparse_dim"])).to(device))
         self._labels = state["labels"]
         self._importance = state["importance"]
 

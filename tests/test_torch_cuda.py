@@ -689,15 +689,16 @@ def test_backward_on_many_slots_on_few_rows(cuda, case):
     torch.testing.assert_close(got, want, **TOL)
 
 
-def _ended_slots(seed, c, f, k, d, kind):
+def _ended_slots(seed, c, f, k, d, kind, share=0.3):
     """Slots of a padded-sparse layer's rows with their ends: live slots
     a prefix of the row (``pad_sparse_features``' layout), or anywhere
     before the end (``not a prefix``), or clustered on few columns with a
     live slot at K - 1; the rest hold the sentinel column ``c`` and weight
-    0, and a row with no live slot has a NaN g row."""
+    0, and a row with no live slot has a NaN g row.  A ``share`` of the
+    rows own live slots, the others none."""
     rng = np.random.default_rng(seed)
     g = rng.normal(size=(f, d)).astype(np.float32)
-    n_live = np.where(rng.random(f) < 0.3, rng.integers(0, k + 1, f), 0)
+    n_live = np.where(rng.random(f) < share, rng.integers(0, k + 1, f), 0)
     pos = np.full((f, k), c, np.int32)
     w = np.zeros((f, k), np.float32)
     for r in range(f):
@@ -766,6 +767,61 @@ def test_backward_with_ends_matches_plain(cuda, case):
             <= 1e-5 + 1e-5 * want.abs() + slack).all()
 
 
+# (C, F, K, d, kind, share of rows with live slots, table dtype)
+ENDED_FORWARD_CASES = [
+    (500, 3000, 333, 32, "prefix", 0.3, torch.float32),  # the sparse layer
+    (500, 3000, 333, 32, "not a prefix", 0.3, torch.float32),
+    (500, 3000, 40, 32, "clustered", 0.3, torch.float32),
+    (500, 777, 200, 32, "prefix", 1.0, torch.float32),   # every row long
+    (20, 1, 600, 32, "not a prefix", 1.0, torch.float32),  # F = 1
+    (300, 2501, 50, 128, "prefix", 0.5, torch.float32),   # 32 units a row
+    (50, 3000, 37, 13, "not a prefix", 0.5, torch.float32),  # by element
+    (40, 777, 90, 64, "clustered", 0.6, torch.float32),   # 16 units
+    (50, 16, 300, 602, "prefix", 0.8, torch.float32),     # passes of units
+    (500, 999, 333, 64, "prefix", 0.3, torch.bfloat16),   # bf16 by 16 B
+    (50, 300, 80, 13, "not a prefix", 0.5, torch.bfloat16),  # bf16 by 2 B
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ENDED_FORWARD_CASES, ids=str)
+def test_forward_with_ends_matches_plain(cuda, case):
+    """The forward given the rows' ends (ends_gather_kernel: each row that
+    does not end at 0 over the block's 8 warps) equals the plain version
+    with the same ends on seeded fields of long and empty rows; it reads
+    no slot past a row's end (live-looking slots there, column 0 and
+    weight 1, add nothing), writes rows that end at 0 as zeros, gives the
+    same bits on a second call, and counts one launch given ends.
+    Tolerance: TOL plus the float32 summation-order bound, 2 n 2^-24 times
+    the sum of the terms' magnitudes (n the most live slots on a row: up
+    to ~330 unit-scale terms, whose sums differ by ~1e-5 between
+    orders)."""
+    c, f, k, d, kind, share, dtype = case
+    _, pos, w, ends = (torch.from_numpy(a).to(cuda) for a in _ended_slots(
+        31, c, f, k, d, kind, share))
+    table = torch.from_numpy(np.random.default_rng(32).normal(
+        size=(c, d)).astype(np.float32)).to(cuda, dtype)
+    past = torch.arange(k, device=cuda)[None, :] >= ends[:, None]
+    noisy_pos = torch.where(past, torch.zeros_like(pos), pos)
+    noisy_w = torch.where(past, torch.ones_like(w), w)
+    want = K.fanout_aggregate_ref(table.float(), pos, w, ends)
+    before = dict(K.ENDS_LAUNCHES), K.LAUNCHES["fanout_aggregate"]
+    got = K.fanout_aggregate(table, noisy_pos, noisy_w, ends)
+    again = K.fanout_aggregate(table, noisy_pos, noisy_w, ends)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fanout_aggregate"] == before[1] + 2
+    assert K.ENDS_LAUNCHES["fanout_aggregate"] == \
+        before[0]["fanout_aggregate"] + 2
+    n = int(((w != 0) & (pos < c)).sum(1).max())
+    bound = 1e-5 + 1e-5 * want.abs() + 2 * n * 2.0 ** -24 * \
+        K.fanout_aggregate_ref(table.float().abs(), pos, w.abs(), ends)
+    assert torch.isfinite(got).all() and ((got - want).abs() <= bound).all()
+    assert torch.equal(got, again)
+    assert (got[ends == 0] == 0).all()
+    # the same slots without the ends: the gather's own plan, same sums
+    assert ((K.fanout_aggregate(table, pos, w) - want).abs() <= bound).all()
+
+
 @pytest.mark.requires_cuda
 def test_misaligned_views_go_by_element(cuda):
     """Rows whose pointer is only 4-byte aligned take the 4-byte units of
@@ -832,7 +888,10 @@ def test_kernels_replay_in_a_cuda_graph(cuda):
                     x.repeat(1, 5)[:, :602].contiguous(),
                     hist.repeat(1, 5)[:, :602].contiguous(), field_in, 20000,
                     pos, pw, table.repeat(1, 5)[:512, :602].contiguous()),
-                K.fanout_aggregate_backward(mg, mpos, mw, 500, mends))
+                K.fanout_aggregate_backward(mg, mpos, mw, 500, mends),
+                # the forward with the rows' ends (ends_gather_kernel)
+                K.fanout_aggregate(table[:500, :32].contiguous(), mpos, mw,
+                                   mends))
 
     static = inputs(17)
     run(*static)                                     # build, warm up
@@ -841,7 +900,7 @@ def test_kernels_replay_in_a_cuda_graph(cuda):
     K.reset_launches()
     with torch.cuda.graph(graph):
         outs = run(*static)
-    assert K.LAUNCHES == {"fanout_aggregate": 2, "hbm_gather_aggregate": 3,
+    assert K.LAUNCHES == {"fanout_aggregate": 3, "hbm_gather_aggregate": 3,
                           "fanout_aggregate_backward": 4,
                           "cv_fanout_aggregate": 2}
     assert K.gather_plan(torch.zeros(8, 602, device=cuda), 512, 1) == 0
@@ -853,7 +912,7 @@ def test_kernels_replay_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         want = run(*fresh)
-        for i in (0, 1, 3, 4, 5, 8, 9):              # fixed sum order
+        for i in (0, 1, 3, 4, 5, 8, 9, 11):          # fixed sum order
             assert torch.equal(outs[i], want[i]), i
         for i in (2, 6, 7, 10):                      # atomics
             torch.testing.assert_close(outs[i], want[i], **TOL)

@@ -282,3 +282,160 @@ def test_kernel_bytes_of_the_backward_with_ends_on_hand_counted_inputs():
                                          32, 500)
     assert got < every_slot / 40
     assert chip_smoke.bound_ms(got, 2 * 59_040 * 32)[1] == "bytes"
+
+
+# ---- the forward with the ends ----
+
+@pytest.mark.parametrize("kind", list(TABLES))
+@pytest.mark.parametrize("rows, dim, cap, out", [(37, 50, 12, 8),
+                                                 (64, 500, 40, 32)])
+def test_plain_forward_with_the_true_ends_equals_it_without_and_jax(
+        kind, rows, dim, cap, out):
+    """The plain forward given a table's own ends is bitwise the one
+    without them (only dead slots lie past them), and equals JAX's sparse
+    ``matmul`` on the same numpy rows."""
+    feats, jx = TABLES[kind](9, rows, dim, cap)
+    w = np.random.default_rng(10).normal(size=(dim, out)).astype(np.float32)
+    tw = torch.from_numpy(w)
+    val = feats.val.float()
+    with_ends = K.fanout_aggregate_ref(tw, feats.idx, val, feats.ends)
+    assert torch.equal(with_ends,
+                       K.fanout_aggregate_ref(tw, feats.idx, val))
+    assert torch.equal(K.fanout_aggregate(tw, feats.idx, val, feats.ends),
+                       with_ends)
+    np.testing.assert_allclose(with_ends.numpy(),
+                               np.asarray(JL.matmul(jx, jnp.asarray(w))),
+                               **TOL)
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_forward_with_ends_skips_exactly_the_slots_past_them(seed):
+    """The forward with ends equals the one without on weights zeroed at
+    and past each row's end, whatever those slots hold; ends beyond K and
+    below 0 clamp.  Tolerance: TOL (the same sums, float32)."""
+    rng = np.random.default_rng(seed)
+    f, k, rows, d = 23, 9, 15, 6
+    x = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32))
+    pos = torch.from_numpy(rng.integers(0, rows, (f, k)).astype(np.int32))
+    w = torch.from_numpy(rng.uniform(0.1, 1.0, (f, k)).astype(np.float32))
+    ends = torch.from_numpy(rng.integers(-2, k + 3, f).astype(np.int32))
+    cut = torch.arange(k)[None, :] < ends[:, None]
+    want = K.fanout_aggregate_ref(x, pos, torch.where(cut, w, 0.0))
+    torch.testing.assert_close(K.fanout_aggregate(x, pos, w, ends), want,
+                               **TOL)
+    assert (K.fanout_aggregate(x, pos, w, ends)[ends <= 0] == 0).all()
+    # with every slot before its end, the ends change nothing
+    full = torch.full((f,), k, dtype=torch.int32)
+    torch.testing.assert_close(K.fanout_aggregate(x, pos, w, full),
+                               K.fanout_aggregate_ref(x, pos, w), **TOL)
+
+
+def test_sparse_matmul_hands_the_ends_to_the_forward(monkeypatch):
+    """The layer's forward is the kernel's wrapper called with the table's
+    ends, under no-grad (evaluation, ``predict``, the artifact) and with a
+    gradient to record (``FanoutAggregate.forward``)."""
+    feats, _ = _prefix_table(4, 20, 30, 8)
+    seen = []
+    real = K._fanout_forward
+
+    def spy(x, pos, w, ends=None):
+        seen.append(ends)
+        return real(x, pos, w, ends)
+
+    monkeypatch.setattr(K, "_fanout_forward", spy)
+    tw = torch.randn(30, 4)
+    with torch.no_grad():
+        L.matmul(feats, tw)
+    L.matmul(feats, tw.requires_grad_()).sum().backward()
+    assert len(seen) == 2
+    assert all(torch.equal(e, feats.ends) for e in seen)
+
+
+def test_kernel_bytes_of_the_forward_with_ends_on_hand_counted_inputs():
+    """chip_smoke's bound for the forward given the ends: the ends, the
+    slots before them, the rows of W under a live slot once and the output
+    written once; the slots past the ends are not counted.  At the real
+    PubMed batches' counts that is ~2.5 MB, ~0.75 us at 3.35 TB/s."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    # F = 15,000 rows of K = 333, 59,040 slots before the ends, all 500
+    # rows of W (128 bytes each) named, out [15000, 32] float32
+    got = chip_smoke.kernel_bytes("gather ends", 500, 128, 15_000, 333, 32,
+                                  15_000, ranged=59_040)
+    assert got == 15_000 * 4 + 59_040 * 8 + 500 * 128 + 15_000 * 32 * 4
+    every_slot = chip_smoke.kernel_bytes("gather", 500, 128, 15_000, 333,
+                                         32, 15_000)
+    assert every_slot == 500 * 128 + 15_000 * 333 * 8 + 15_000 * 32 * 4
+    assert got < every_slot / 16
+    ms, by = chip_smoke.bound_ms(got, 2 * 59_040 * 32)
+    assert by == "bytes" and abs(ms - 7.5e-4) < 2e-5
+
+
+def test_sharded_slices_carry_the_unsharded_ends_in_one_exchange(tmp_path):
+    """Under ``--dp 2 --shard_graph`` (two gloo ranks) the sliced rows of a
+    row-sharded padded-sparse table carry the ends of the unsharded slice
+    (``parallel/checks.py::sparse_slices`` also holds the rows and values
+    there); they ride in the rows' one exchange: the same all-to-all calls
+    as without them, the last one's rows one column wider, 4 more wire
+    bytes a row served to the other rank.  The calls are read from the
+    profiler's record of the collectives: (values a row, rows) of each
+    call's input."""
+    from stochastic_gcn_tpu_torch.parallel import checks, launch
+    out = str(tmp_path / "slices.npz")
+    launch.spawn(checks.run_jobs, 2, ([("sparse_slices", (out,))],), "cpu",
+                 store_dir=str(tmp_path))
+    z = np.load(out)
+    np.testing.assert_array_equal(z["ends"], z["want"])
+    assert (z["want"] == 0).any() and (z["want"] > 0).any()
+    with_e, without = z["calls_with"], z["calls_without"]
+    assert with_e.shape == without.shape
+    np.testing.assert_array_equal(with_e[:-1], without[:-1])
+    assert with_e[-1, 0] == without[-1, 0] + 1       # one more column
+    assert with_e[-1, 1] == without[-1, 1] >= z["served"] > 0
+    assert z["wire_delta"] == 4 * z["served"]
+
+
+def test_predictor_carries_the_trainers_ends(tmp_path, monkeypatch):
+    """A Predictor loaded from the artifact of a Trainer on padded-sparse
+    features computes the Trainer's row ends from the stored columns (the
+    artifact holds no key for them), hands them to the sparse layer's
+    kernel wrapper, and answers bitwise as ``Trainer.predict`` does."""
+    import os
+    from stochastic_gcn_tpu_torch import serving
+    from stochastic_gcn_tpu_torch.config import Config
+    from stochastic_gcn_tpu_torch.data import fixtures as F
+    from stochastic_gcn_tpu_torch.data.loaders import load_data
+    from stochastic_gcn_tpu_torch.training.loop import Trainer
+    data = str(tmp_path / "data")
+    F.write_planetoid_fixture(data, F.PlanetoidSpec(
+        name="cora", num_extra=520, num_test=60, feature_dim=40,
+        num_classes=4))
+    cfg = Config(dataset="cora", data_dir=data, cv=True, test_cv=True,
+                 degree=1, test_degree=1, batch_size=64, test_batch_size=50,
+                 hidden1=16, seed=3, ckpt_dir=str(tmp_path))
+    ds = load_data(cfg)
+    tr = Trainer(cfg, ds, device="cpu")
+    tr.train_epoch()
+    path = serving.export_predictor(tr, str(tmp_path / "art"))
+    ids = np.asarray(ds.test_d)
+    live = tr.predict(ids)
+    with np.load(os.path.join(path, "state.npz")) as z:
+        assert not any("ends" in key for key in z.files)
+    pred = serving.load_predictor(path, device="cpu")
+    assert tr.test_features.ends is not None
+    assert torch.equal(pred._features.ends, tr.test_features.ends)
+    seen = []
+    real = K._fanout_forward
+
+    def spy(x, pos, w, ends=None):
+        seen.append(ends)
+        return real(x, pos, w, ends)
+
+    monkeypatch.setattr(K, "_fanout_forward", spy)
+    got = pred.predict(ids)
+    np.testing.assert_array_equal(got, live)
+    assert seen and all(e is not None for e in seen)
